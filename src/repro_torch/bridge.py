@@ -1,0 +1,57 @@
+"""Parameter bridge between the reference's numpy trees and the port.
+
+The reference initialises parameters from ``jax.random``, which PyTorch
+cannot replay, so every model-level equivalence test starts from a tree the
+reference made, converted leaf by leaf.  A tree is nested dicts and lists
+(tuples allowed) of arrays; the structure and every dtype are kept, and a
+round trip is bitwise.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+
+def _bf16_numpy_dtype():
+    # numpy has no bfloat16 of its own; the reference's arrays use ml_dtypes'
+    import ml_dtypes
+
+    return np.dtype(ml_dtypes.bfloat16)
+
+
+def _to_torch(a, device: torch.device) -> torch.Tensor:
+    a = np.array(a, order="C")      # own, writable copy: no aliasing
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(_bf16_numpy_dtype())
+    return t.numpy()
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(v, fn) for v in tree)
+    return fn(tree)
+
+
+def params_from_numpy(tree, device: str | torch.device = "cuda"):
+    """numpy (or array-like) tree -> the same tree of tensors on ``device``."""
+    dev = resolve_device(device)
+    return _map(tree, lambda a: _to_torch(a, dev))
+
+
+def params_to_numpy(tree):
+    """Tensor tree -> the same tree of numpy arrays on the host."""
+    return _map(tree, _to_numpy)

@@ -1,0 +1,140 @@
+"""Shared building blocks: inits, norms, linears, RoPE, activations.
+
+Port of ``repro.models.common``.  Parameters are plain nested dicts of
+tensors with the reference's keys, so a tree converted by
+:mod:`repro_torch.bridge` runs here unchanged.  Inits draw from an explicit
+``torch.Generator`` that lives on the device the tensors are made on; they
+cannot replay ``jax.random``, so the tests start from bridged parameters.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+_SQRT2 = math.sqrt(2.0)
+
+
+def trunc_normal(generator: torch.Generator | None, shape, std: float,
+                 dtype: torch.dtype = torch.float32,
+                 device: str | torch.device | None = None) -> torch.Tensor:
+    """A *standard* normal truncated to [-2, 2], cast, then scaled by
+    ``std`` — the reference's order, so the bounds are ±2·std (not the
+    absolute bounds of ``torch.nn.init.trunc_normal_``).  Sampled by
+    inverting the normal CDF on a uniform draw."""
+    hi = math.erf(2.0 / _SQRT2)
+    u = torch.empty(shape, dtype=torch.float32, device=device)
+    u.uniform_(-hi, hi, generator=generator)
+    x = u.erfinv_().mul_(_SQRT2).clamp_(-2.0, 2.0)
+    return x.to(dtype) * std
+
+
+def dense_init(generator, d_in: int, d_out: int, *,
+               dtype: torch.dtype = torch.float32, bias: bool = False,
+               std: float | None = None, device=None) -> dict:
+    std = std if std is not None else 1.0 / math.sqrt(d_in)
+    p = {"w": trunc_normal(generator, (d_in, d_out), std, dtype, device)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    return p
+
+
+def dense(p: dict, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    """``x @ w (+ b)`` in ``compute_dtype``; the cast is free when the
+    weights already hold that type (see the engine's compute copy)."""
+    y = x.to(compute_dtype) @ p["w"].to(compute_dtype)
+    if "b" in p:
+        y = y + p["b"].to(compute_dtype)
+    return y
+
+
+def rmsnorm_init(d: int, dtype: torch.dtype = torch.float32,
+                 device=None) -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p["scale"].float()).to(dt)
+
+
+def activation(name: str):
+    # jax.nn.gelu defaults to the tanh approximation
+    return {"silu": F.silu,
+            "gelu": lambda x: F.gelu(x, approximate="tanh"),
+            "relu": F.relu}[name]
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, H, S, D); positions: (B, S) or (S,)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, device=x.device)            # (D/2,)
+    if positions.ndim == 1:
+        positions = positions[None, :]
+    ang = positions[:, None, :, None].float() * freqs       # (B,1,S,D/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    rx1 = x1 * cos - x2 * sin
+    rx2 = x2 * cos + x1 * sin
+    return torch.cat([rx1, rx2], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+
+def glu_mlp_init(generator, d: int, f: int, *,
+                 dtype: torch.dtype = torch.float32, device=None) -> dict:
+    return {"w_gate": dense_init(generator, d, f, dtype=dtype, device=device),
+            "w_up": dense_init(generator, d, f, dtype=dtype, device=device),
+            "w_down": dense_init(generator, f, d, dtype=dtype, device=device)}
+
+
+def glu_mlp(p: dict, x: torch.Tensor, act: str,
+            compute_dtype: torch.dtype) -> torch.Tensor:
+    """Gated MLP on one rank (the tensor-parallel reduction arrives with
+    the communicator slice)."""
+    g = dense(p["w_gate"], x, compute_dtype)
+    u = dense(p["w_up"], x, compute_dtype)
+    return dense(p["w_down"], activation(act)(g) * u, compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# embeddings / unembedding
+# ---------------------------------------------------------------------------
+
+
+def embed_init(generator, vocab: int, d: int, *,
+               dtype: torch.dtype = torch.float32, device=None) -> dict:
+    # 0.02 (GPT-2/llama-style): keeps tied-unembedding logits O(1) at init
+    return {"table": trunc_normal(generator, (vocab, d), 0.02, dtype, device)}
+
+
+def embed(p: dict, tokens: torch.Tensor,
+          compute_dtype: torch.dtype) -> torch.Tensor:
+    """Row lookup in the full (unsharded) table."""
+    return p["table"].to(compute_dtype)[tokens]
+
+
+def unembed(p: dict, x: torch.Tensor,
+            compute_dtype: torch.dtype) -> torch.Tensor:
+    """Tied unembedding: logits over the whole vocabulary."""
+    return x.to(compute_dtype) @ p["table"].to(compute_dtype).T

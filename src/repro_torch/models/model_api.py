@@ -1,0 +1,65 @@
+"""Model facade: one object per architecture.
+
+Port of ``repro.models.model_api``.  Vocab sizes are padded to a multiple
+of 128 exactly as in the reference (labels never reference pad rows; the pad
+is included in the reported parameter count).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer
+
+VOCAB_PAD_TO = 128
+
+
+def padded_vocab(v: int) -> int:
+    return int(math.ceil(v / VOCAB_PAD_TO) * VOCAB_PAD_TO)
+
+
+@dataclass
+class Model:
+    cfg: ModelConfig
+
+    def __post_init__(self):
+        self.cfg = self.cfg.with_(vocab_size=padded_vocab(self.cfg.vocab_size))
+        if self.cfg.family == "encdec" or self.cfg.frontend == "audio_stub":
+            raise NotImplementedError(
+                f"{self.cfg.name}: encoder-decoder models are not ported yet "
+                f"(remaining-families slice)")
+
+    def init(self, generator: torch.Generator,
+             device: str | torch.device = "cuda") -> dict:
+        """Fresh parameters on ``device``, drawn from ``generator`` (which
+        must live on that device)."""
+        dev = resolve_device(device)
+        if generator.device.type != dev.type:
+            raise ValueError(f"generator lives on {generator.device}, "
+                             f"parameters are made on {dev}")
+        return transformer.init_params(generator, self.cfg, dev)
+
+    def param_count(self) -> int:
+        """Element count of the tree, from shapes alone (nothing allocated)."""
+        tree = transformer.init_params(None, self.cfg, torch.device("meta"))
+        return sum(t.numel() for t in _leaves(tree))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    return Model(cfg)

@@ -1,0 +1,77 @@
+"""repro_torch CUDA kernels on the card: each kernel against its plain
+PyTorch version on the same card inputs, and run-to-run bitwise.
+
+Marked ``cuda``; without a card every test skips (a CUDA kernel has no CPU
+mode).  The file imports no JAX, so it runs where the port runs::
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
+"""
+
+import pytest
+import torch
+
+from repro_torch.kernels.flash_decode import ops, ref
+
+
+@pytest.fixture
+def cuda_device():
+    """The card; decided at run time, never at collection, so every test
+    worker collects the same tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain version in fp32
+    return torch.device("cuda")
+
+
+def _inputs(dev, seed, b, hq, hkv, length, d, dtype, q_dtype):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, hq, 1, d), generator=gen, device=dev).to(q_dtype)
+    k = torch.randn((b, hkv, length, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, hkv, length, d), generator=gen, device=dev).to(dtype)
+    valid = torch.rand((b, length), generator=gen, device=dev) < 0.8
+    valid[1] = False                  # a row with no valid position
+    return q, k, v, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype,q_dtype,hq,hkv,length", [
+    (64, torch.bfloat16, torch.bfloat16, 32, 32, 208),   # serve shape
+    (64, torch.bfloat16, torch.bfloat16, 32, 8, 208),    # GQA in the kernel
+    (64, torch.bfloat16, torch.bfloat16, 32, 32, 80),    # one ragged tile
+    (64, torch.float32, torch.float32, 32, 32, 208),     # fp32 cache
+    (16, torch.bfloat16, torch.float32, 16, 2, 200),     # reduced config
+    (128, torch.float32, torch.bfloat16, 8, 2, 131)])
+def test_flash_decode_kernel_matches_plain_version(cuda_device, d, dtype,
+                                                    q_dtype, hq, hkv, length):
+    q, k, v, valid = _inputs(cuda_device, d + length, 4, hq, hkv, length, d,
+                             dtype, q_dtype)
+    before = ops.LAUNCHES
+    got = ops.flash_decode_stats(q, k, v, valid)
+    again = ops.flash_decode_stats(q, k, v, valid)
+    torch.cuda.synchronize(cuda_device)
+    assert ops.LAUNCHES == before + 2
+    group = hq // hkv
+    want = ref.decode_stats(q, torch.repeat_interleave(k, group, 1),
+                            torch.repeat_interleave(v, group, 1), valid)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)                      # run-to-run bitwise
+        # fp32 statistics of the same inputs; only the sum order differs
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    assert torch.all(got[1][1] == ref.NEG_INF)
+
+
+@pytest.mark.cuda
+def test_flash_decode_kernel_refuses_what_it_does_not_take(cuda_device):
+    q, k, v, valid = _inputs(cuda_device, 0, 2, 4, 2, 64, 32, torch.bfloat16,
+                             torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_decode_stats(q, k, v, valid)
+    q, k, v, valid = _inputs(cuda_device, 0, 2, 4, 2, 64, 64, torch.float16,
+                             torch.float16)
+    with pytest.raises(TypeError):
+        ops.flash_decode_stats(q, k, v, valid)
+    q, k, v, valid = _inputs(cuda_device, 0, 2, 4, 2, 64, 64, torch.bfloat16,
+                             torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_decode_stats(q, k.transpose(2, 3).contiguous()
+                               .transpose(2, 3), v, valid)
