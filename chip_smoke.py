@@ -7,25 +7,48 @@ Run from the repository root with no arguments::
 
 Phases, each of which raises on a failed check (exit code != 0):
 
-1. build    — ``nvcc`` builds the flash-decode CUDA kernel for sm_90a from
-              the repository's sources;
-2. kernel   — the kernel against its plain PyTorch version on card inputs
-              at the serve shape and around it (fp32 statistics, rtol/atol
-              1e-4: only the summation order differs), and run-to-run
-              bitwise;
-3. serve    — the port's ``launch.serve --paged`` path on llama3.2-1b at
+1. build    — ``nvcc`` builds the three CUDA sources for sm_90a from the
+              repository, one compiler per source, all at once;
+2. kernel   — the flash-decode kernel against its plain PyTorch version on
+              card inputs at the serve shape and around it (fp32
+              statistics, rtol/atol 1e-4: only the summation order
+              differs), and run-to-run bitwise;
+3. kernels  — the ring's ``reduce_add`` (fp32+fp32->fp32, bf16+fp32->fp32,
+              fp32+fp32->bf16 at lengths 1024*k, 1000 and 7, aligned and
+              unaligned starts) and the arena's ``pack`` write/read
+              (2 MiB-aligned and odd offsets, fp32 into a bf16 arena)
+              against their plain versions: bitwise, and run to run;
+4. serve    — the port's ``launch.serve --paged`` path on llama3.2-1b at
               full width with seeded random weights, continuous and static
               policies over a mixed trace; every layer of every decode step
               must launch the kernel (launches == steps x 16) and every
               logit must be finite;
-4. profile  — one full-batch decode step under ``torch.profiler``: host
+5. profile  — one full-batch decode step under ``torch.profiler``: host
               wall, device busy time and the top device activities;
-5. engines  — a kernel engine and a plain-attention engine, same weights,
+6. engines  — a kernel engine and a plain-attention engine, same weights,
               same 20 tokens: logits within bf16 tolerance;
-6. timing   — device time per call (profiler) of the kernel, its plain
-              version and PyTorch's ``scaled_dot_product_attention``
-              (yardstick only) at the serve shape, beside the bound the
-              card's memory rate sets.
+7. timing   — device time per call (profiler) of the flash-decode kernel,
+              its plain version and PyTorch's
+              ``scaled_dot_product_attention`` (yardstick only) at the serve
+              shape, beside the bound the card's memory rate sets;
+8. train    — ``launch.train``'s setup on one rank: full llama3.2-1b (16
+              layers), replicated, ``ring_hier``, chunks 2, the arena on,
+              seq 256, global batch 8, bf16 compute over fp32 master
+              weights, 3 steps: losses finite, the arena's ``data_ptr()``
+              unchanged, pack write and read launches == segments x steps;
+              then one profiled step;
+9. train_ring — two ranks spawned on the one card (gloo, hops staged
+              through pinned host memory), full width at 4 layers, 3 steps:
+              ``reduce_add`` launches == spans x channel slices x (p-1) x
+              steps, pack launches == segments x steps, recorded sends and
+              bytes == the CommPlan's; one more step through the kernels
+              and through the plain versions from the same state and the
+              same local gradients: reduced gradients and new parameters
+              bitwise equal;
+10. timing  — device time per call of ``reduce_add``, pack write and pack
+              read at the main path's largest shapes, their plain versions
+              and one PyTorch call each (``torch.add``, ``copy_``,
+              ``clone``; yardsticks only), beside the memory-rate bound.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` gives them, and as its last line
@@ -37,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -137,16 +161,28 @@ def kernel_inputs(dev, seed, b, hq, hkv, length, d, dtype, q_dtype):
 
 
 def phase_build() -> None:
+    """Builds every kernel from the checkout's sources, one ``nvcc`` per
+    source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_decode import ops
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.pack import ops as pack_ops
+    from repro_torch.kernels.reduce_add import ops as ra_ops
 
     t0 = time.perf_counter()
-    path, report = _build.build(ops.SOURCE)
-    ops._kernel_fn()
-    log(f"[build] {path.name} in {time.perf_counter() - t0:.1f} s")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log(f"[build]   {line.strip()}")
+    sources = [fd_ops.SOURCE, ra_ops.SOURCE, pack_ops.SOURCE]
+    with ThreadPoolExecutor(len(sources)) as pool:
+        built = list(pool.map(_build.build, sources))
+    fd_ops._kernel_fn()
+    ra_ops._kernel_fn()
+    pack_ops._kernel_fns()
+    log(f"[build] {', '.join(path.name for path, _ in built)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for _, report in built:
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"[build]   {line.strip()}")
 
 
 def phase_kernel(dev) -> float:
@@ -341,6 +377,388 @@ def phase_profile(dev, run) -> dict:
             "top_device_ms_per_step": dict(top)}
 
 
+TRAIN_ARGS = ["--arch", ARCH, "--dp-mode", "replicated", "--transport",
+              "ring_hier", "--use-arena", "--seq", "256", "--batch", "8",
+              "--steps", "3", "--device", "cuda", "--seed", "0"]
+# two ranks on one 80 GB card: full width, depth cut to 4 layers
+RING_ARGS = TRAIN_ARGS + ["--layers", "4"]
+
+
+def profile_once(fn) -> tuple[float, dict]:
+    """Host wall (ms, ending in a synchronize) and device time by activity
+    (ms) of one call of ``fn``, which is already warm."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3)
+    return wall, by_name
+
+
+def step_profile(trainer, rank: int, world: int, profiled: bool) -> dict:
+    """One more step of ``trainer`` (every rank must take it); with
+    ``profiled`` its wall time, device busy time and idle share."""
+    from repro_torch.runtime.train_step import shard_batch
+
+    batch = shard_batch(trainer.data.batch_at(trainer.state["step"]), rank,
+                        world)
+
+    def one():
+        trainer.state, m = trainer.step_fn(trainer.state, batch)
+        float(m["loss"])
+
+    if not profiled:
+        one()
+        return {}
+    wall, by_name = profile_once(one)
+    if not by_name:
+        raise RuntimeError("the profiler recorded no device activity in a "
+                           "train step")
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"step_wall_ms": wall, "step_device_ms": busy,
+            "idle_share": 1 - busy / wall,
+            "top_device_ms": {k[:90]: v for k, v in top}}
+
+
+def _check_full_width(cfg, layers: int, what: str) -> None:
+    a = cfg.attn
+    got = (cfg.num_layers, cfg.d_model, a.num_heads, a.num_kv_heads,
+           a.head_dim, cfg.d_ff, cfg.vocab_size)
+    if got != (layers, 2048, 32, 8, 64, 8192, 128256):
+        raise AssertionError(f"[{what}] not llama3.2-1b at full width: {got}")
+
+
+def phase_kernels_train(dev) -> dict:
+    """The ring's add and the arena's copies against their plain versions
+    on the card, bitwise, and run to run."""
+    import torch
+
+    from repro_torch.kernels.pack import ops as pk
+    from repro_torch.kernels.pack import ref as pk_ref
+    from repro_torch.kernels.reduce_add import ops as ra
+    from repro_torch.kernels.reduce_add import ref as ra_ref
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    f32, bf16 = torch.float32, torch.bfloat16
+    n_add = 0
+    for n in (1024, 37 * 1024, 4096 * 1024, 1000, 7):
+        for at, bt, ot in ((f32, f32, f32), (bf16, f32, f32),
+                           (f32, f32, bf16)):
+            a = torch.randn(n + 1, generator=gen, device=dev).to(at)
+            b = torch.randn(n + 1, generator=gen, device=dev).to(bt)
+            for start in (0, 1):              # 1: an unaligned start
+                x, y = a[start:start + n], b[start:start + n]
+                got = ra.add_accum(x, y, out_dtype=ot)
+                again = ra.add_accum(x, y, out_dtype=ot)
+                want = ra_ref.add_accum(x, y, out_dtype=ot)
+                torch.cuda.synchronize(dev)
+                if not (torch.equal(got, again) and torch.equal(got, want)):
+                    raise AssertionError(
+                        f"[kernels] reduce_add n={n} {at}+{bt}->{ot} "
+                        f"start={start}: not bitwise (max |diff| "
+                        f"{(got.float() - want.float()).abs().max():.3e})")
+                n_add += 1
+    page = 2 * 2**20 // 4                     # fp32 elements per 2 MiB
+    n_pack = 0
+    for arena_dt, off, n, src_dt in (
+            (f32, 0, 3 * page, f32), (f32, 2 * page, page + 1000, f32),
+            (f32, 4 * page + 13, 1000, f32), (bf16, page, 2 * page, f32),
+            (bf16, 3, 777, f32), (bf16, 2 * page, 5000, bf16)):
+        arena = torch.randn(8 * page, generator=gen, device=dev).to(arena_dt)
+        src = torch.randn(n, generator=gen, device=dev).to(src_dt)
+        before = arena.clone()
+        want = pk_ref.write_flat(before.clone(), src, off)
+        got = pk.write_flat(arena, src, off)
+        again = pk.write_flat(before.clone(), src, off)
+        reads = [pk.read_flat(got, off, n), pk.read_flat(got, off, n),
+                 pk_ref.read_flat(got, off, n)]
+        torch.cuda.synchronize(dev)
+        if got.data_ptr() != arena.data_ptr():
+            raise AssertionError("[kernels] pack write did not write in "
+                                 "place")
+        if not (torch.equal(got, want) and torch.equal(got, again)):
+            raise AssertionError(f"[kernels] pack write {arena_dt} <- "
+                                 f"{src_dt} at {off}+{n}: not bitwise")
+        if not (torch.equal(reads[0], reads[1])
+                and torch.equal(reads[0], reads[2])):
+            raise AssertionError(f"[kernels] pack read at {off}+{n}: not "
+                                 f"bitwise")
+        n_pack += 1
+    log(f"[kernels] reduce_add: {n_add} cases (fp32+fp32->fp32, "
+        f"bf16+fp32->fp32, fp32+fp32->bf16; n = 1024*k, 1000, 7; aligned "
+        f"and unaligned starts) bitwise equal to the plain version and run "
+        f"to run")
+    log(f"[kernels] pack write/read: {n_pack} cases (2 MiB-aligned and odd "
+        f"offsets, fp32 and bf16 arenas, fp32 into bf16) bitwise equal to "
+        f"the plain versions and run to run")
+    return {"reduce_add_cases": n_add, "pack_cases": n_pack}
+
+
+def phase_train(dev) -> dict:
+    """One rank, full llama3.2-1b through the train CLI's setup: replicated,
+    ring_hier, chunks 2, the arena on, 3 steps."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels.pack import ops as pk
+    from repro_torch.launch import train as launch_train
+
+    args = launch_train.parser().parse_args(TRAIN_ARGS)
+    world = launch_train.init_distributed(args.device)
+    run = launch_train.setup(args, world)
+    _check_full_width(run.model.cfg, 16, "train")
+    trainer = run.trainer
+    step = trainer.step_fn
+    layout = step.arena.layout
+    ptr = trainer.state["arena"].data_ptr()
+    torch.cuda.reset_peak_memory_stats(dev)
+    pk.LAUNCHES.update(write=0, read=0)
+    hist = trainer.run()["history"]
+    launches = dict(pk.LAUNCHES)
+    losses = [h["loss"] for h in hist]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[train] non-finite loss: {losses}")
+    if trainer.state["arena"].data_ptr() != ptr:
+        raise AssertionError("[train] the arena moved between steps")
+    want = layout.n_segments * args.steps
+    if launches != {"write": want, "read": want}:
+        raise AssertionError(f"[train] pack launches {launches}, expected "
+                             f"{want} each ({layout.n_segments} segments x "
+                             f"{args.steps} steps)")
+    peak = torch.cuda.max_memory_allocated(dev)
+    prof = step_profile(trainer, 0, 1, profiled=True)
+    out = {"losses": losses, "step_s": [h["sec"] for h in hist],
+           "launches": launches, "n_segments": layout.n_segments,
+           "n_spans": layout.n_spans, "arena_bytes": layout.total_bytes,
+           "arena_pages": layout.n_pages,
+           "padding_fraction": layout.padding_fraction,
+           "max_segment": max(seg.size for seg in layout.segments),
+           "peak_bytes": peak, "params": run.model.param_count(),
+           "profile": prof}
+    log(f"[train] llama3.2-1b 16 layers, 1 rank, arena "
+        f"{layout.total_bytes} B ({layout.n_pages} pages, padding "
+        f"{layout.padding_fraction:.4f}), {layout.n_segments} segments: "
+        f"losses {', '.join(f'{x:.4f}' for x in losses)}; step wall "
+        f"{', '.join(f'{h['sec'] * 1e3:.0f}' for h in hist)} ms; pack "
+        f"launches {launches} == {layout.n_segments} x {args.steps}; arena "
+        f"data_ptr stable; peak {peak / 2**30:.1f} GiB")
+    log(f"[train] profiled step: wall {prof['step_wall_ms']:.1f} ms, device "
+        f"busy {prof['step_device_ms']:.1f} ms, idle share "
+        f"{prof['idle_share']:.3f}")
+    del run, trainer, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ring_worker(argv: list[str]) -> dict:
+    """One of two ranks of the train_ring phase (a spawned process)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import tree as tree_util
+    from repro_torch.core.ring import _channel_slices
+    from repro_torch.kernels.pack import ops as pk
+    from repro_torch.kernels.reduce_add import ops as ra
+    from repro_torch.launch import train as launch_train
+    from repro_torch.runtime.train_step import TrainStep, shard_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = launch_train.parser().parse_args(argv)
+    world = launch_train.init_distributed(args.device)
+    try:
+        run = launch_train.setup(args, world)
+        _check_full_width(run.model.cfg, int(argv[argv.index("--layers") + 1]),
+                          "train_ring")
+        trainer = run.trainer
+        step = trainer.step_fn
+        comm = step.comm
+        layout = step.arena.layout
+        p = world.size
+        slices = sum(len(_channel_slices(sp.size // p,
+                                         comm.transport.ring_cfg))
+                     for sp in layout.spans)
+        ptr = trainer.state["arena"].data_ptr()
+        ra.LAUNCHES = 0
+        pk.LAUNCHES.update(write=0, read=0)
+        comm.record.reset()
+        hist = trainer.run()["history"]
+        counts = {"reduce_add": ra.LAUNCHES, **pk.LAUNCHES}
+        record = comm.record.as_dict()
+        steps = args.steps
+        predicted = {
+            "reduce_add": slices * (p - 1) * steps,
+            "write": layout.n_segments * steps,
+            "read": layout.n_segments * steps,
+            "sends": step.plan.arena_messages_per_device * steps,
+            "send_bytes": step.plan.arena_bytes_per_device * steps}
+        losses = [h["loss"] for h in hist]
+        stable = trainer.state["arena"].data_ptr() == ptr
+
+        # the same step through the kernels and through the plain versions:
+        # both reduce the same local gradients, from one backward pass
+        # (autograd's scatter-add backward is not bitwise reproducible
+        # from run to run on the card, which would hide what is compared)
+        plain = TrainStep(run.model, comm.mesh, dataclasses.replace(
+            step.cfg, comm=dataclasses.replace(step.cfg.comm,
+                                               local_op="plain")),
+            device=world.device, keep_grads=True)
+        batch = shard_batch(trainer.data.batch_at(trainer.state["step"]),
+                            world.rank, p)
+        local = step._grad_fn(trainer.state["params"],
+                              {k: v.to(world.device)
+                               for k, v in batch.items()})
+        step._grad_fn = plain._grad_fn = lambda params, mb: local
+        step.keep_grads = True
+        new_k, _ = step(trainer.state, batch)
+        grads_k, params_k = step.last_grads, new_k["params"]
+        step.keep_grads, step.last_grads = False, None
+        del new_k
+        new_p, _ = plain(trainer.state, batch)
+        del step._grad_fn, local
+        torch.cuda.synchronize(world.device)
+        pairs = list(zip(tree_util.leaves(grads_k),
+                         tree_util.leaves(plain.last_grads))) \
+            + list(zip(tree_util.leaves(params_k),
+                       tree_util.leaves(new_p["params"])))
+        bitwise = all(torch.equal(a, b) for a, b in pairs)
+        max_diff = max((a.float() - b.float()).abs().max().item()
+                       for a, b in pairs)
+        del new_p, grads_k, params_k, plain, pairs
+        prof = step_profile(trainer, world.rank, p, profiled=world.rank == 0)
+        return {"backend": world.backend, "losses": losses,
+                "step_s": [h["sec"] for h in hist], "counts": counts,
+                "record": record, "predicted": predicted,
+                "arena_stable": stable, "bitwise": bitwise,
+                "max_diff": max_diff, "n_spans": layout.n_spans,
+                "n_segments": layout.n_segments,
+                "arena_bytes": layout.total_bytes,
+                "arena_pages": layout.n_pages,
+                "padding_fraction": layout.padding_fraction,
+                "hop_width": max(sp.size for sp in layout.spans) // p
+                // (2 * step.cfg.comm.chunks),
+                "params": run.model.param_count(),
+                "peak_bytes": torch.cuda.max_memory_allocated(world.device),
+                "profile": prof}
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_train_ring() -> dict:
+    """Two ranks on the one card over gloo, full width at 4 layers."""
+    from repro_torch.launch import train as launch_train
+
+    ranks = launch_train.spawn(_ring_worker, 2, RING_ARGS, timeout=900)
+    for r, out in enumerate(ranks):
+        if out["backend"] != "gloo":
+            raise AssertionError(f"[train_ring] rank {r} backend "
+                                 f"{out['backend']}, expected gloo")
+        if not all(math.isfinite(x) for x in out["losses"]):
+            raise AssertionError(f"[train_ring] rank {r} non-finite loss")
+        if not out["arena_stable"]:
+            raise AssertionError(f"[train_ring] rank {r}: the arena moved")
+        pred, counts, rec = out["predicted"], out["counts"], out["record"]
+        for key in ("reduce_add", "write", "read"):
+            if counts[key] != pred[key]:
+                raise AssertionError(f"[train_ring] rank {r} {key} launches "
+                                     f"{counts[key]} != predicted "
+                                     f"{pred[key]}")
+        for key in ("sends", "send_bytes"):
+            if rec[key] != pred[key]:
+                raise AssertionError(f"[train_ring] rank {r} recorded {key} "
+                                     f"{rec[key]} != plan {pred[key]}")
+        if not out["bitwise"]:
+            raise AssertionError(f"[train_ring] rank {r}: kernel step and "
+                                 f"plain step differ (max |diff| "
+                                 f"{out['max_diff']:.3e})")
+    if ranks[0]["losses"] != ranks[1]["losses"]:
+        raise AssertionError("[train_ring] the ranks disagree on the loss")
+    out = ranks[0]
+    staging = [o["record"]["staging_s"] for o in ranks]
+    prof = out["profile"]
+    log(f"[train_ring] 2 ranks on one card over gloo, 4 layers "
+        f"({out['params']} params), arena {out['arena_bytes']} B, "
+        f"{out['n_spans']} spans / {out['n_segments']} segments: losses "
+        f"{', '.join(f'{x:.4f}' for x in out['losses'])}; step wall "
+        f"{', '.join(f'{x * 1e3:.0f}' for x in out['step_s'])} ms; host "
+        f"staging {staging[0]:.2f} / {staging[1]:.2f} s over 3 steps")
+    log(f"[train_ring] launches {out['counts']} == predicted "
+        f"{ {k: out['predicted'][k] for k in ('reduce_add', 'write', 'read')} }"
+        f"; recorded sends {out['record']['sends']} and bytes "
+        f"{out['record']['send_bytes']} == plan")
+    log(f"[train_ring] kernel step == plain-version step, grads and params "
+        f"bitwise on both ranks; profiled step (rank 0): wall "
+        f"{prof['step_wall_ms']:.1f} ms, device busy "
+        f"{prof['step_device_ms']:.1f} ms, idle share "
+        f"{prof['idle_share']:.3f}")
+    return {"ranks": ranks, "staging_s": staging}
+
+
+def phase_timing_train(dev, hop_width: int, segment: int) -> dict:
+    """Device time per call of the new kernels at the main path's largest
+    shapes: the ring hop of the largest span (train_ring) and the largest
+    arena segment (train), beside the plain version, one PyTorch call and
+    the bound the card's memory rate sets."""
+    import torch
+
+    from repro_torch.kernels.pack import ops as pk
+    from repro_torch.kernels.pack import ref as pk_ref
+    from repro_torch.kernels.reduce_add import ops as ra
+    from repro_torch.kernels.reduce_add import ref as ra_ref
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    a = torch.randn(hop_width, generator=gen, device=dev)
+    b = torch.randn(hop_width, generator=gen, device=dev)
+    page = 2 * 2**20 // 4
+    arena = torch.zeros(segment + 2 * page, device=dev)
+    src = torch.randn(segment, generator=gen, device=dev)
+    off = page
+    saved = (ra.LAUNCHES, dict(pk.LAUNCHES))
+    table = {
+        "reduce_add": (12 * hop_width, {
+            "ms": lambda: ra.add_accum(a, b),
+            "plain_ms": lambda: ra_ref.add_accum(a, b),
+            "library_ms": lambda: torch.add(a, b)}),
+        "pack_write": (8 * segment, {
+            "ms": lambda: pk.write_flat(arena, src, off),
+            "plain_ms": lambda: pk_ref.write_flat(arena, src, off),
+            "library_ms": lambda: arena[off:off + segment].copy_(src)}),
+        "pack_read": (8 * segment, {
+            "ms": lambda: pk.read_flat(arena, off, segment),
+            "plain_ms": lambda: pk_ref.read_flat(arena, off, segment),
+            "library_ms": lambda: arena[off:off + segment].clone()}),
+    }
+    out = {}
+    for name, (nbytes, calls) in table.items():
+        row = {k: device_ms(f, 20) for k, f in calls.items()}
+        row["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        row["bound_by"] = "bytes"
+        row["bytes"] = nbytes
+        out[name] = row
+        log(f"[timing] {name} ({nbytes} B): kernel {row['ms'] * 1e3:.1f} us, "
+            f"plain {row['plain_ms'] * 1e3:.1f} us, library "
+            f"{row['library_ms'] * 1e3:.1f} us, bound "
+            f"{row['bound_ms'] * 1e3:.1f} us")
+    ra.LAUNCHES = saved[0]                 # timing launches are not the path's
+    pk.LAUNCHES.update(saved[1])
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -358,24 +776,50 @@ def main() -> None:
     t_start = time.perf_counter()
     phase_build()
     kernel_err = phase_kernel(dev)
+    kernels_train = phase_kernels_train(dev)
     serve, run = phase_serve(dev)
     profile = phase_profile(dev, run)
     engine_err = phase_engines(dev, run)
     del run
     timing = phase_timing(dev)
     call_wall_ms = timing.pop("call_wall_ms")
+    torch.cuda.empty_cache()
+    train = phase_train(dev)
+    train_ring = phase_train_ring()
+    ring0 = train_ring["ranks"][0]
+    timing_train = phase_timing_train(dev, ring0["hop_width"],
+                                      train["max_segment"])
     gpu = gpu_line()
-    kernels = {"kernels": [{
-        "name": "flash_decode_stats", "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu",
+    src = "src/repro_torch/kernels"
+    launches = {"reduce_add": ring0["counts"]["reduce_add"],
+                "pack_write": train["launches"]["write"],
+                "pack_read": train["launches"]["read"]}
+    rows = [{
+        "name": "flash_decode", "route": "cuda",
+        "source": f"{src}/flash_decode/csrc/flash_decode.cu",
         "replaces": "src/repro/kernels/flash_decode/flash_decode.py:91",
-        "launches": serve["launches"], "max_abs_err": kernel_err, **timing}],
-        "gpu": gpu}
+        "launches": serve["launches"], "max_abs_err": kernel_err, **timing}]
+    for name, replaces in (
+            ("reduce_add", "src/repro/kernels/reduce_add/reduce_add.py:46"),
+            ("pack_write", "src/repro/kernels/pack/pack.py:64"),
+            ("pack_read", "src/repro/kernels/pack/pack.py:89")):
+        t = timing_train[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": (f"{src}/reduce_add/csrc/reduce_add.cu"
+                       if name == "reduce_add" else f"{src}/pack/csrc/pack.cu"),
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": 0.0,          # every check above is bitwise
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")}})
+    kernels = {"kernels": rows, "gpu": gpu}
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(
             {**kernels, "serve": serve, "engine_max_abs_err": engine_err,
              "call_wall_ms": call_wall_ms, "profile": profile,
+             "kernels_train": kernels_train, "train": train,
+             "train_ring": train_ring, "timing_train": timing_train,
              "torch": torch.__version__, "cuda": torch.version.cuda,
              "wall_s": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -1,0 +1,25 @@
+"""repro_torch.comm — the Communicator API (port of ``repro.comm``).
+
+A :class:`Communicator` built from ``(RankMesh, CommConfig)`` reduces
+gradient buckets over named transports (:mod:`repro_torch.comm.registry`)
+with channel striping, bucket and arena plans (:mod:`.plan`) and issue
+schedules (:mod:`.schedule`).
+"""
+
+from repro_torch.comm.api import CommConfig, Communicator
+from repro_torch.comm.plan import (ALPHA_S, ChannelAssignment, CommPlan,
+                                   LatencyModel, assign_channels)
+from repro_torch.comm.registry import (Transport, TransportSpec,
+                                       get_transport, list_transports,
+                                       register_transport, transport_specs)
+from repro_torch.comm.schedule import (SCHEDULE_POLICIES, CommSchedule,
+                                       IssueSlot, build_schedule)
+from repro_torch.comm.wire_codec import IdentityCodec, make_codec
+
+__all__ = [
+    "ALPHA_S", "ChannelAssignment", "CommConfig", "CommPlan",
+    "CommSchedule", "Communicator", "IdentityCodec", "IssueSlot",
+    "LatencyModel", "SCHEDULE_POLICIES", "Transport", "TransportSpec",
+    "assign_channels", "build_schedule", "get_transport", "list_transports",
+    "make_codec", "register_transport", "transport_specs",
+]

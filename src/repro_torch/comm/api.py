@@ -1,0 +1,495 @@
+"""The Communicator: the gradient collectives behind one object.
+
+Port of ``repro.comm.api`` for the data-parallel gradient path.  Built once
+from ``(mesh, CommConfig)``, a :class:`Communicator` owns
+
+* the **transport** — a registered schedule (:mod:`repro_torch.comm.registry`)
+  whose capabilities are checked here, at construction;
+* the **bucketer** — fused, alignment-guaranteed flat buffers
+  (:mod:`repro_torch.core.bucketing`);
+* the **rails** — ``cfg.channels`` independent virtual channels.  Each rail
+  is its own set of process groups; buckets striped onto a rail issue on it
+  in FIFO order, which in the port is program order on that rail's groups
+  (the reference threads order tokens through XLA).  ``channels == 0``
+  leaves every bucket an independent collective; they share one rail.
+* the **record** — a :class:`~repro_torch.core.p2p.CommRecord` of every
+  message and byte this rank sent, to hold a step against :meth:`plan`.
+
+The halo exchange, all-to-all and the quantized arena arrive with their own
+slices.  Collectives are eager; they run in the caller's process on its
+rank, over the world ``torch.distributed`` was initialised with.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import TYPE_CHECKING, Callable, Sequence
+
+import torch
+import torch.distributed as dist
+
+from repro_torch import tree as tree_util
+from repro_torch.comm.plan import ChannelAssignment, CommPlan, assign_channels
+from repro_torch.comm.registry import Rail, Transport, get_transport
+from repro_torch.comm.schedule import CommSchedule, build_schedule
+from repro_torch.comm.wire_codec import make_codec
+from repro_torch.core.bucketing import BucketPlan, GradientBucketer
+from repro_torch.core.p2p import CommRecord, axis_rings, joint_ring
+from repro_torch.core.ring import LOCAL_OPS, RingConfig
+from repro_torch.core.topology import RankMesh, reduce_axes_of
+
+if TYPE_CHECKING:  # repro_torch.mem imports comm.schedule: import it lazily
+    from repro_torch.mem.arena import CommArena
+    from repro_torch.mem.layout import ArenaLayout
+
+
+@dataclass(frozen=True)
+class CommConfig:
+    """Static description of the communication substrate (the reference's
+    fields; ``local_op`` names the port's two local-op implementations)."""
+
+    transport: str = "ring_hier"
+    data_axes: tuple[str, ...] = ("pod", "data")
+    bucket_bytes: int = 4 * 2**20
+    page_bytes: int = 2 * 2**20    # arena quantization granule (huge page)
+    channels: int = 0              # 0 = unconstrained; N = N guaranteed rails
+    chunks: int = 2                # per-segment ring chains
+    bidirectional: bool = True
+    wire_dtype: str | None = None
+    wire_codec: str | None = None  # "int8": the int8-wire slice
+    codec_block: int = 512
+    local_op: str = "kernel"       # "kernel" (CUDA kernels) | "plain"
+    mean: bool = True
+    fuse: bool = True              # False: per-tensor collectives, no buckets
+
+    def ring_config(self, codec: str | None = None) -> RingConfig:
+        return RingConfig(chunks=self.chunks, bidirectional=self.bidirectional,
+                          wire_dtype=self.wire_dtype, local_op=self.local_op,
+                          codec=codec, codec_block=self.codec_block)
+
+
+GradFn = Callable[[dict, dict], "tuple[torch.Tensor, dict]"]
+
+
+class Communicator:
+    """Channelized collectives over the data axes of ``mesh``.
+
+    ``connect=False`` builds a communicator that only plans (no process
+    groups: :meth:`plan`, :meth:`arena_layout`, :meth:`schedule` work, the
+    collectives raise).  Otherwise every rank of the world must build its
+    communicators in the same order, since creating groups is collective.
+    """
+
+    def __init__(self, mesh: RankMesh, cfg: CommConfig = CommConfig(), *,
+                 connect: bool = True):
+        spec, cls = get_transport(cfg.transport)   # unknown -> ValueError
+        if cfg.wire_dtype not in spec.wire_dtypes:
+            raise ValueError(
+                f"transport {cfg.transport!r} does not support "
+                f"wire_dtype={cfg.wire_dtype!r} (allowed: {spec.wire_dtypes})")
+        if cfg.channels < 0:
+            raise ValueError(f"channels must be >= 0, got {cfg.channels}")
+        if cfg.chunks < 1:
+            raise ValueError(f"chunks must be >= 1, got {cfg.chunks}")
+        if not cfg.fuse and spec.supports_rs:
+            raise ValueError(
+                f"transport {cfg.transport!r} requires fused aligned buckets "
+                f"(fuse=True); only native transports support fuse=False")
+        if cfg.local_op not in LOCAL_OPS:
+            raise ValueError(f"local_op must be one of {LOCAL_OPS}, got "
+                             f"{cfg.local_op!r}")
+        codec = cfg.wire_codec if cfg.wire_codec is not None else spec.codec
+        if codec not in (None, "int8"):
+            raise ValueError(f"unknown wire_codec {codec!r} "
+                             f"(supported: 'int8')")
+        if cfg.wire_codec is not None and cfg.wire_dtype is not None:
+            raise ValueError("wire_codec and wire_dtype are exclusive wire "
+                             "formats; set at most one")
+        make_codec(codec)                  # int8: NotImplementedError here
+        self.mesh = mesh
+        self.cfg = cfg
+        self.spec = spec
+        self.codec = codec
+        self.axes = reduce_axes_of(mesh.axis_names, cfg.data_axes)
+        sizes = mesh.sizes()
+        self.axis_sizes = tuple(sizes[a] for a in self.axes)
+        self.world = math.prod(self.axis_sizes)
+        self._ring_cfg = cfg.ring_config(
+            codec=codec if spec.supports_codec else None)
+        self.record = CommRecord()
+        rails: tuple[Rail, ...] = ()
+        if connect:
+            rank = dist.get_rank() if dist.is_initialized() else 0
+            rails = tuple(
+                Rail(axes=tuple(axis_rings(mesh, rank, self.axes,
+                                           self.record)),
+                     joint=joint_ring(mesh, rank, self.axes, self.record))
+                for _ in range(max(cfg.channels, 1)))
+        self.transport: Transport = cls(self.axes, self._ring_cfg, rails)
+        self.bucketer = GradientBucketer(
+            bucket_bytes=cfg.bucket_bytes,
+            pad_multiple=self.transport.flat_divisor(self.axis_sizes))
+
+    # -- layout / planning ---------------------------------------------------
+
+    @property
+    def ordered_axes(self) -> tuple[str, ...]:
+        """Innermost (fastest / intra-pod) axis first."""
+        return self.transport.ordered_axes
+
+    def stripe(self, bucket_sizes: Sequence[int]
+               ) -> tuple[ChannelAssignment, ...]:
+        """Partition a bucket list across the virtual channels (every bucket
+        its own channel when ``channels == 0``)."""
+        n = (self.cfg.channels if self.cfg.channels >= 1
+             else max(len(bucket_sizes), 1))
+        return assign_channels(bucket_sizes, n)
+
+    def plan(self, tree) -> CommPlan:
+        """The communication plan of one gradient-shaped tree (leaves need
+        only ``shape`` and ``dtype``), with its arena layout."""
+        bplan = self.bucketer.plan(tree)
+        chans = self.stripe(bplan.bucket_sizes)
+        n = max(bplan.used_elems, 1)
+        wire_per_elem = self._ring_cfg.make_codec().wire_bytes(n) / n
+        bytes_dev = self.transport.predicted_bytes_per_device(
+            bplan.used_elems, self.axis_sizes)
+        msgs_per_unit = self.transport.predicted_messages_per_device(
+            self.axis_sizes)
+        layout = self.arena_layout(tree, warn=False, _chans=chans)
+        arena_bytes = self.transport.predicted_bytes_per_device(
+            layout.total_elems, self.axis_sizes)
+        return CommPlan(transport=self.cfg.transport, axes=self.axes,
+                        axis_sizes=self.axis_sizes, bucket_plan=bplan,
+                        channels=chans, wire_bytes_per_elem=wire_per_elem,
+                        bytes_per_device=bytes_dev,
+                        messages_per_device=msgs_per_unit * bplan.n_buckets,
+                        arena_layout=layout,
+                        arena_bytes_per_device=arena_bytes,
+                        arena_messages_per_device=(msgs_per_unit
+                                                   * layout.n_spans),
+                        wire_codec=self.codec,
+                        codec_block=self.cfg.codec_block)
+
+    def arena_layout(self, tree, *, warn: bool = True,
+                     _chans: tuple[ChannelAssignment, ...] | None = None
+                     ) -> "ArenaLayout":
+        """The page-quantized arena placement of ``tree``'s buckets:
+        offsets quantized to ``cfg.page_bytes`` (lcm'd with the transport's
+        flat divisor so spans stay reduce-scatter legal), one contiguous
+        span per virtual channel."""
+        from repro_torch.mem.layout import arena_from_bucket_plan
+
+        bplan = self.bucketer.plan(tree)
+        chans = (_chans if _chans is not None
+                 else self.stripe(bplan.bucket_sizes))
+        chan_of = [0] * bplan.n_buckets
+        for a in chans:
+            for b in a.buckets:
+                chan_of[b] = a.channel
+        return arena_from_bucket_plan(
+            bplan, page_bytes=self.cfg.page_bytes, channel_of=chan_of,
+            pad_multiple=self.bucketer.pad_multiple,
+            bucket_bytes=self.cfg.bucket_bytes, warn_oversized=warn)
+
+    def arena(self, tree) -> "CommArena":
+        """A :class:`~repro_torch.mem.arena.CommArena` over
+        :meth:`arena_layout`; its copies follow ``cfg.local_op``, the knob
+        that also selects the ring's local add."""
+        from repro_torch.mem.arena import CommArena
+
+        return CommArena(self.arena_layout(tree), impl=self.cfg.local_op)
+
+    # -- channelized execution ----------------------------------------------
+
+    def _run_striped(self, op, items: list) -> list:
+        """``op(buffer, rail)`` on every flat buffer, each rail's buffers in
+        FIFO order on that rail."""
+        if self.cfg.channels < 1:
+            return [op(x, 0) for x in items]
+        out: list = [None] * len(items)
+        for assignment in self.stripe([int(x.shape[0]) for x in items]):
+            for i in assignment.buckets:
+                out[i] = op(items[i], assignment.channel)
+        return out
+
+    def all_reduce(self, buckets: list) -> list:
+        """Sum each flat bucket over the data axes (no mean)."""
+        return self._run_striped(self.transport.all_reduce, buckets)
+
+    def _require_rs(self, what: str) -> None:
+        if not self.spec.supports_rs:
+            raise ValueError(
+                f"transport {self.cfg.transport!r} does not support "
+                f"{what} (supports_rs=False)")
+
+    def reduce_scatter(self, buckets: list) -> list:
+        """Sum-and-shard each flat bucket (inner axis segments first)."""
+        self._require_rs("reduce-scatter")
+        return self._run_striped(self.transport.reduce_scatter, buckets)
+
+    def all_gather(self, shards: list) -> list:
+        """Inverse of :meth:`reduce_scatter` (same ownership layout)."""
+        self._require_rs("all-gather")
+        return self._run_striped(self.transport.all_gather, shards)
+
+    def _mean_buckets(self, buckets: list) -> list:
+        if not self.cfg.mean:
+            return buckets
+        return [b * (1.0 / self.world) for b in buckets]
+
+    # -- dependency-aware scheduled reduction --------------------------------
+
+    def schedule(self, tree, policy: str, microbatches: int = 1
+                 ) -> CommSchedule:
+        """The :class:`~repro_torch.comm.schedule.CommSchedule` this
+        communicator executes for one gradient-shaped tree."""
+        if not self.cfg.fuse:
+            sizes = [math.prod(l.shape) for l in tree_util.leaves(tree)]
+            return build_schedule(policy, sizes, microbatches=microbatches,
+                                  channels=self.cfg.channels)
+        bplan = self.bucketer.plan(tree)
+        return build_schedule(policy, bplan.bucket_sizes,
+                              microbatches=microbatches,
+                              channels=self.cfg.channels)
+
+    def arena_schedule(self, tree, policy: str, microbatches: int = 1
+                       ) -> CommSchedule:
+        """The span-level schedule of the arena mode: each channel's
+        contiguous arena span is one issue."""
+        from repro_torch.mem.layout import fuse_schedule
+
+        return fuse_schedule(self.schedule(tree, policy, microbatches),
+                             self.arena_layout(tree))
+
+    def _issuer(self, op: str, schedule: CommSchedule):
+        collective = (self.transport.all_reduce if op == "all_reduce"
+                      else self.transport.reduce_scatter)
+        chained = schedule.channels >= 1
+
+        def issue(buf: torch.Tensor, channel: int) -> torch.Tensor:
+            return collective(buf, channel if chained else 0)
+
+        return issue
+
+    @staticmethod
+    def _microbatches(batch: dict, m: int) -> list[dict]:
+        if m == 1:
+            return [batch]
+        return [{k: v.reshape((m, v.shape[0] // m) + tuple(v.shape[1:]))[i]
+                 for k, v in batch.items()} for i in range(m)]
+
+    def reduce_scheduled(self, grad_fn: GradFn, params, batch: dict,
+                         schedule: CommSchedule, *, op: str = "all_reduce",
+                         arena: "CommArena | None" = None,
+                         arena_buf: torch.Tensor | None = None):
+        """Runs ``grad_fn(params, microbatch) -> (loss, grads)`` over
+        ``schedule.microbatches`` slices of ``batch`` (split on the leading
+        axis), issuing each bucket's collective at its schedule slot.
+
+        ``op``: ``"all_reduce"`` -> ``(mean_loss, reduced_tree)``;
+        ``"reduce_scatter"`` -> ``(mean_loss, (shards, bucket_plan))``;
+        ``"none"`` -> ``(mean_loss, accumulated_tree)``.
+
+        **Arena mode** (``arena`` given): gradients pack into the arena
+        buffer ``arena_buf`` (allocated once by the caller, written in
+        place) and each slot reduces one contiguous span of it; ``schedule``
+        must be the span-level :meth:`arena_schedule`.  Returns
+        ``(loss, (tree, arena_buf))`` for ``all_reduce`` and ``none``,
+        ``(loss, (span_shards, bucket_plan, arena_buf))`` for
+        ``reduce_scatter``.
+        """
+        if op not in ("all_reduce", "reduce_scatter", "none"):
+            raise ValueError(f"op must be all_reduce|reduce_scatter|none, "
+                             f"got {op!r}")
+        if op == "reduce_scatter":
+            self._require_rs("reduce-scatter")
+        if arena is not None:
+            return self._reduce_scheduled_arena(grad_fn, params, batch,
+                                                schedule, op, arena,
+                                                arena_buf)
+        if not self.axes:
+            if op == "reduce_scatter":
+                raise ValueError("reduce_scatter schedule needs data axes; "
+                                 "this communicator's mesh has none")
+            op = "none"
+        m = max(schedule.microbatches, 1)
+        issue = self._issuer(op, schedule)
+        inv = 1.0 / m
+        streamed = schedule.policy != "accumulate_then_reduce"
+        fused = self.cfg.fuse
+        losses = []
+        acc = None
+        bplan: BucketPlan | None = None
+        treedef = None
+        for i, mb in enumerate(self._microbatches(batch, m)):
+            loss, grads = grad_fn(params, mb)
+            losses.append(loss)
+            if op == "none":
+                if m > 1:
+                    grads = tree_util.tree_map(lambda g: g.float() * inv,
+                                               grads)
+                acc = (grads if acc is None
+                       else tree_util.tree_map(torch.add, acc, grads))
+                continue
+            if fused:
+                buckets, bplan = self.bucketer.bucketize(grads)
+            else:                            # per-tensor: leaf == "bucket"
+                buckets, treedef = tree_util.flatten(grads)
+                shapes = [b.shape for b in buckets]
+                buckets = [b.reshape(-1) for b in buckets]
+            del grads
+            if len(buckets) != schedule.n_buckets:
+                raise ValueError(
+                    f"schedule has {schedule.n_buckets} buckets but the "
+                    f"gradient tree bucketizes into {len(buckets)}; build "
+                    f"the schedule with Communicator.schedule on the same "
+                    f"tree")
+            if m > 1:
+                buckets = [b.float() * inv for b in buckets]
+            if streamed:
+                out: list = [None] * len(buckets)
+                for slot in schedule.slots_for_phase(i):
+                    for b in slot.bucket_ids:
+                        out[b] = issue(buckets[b], slot.channel)
+                acc = out if acc is None else [a + o for a, o in zip(acc, out)]
+            else:
+                acc = (buckets if acc is None
+                       else [a + b for a, b in zip(acc, buckets)])
+        if op != "none" and not streamed:
+            out = [None] * len(acc)
+            for slot in schedule.slots_for_phase(m - 1):
+                for b in slot.bucket_ids:
+                    out[b] = issue(acc[b], slot.channel)
+            acc = out
+        loss = losses[0] if m == 1 else torch.stack(losses).mean()
+        if op == "none":
+            return loss, acc
+        if not fused:                        # per-tensor mean, dtype-stable
+            acc = [a.view(shape) for a, shape in zip(acc, shapes)]
+            if self.cfg.mean:
+                acc = [(a.float() * (1.0 / self.world)).to(a.dtype)
+                       for a in acc]
+            return loss, treedef.unflatten(acc)
+        acc = self._mean_buckets(acc)
+        if op == "reduce_scatter":
+            return loss, (acc, bplan)
+        return loss, self.bucketer.debucketize(acc, bplan)
+
+    def _reduce_scheduled_arena(self, grad_fn: GradFn, params, batch: dict,
+                                schedule: CommSchedule, op: str,
+                                arena: "CommArena",
+                                arena_buf: torch.Tensor | None):
+        """Arena-mode body of :meth:`reduce_scheduled`.  Every collective
+        moves one contiguous page-quantized span of the arena (padding
+        crosses the wire), reduced in place.  With several microbatches the
+        sum accumulates in a step-local buffer of the arena's size."""
+        layout = arena.layout
+        if not self.axes:
+            raise ValueError("arena mode needs data axes; this "
+                             "communicator's mesh has none")
+        if op != "none":
+            if not self.cfg.fuse:
+                raise ValueError("arena mode needs fused aligned buckets "
+                                 "(fuse=True)")
+            if schedule.n_buckets != layout.n_spans:
+                raise ValueError(
+                    f"arena mode expects a span-level schedule with "
+                    f"{layout.n_spans} spans, got {schedule.n_buckets}; "
+                    f"build it with Communicator.arena_schedule")
+        m = max(schedule.microbatches, 1)
+        issue = self._issuer(op, schedule)
+        inv = 1.0 / m
+
+        def accumulate(acc, t):
+            if m == 1:
+                return t
+            if acc is None:
+                return t.clone()
+            return acc.add_(t)
+
+        def reduce_spans(buf, phase):
+            """All-reduce each span of ``buf`` in place."""
+            for slot in schedule.slots_for_phase(phase):
+                for s in slot.bucket_ids:             # span indices
+                    sp = layout.spans[s]
+                    seg = buf[sp.offset:sp.offset + sp.size]
+                    seg.copy_(issue(seg, slot.channel))
+            return buf
+
+        def scatter_spans(buf, phase, out):
+            """Reduce-scatter each span of ``buf`` into its shard slot."""
+            for slot in schedule.slots_for_phase(phase):
+                for s in slot.bucket_ids:
+                    sp = layout.spans[s]
+                    out[s] = issue(buf[sp.offset:sp.offset + sp.size],
+                                   slot.channel)
+            return out
+
+        streamed = schedule.policy != "accumulate_then_reduce"
+        losses = []
+        acc = None
+        bplan: BucketPlan | None = None
+        treedef = None
+        leaf_meta: list[tuple] = []
+        buf = arena_buf
+        for i, mb in enumerate(self._microbatches(batch, m)):
+            loss, grads = grad_fn(params, mb)
+            losses.append(loss)
+            if op == "none":
+                leaves, treedef = tree_util.flatten(grads)
+                del grads
+                if len(leaves) != layout.n_segments:
+                    raise ValueError(
+                        f"arena has {layout.n_segments} segments but the "
+                        f"gradient tree has {len(leaves)} leaves; build "
+                        f"the arena from the same tree")
+                leaf_meta = [(l.shape, l.dtype) for l in leaves]
+                flat = [(l.float() * inv if m > 1 else l).reshape(-1)
+                        for l in leaves]
+                del leaves
+                if buf is None:
+                    buf = arena.zeros(flat[0].device)
+                arena.pack_into(buf, flat)
+                del flat
+                acc = accumulate(acc, buf)
+                continue
+            buckets, bplan = self.bucketer.bucketize(grads)
+            del grads
+            if bplan.n_buckets != layout.n_segments:
+                raise ValueError(
+                    f"arena has {layout.n_segments} segments but the "
+                    f"gradient tree bucketizes into {bplan.n_buckets}; "
+                    f"build the arena with Communicator.arena on the same "
+                    f"tree")
+            if m > 1:
+                buckets = [b.float() * inv for b in buckets]
+            if buf is None:
+                buf = arena.zeros(buckets[0].device)
+            arena.pack_into(buf, buckets)
+            del buckets
+            if not streamed:
+                acc = accumulate(acc, buf)
+            elif op == "all_reduce":
+                acc = accumulate(acc, reduce_spans(buf, i))
+            else:
+                out = scatter_spans(buf, i, [None] * layout.n_spans)
+                acc = out if acc is None else [a + o
+                                               for a, o in zip(acc, out)]
+        if op != "none" and not streamed:
+            acc = (reduce_spans(acc, m - 1) if op == "all_reduce"
+                   else scatter_spans(acc, m - 1, [None] * layout.n_spans))
+        loss = losses[0] if m == 1 else torch.stack(losses).mean()
+        if op == "none":
+            leaves = [u.view(shape).to(torch.float32 if m > 1 else dtype)
+                      for u, (shape, dtype) in zip(arena.unpack(acc),
+                                                   leaf_meta)]
+            return loss, (treedef.unflatten(leaves), buf)
+        if op == "reduce_scatter":
+            inv_w = 1.0 / self.world if self.cfg.mean else 1.0
+            return loss, ([s * inv_w for s in acc], bplan, buf)
+        if self.cfg.mean:
+            acc.mul_(1.0 / self.world)
+        tree = self.bucketer.debucketize(arena.unpack(acc), bplan)
+        return loss, (tree, buf)

@@ -1,0 +1,159 @@
+"""CommSchedule: dependency-aware issue order for streamed bucket reduction.
+
+Port of the gradient-reduction half of ``repro.comm.schedule`` (plain
+Python; a schedule here equals the reference's slot for slot).  A
+:class:`CommSchedule` is an ordered list of :class:`IssueSlot`\\ s, each
+saying which buckets go out on which virtual channel after which phase of
+the step's compute, derived from backward-pass readiness order (the last
+layer's gradients are ready first).  Policies (``SCHEDULE_POLICIES``):
+
+* ``accumulate_then_reduce`` — every bucket issues after all microbatches;
+* ``stream`` — each microbatch's buckets issue after its backward;
+* ``scheduled`` — like ``stream``, in readiness order within a phase.
+
+``overlap_fraction = sum_slots (w_slot / W) * (1 - ready_slot)`` is the
+share of collective traffic that could hide under remaining compute.  The
+halo and MoE schedules arrive with their slices.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Sequence
+
+from repro_torch.comm.plan import assign_channels
+
+SCHEDULE_POLICIES = ("accumulate_then_reduce", "stream", "scheduled")
+
+
+@dataclass(frozen=True)
+class IssueSlot:
+    """One issue of one bucket's collective on one virtual channel."""
+
+    phase: int
+    bucket_ids: tuple[int, ...]
+    channel: int
+    ready: float
+
+    @property
+    def exposed(self) -> float:
+        """Fraction of step compute with nothing left to hide this slot."""
+        return max(0.0, min(1.0, self.ready))
+
+
+@dataclass(frozen=True)
+class CommSchedule:
+    """Explicit issue order for one gradient reduction.
+
+    ``channels == 0``: every bucket is its own independent collective;
+    ``channels >= 1``: exactly that many rails, each issuing its slots in
+    FIFO order (in the port, program order on the rail's process group).
+    """
+
+    policy: str
+    microbatches: int
+    bucket_sizes: tuple[int, ...]
+    channels: int                      # the config knob (0 = unconstrained)
+    slots: tuple[IssueSlot, ...]
+
+    @property
+    def n_buckets(self) -> int:
+        return len(self.bucket_sizes)
+
+    @property
+    def n_channels(self) -> int:
+        return len({s.channel for s in self.slots}) if self.slots else 0
+
+    @property
+    def n_collectives(self) -> int:
+        return sum(len(s.bucket_ids) for s in self.slots)
+
+    def slots_for_phase(self, phase: int) -> tuple[IssueSlot, ...]:
+        """This phase's slots, in issue order."""
+        return tuple(s for s in self.slots if s.phase == phase)
+
+    @property
+    def total_weight(self) -> float:
+        return float(sum(sum(self.bucket_sizes[b] for b in s.bucket_ids)
+                         for s in self.slots))
+
+    @property
+    def overlap_fraction(self) -> float:
+        w_total = self.total_weight
+        if w_total <= 0.0:
+            return 0.0
+        acc = 0.0
+        for s in self.slots:
+            w = sum(self.bucket_sizes[b] for b in s.bucket_ids)
+            acc += w * (1.0 - s.exposed)
+        return acc / w_total
+
+    def validate(self) -> None:
+        """Structural invariants every executor relies on."""
+        expected_phases = (range(self.microbatches)
+                           if self.policy != "accumulate_then_reduce"
+                           else (self.microbatches - 1,))
+        for phase in expected_phases:
+            seen = sorted(b for s in self.slots_for_phase(phase)
+                          for b in s.bucket_ids)
+            if seen != list(range(self.n_buckets)):
+                raise ValueError(
+                    f"schedule {self.policy!r} phase {phase}: buckets {seen} "
+                    f"!= 0..{self.n_buckets - 1}")
+        by_channel: dict[int, float] = {}
+        for s in self.slots:
+            prev = by_channel.get(s.channel, -1.0)
+            if s.ready < prev - 1e-9:
+                raise ValueError(
+                    f"channel {s.channel} readiness not monotone: "
+                    f"{s.ready} after {prev}")
+            by_channel[s.channel] = s.ready
+
+
+def _bucket_channels(bucket_sizes: Sequence[int], channels: int) -> list[int]:
+    """bucket index -> channel id under the communicator's striping rule
+    (``channels == 0``: one private channel per bucket)."""
+    n = channels if channels >= 1 else max(len(bucket_sizes), 1)
+    chan_of = [0] * len(bucket_sizes)
+    for a in assign_channels(bucket_sizes, n):
+        for b in a.buckets:
+            chan_of[b] = a.channel
+    return chan_of
+
+
+def build_schedule(policy: str, bucket_sizes: Sequence[int],
+                   microbatches: int = 1, channels: int = 0) -> CommSchedule:
+    """The issue slots for ``policy`` over the bucket layout (the
+    reference's readiness model: compute divides evenly across
+    microbatches; within one, bucket ``B-1`` is ready first)."""
+    if policy not in SCHEDULE_POLICIES:
+        raise ValueError(f"unknown schedule policy {policy!r}; one of "
+                         f"{SCHEDULE_POLICIES}")
+    m = max(int(microbatches), 1)
+    sizes = tuple(int(s) for s in bucket_sizes)
+    n = len(sizes)
+    chan_of = _bucket_channels(sizes, channels)
+    slots: list[IssueSlot] = []
+    if policy == "accumulate_then_reduce":
+        for b in range(n):
+            slots.append(IssueSlot(phase=m - 1, bucket_ids=(b,),
+                                   channel=chan_of[b], ready=1.0))
+    elif policy == "stream":
+        for i in range(m):
+            ready = (i + 1) / m
+            for b in range(n):
+                slots.append(IssueSlot(phase=i, bucket_ids=(b,),
+                                       channel=chan_of[b], ready=ready))
+    else:
+        total = float(sum(sizes)) or 1.0
+        for i in range(m):
+            done = 0.0
+            for b in reversed(range(n)):
+                done += sizes[b]
+                ready = (i + done / total) / m
+                slots.append(IssueSlot(phase=i, bucket_ids=(b,),
+                                       channel=chan_of[b], ready=ready))
+    sched = CommSchedule(policy=policy, microbatches=m, bucket_sizes=sizes,
+                         channels=int(channels), slots=tuple(slots))
+    sched.validate()
+    return sched

@@ -1,0 +1,156 @@
+"""The port's wire: ``torch.distributed`` calls behind one recording wrapper.
+
+The reference's collectives are ``lax.ppermute`` / ``lax.psum`` inside a
+``shard_map``; here they are point-to-point sends and receives
+(``dist.batch_isend_irecv``) and ``dist.all_reduce`` on process groups.
+Every call goes through a :class:`RingAxis`, which
+
+* batches one ring step of every channel chain into one
+  ``batch_isend_irecv`` (the chains overlap on the wire);
+* stages CUDA payloads through pinned host memory when the group's backend
+  is gloo (ranks sharing one card: NCCL refuses two ranks on one device,
+  and gloo moves only CPU tensors) — explicitly, and only then;
+* records every message and its bytes in a :class:`CommRecord`, the port's
+  stand-in for the reference dry-run's collective counts from HLO.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import asdict, dataclass
+from typing import Sequence
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core.topology import RankMesh
+
+
+@dataclass
+class CommRecord:
+    """What this rank put on the wire since the last :meth:`reset`."""
+
+    sends: int = 0               # point-to-point messages sent
+    send_bytes: int = 0
+    all_reduces: int = 0         # dist.all_reduce calls
+    all_reduce_bytes: int = 0    # their payload bytes
+    staging_s: float = 0.0       # host time copying through pinned memory
+
+    def reset(self) -> None:
+        self.sends = self.send_bytes = 0
+        self.all_reduces = self.all_reduce_bytes = 0
+        self.staging_s = 0.0
+
+    def as_dict(self) -> dict:
+        return asdict(self)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class RingAxis:
+    """One mesh axis as this rank sees it: the ring of global ranks along
+    the axis, this rank's index in it, and the process group its messages
+    travel on (``None`` for an axis of one rank)."""
+
+    def __init__(self, ranks: Sequence[int], index: int, group,
+                 record: CommRecord):
+        self.ranks = tuple(ranks)
+        self.index = index
+        self.group = group
+        self.record = record
+        self.stage = (group is not None
+                      and dist.get_backend(group) == dist.Backend.GLOO)
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+    def _stage_out(self, ts: list[torch.Tensor]) -> list[torch.Tensor]:
+        """Pinned host copies of CUDA tensors bound for a gloo group.  The
+        device's pending work is waited for first, so the recorded time is
+        the copies' own."""
+        torch.cuda.current_stream(ts[0].device).synchronize()
+        t0 = time.perf_counter()
+        out = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+               for t in ts]
+        self.record.staging_s += time.perf_counter() - t0
+        return out
+
+    def _stage_in(self, ts: list[torch.Tensor],
+                  device: torch.device) -> list[torch.Tensor]:
+        t0 = time.perf_counter()
+        out = [t.to(device) for t in ts]
+        self.record.staging_s += time.perf_counter() - t0
+        return out
+
+    def hop(self, payloads: list[torch.Tensor],
+            directions: Sequence[int]) -> list[torch.Tensor]:
+        """One ring step of every chain at once: ``payloads[i]`` goes to the
+        neighbour ``directions[i]`` steps along the ring and the same-shaped
+        tensor comes back from the opposite neighbour (tag ``i``, so chains
+        between the same two ranks never cross)."""
+        p, r = self.size, self.index
+        staged = self.stage and payloads[0].is_cuda
+        if staged:
+            sends = self._stage_out(payloads)
+            recvs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                     for t in sends]
+        else:
+            sends = [t.contiguous() for t in payloads]
+            recvs = [torch.empty_like(t) for t in sends]
+        ops = []
+        for tag, (s, rv, d) in enumerate(zip(sends, recvs, directions)):
+            ops.append(dist.P2POp(dist.isend, s, self.ranks[(r + d) % p],
+                                  self.group, tag))
+            ops.append(dist.P2POp(dist.irecv, rv, self.ranks[(r - d) % p],
+                                  self.group, tag))
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        self.record.sends += len(sends)
+        self.record.send_bytes += sum(_nbytes(s) for s in sends)
+        return self._stage_in(recvs, payloads[0].device) if staged else recvs
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum of ``t`` over the axis (a fresh tensor; ``t`` is untouched)."""
+        if self.size == 1:
+            return t.clone()
+        staged = self.stage and t.is_cuda
+        wire = self._stage_out([t])[0] if staged else t.clone()
+        dist.all_reduce(wire, group=self.group)
+        self.record.all_reduces += 1
+        self.record.all_reduce_bytes += _nbytes(wire)
+        return self._stage_in([wire], t.device)[0] if staged else wire
+
+
+def axis_rings(mesh: RankMesh, rank: int, axes: Sequence[str],
+               record: CommRecord) -> list[RingAxis]:
+    """This rank's :class:`RingAxis` for each of ``axes``, each over fresh
+    process groups.  Every rank must call this with the same arguments in
+    the same order: creating a group is collective over the whole world."""
+    return [_ring_of(mesh, rank, (axis,), record) for axis in axes]
+
+
+def joint_ring(mesh: RankMesh, rank: int, axes: Sequence[str],
+               record: CommRecord) -> RingAxis:
+    """One :class:`RingAxis` over all of ``axes`` at once (the reference's
+    ``psum`` over several axes is one collective over their joint group)."""
+    return _ring_of(mesh, rank, tuple(axes), record)
+
+
+def _ring_of(mesh: RankMesh, rank: int, axes: tuple[str, ...],
+             record: CommRecord) -> RingAxis:
+    mine = None
+    for ranks in mesh.groups(axes):
+        group = None
+        if len(ranks) > 1:
+            if not dist.is_initialized():
+                raise RuntimeError(f"a ring over {len(ranks)} ranks needs an "
+                                   f"initialised torch.distributed world")
+            group = dist.new_group(ranks=ranks)
+        if rank in ranks:
+            mine = RingAxis(ranks, ranks.index(rank), group, record)
+    if mine is None:
+        raise ValueError(f"rank {rank} is not on the mesh {mesh}")
+    return mine

@@ -1,0 +1,1 @@
+"""Page-aligned communication-buffer arenas (port of ``repro.mem``)."""

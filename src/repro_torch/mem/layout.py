@@ -1,11 +1,16 @@
 """ArenaLayout: page-quantized placement of buffers in one flat arena.
 
-Port of the placement half of ``repro.mem.layout``: every buffer becomes an
-:class:`ArenaSegment` whose element offset and padded size are quantized to
-``page_bytes`` (default the 2 MiB huge page), and segments sharing a virtual
-channel fuse into one contiguous :class:`ArenaSpan`.  The serving KV arena
-(:mod:`repro_torch.serve.kv`) is its first user; the gradient-bucket,
-quantized-wire and halo layouts arrive with the training slices.
+Port of ``repro.mem.layout`` (the quantized-wire and halo layouts arrive
+with their slices): every buffer becomes an :class:`ArenaSegment` whose
+element offset and padded size are quantized to ``page_bytes`` (default the
+2 MiB huge page), and segments sharing a virtual channel fuse into one
+contiguous :class:`ArenaSpan`, which moves as one collective.  Its users are
+the serving KV arena (:mod:`repro_torch.serve.kv`) and the gradient arena
+(:func:`arena_from_bucket_plan`, :class:`repro_torch.mem.arena.CommArena`);
+:func:`fuse_schedule` turns a bucket schedule into the span schedule the
+arena executes.  An oversized bucket (one leaf larger than the bucketer's
+target) gets its own segment like any other, with a warning once per
+process.
 
 The arithmetic is plain Python, so a plan here equals the reference's field
 for field; only the dtype is a ``torch.dtype``.
@@ -14,14 +19,19 @@ for field; only the dtype is a ``torch.dtype``.
 from __future__ import annotations
 
 import math
+import warnings
 from dataclasses import dataclass
 from typing import Sequence
 
 import torch
 
+from repro_torch.comm.schedule import CommSchedule, IssueSlot
+from repro_torch.core.bucketing import BucketPlan
 from repro_torch.core.topology import padded_size
 
 PAGE_BYTES = 2 * 2**20     # the paper's huge-page size
+
+_warned_oversized = False  # the oversized-bucket warning fires once
 
 
 def dtype_name(dtype: torch.dtype) -> str:
@@ -108,6 +118,12 @@ class ArenaLayout:
         t = self.total_elems
         return self.padding_elems / t if t else 0.0
 
+    def segment_of(self, bucket: int) -> ArenaSegment:
+        for s in self.segments:
+            if s.bucket == bucket:
+                return s
+        raise KeyError(bucket)
+
     def validate(self) -> None:
         """Structural invariants the executors rely on."""
         end = 0
@@ -168,7 +184,8 @@ class ArenaLayout:
 def plan_arena(sizes: Sequence[int], *, page_bytes: int = PAGE_BYTES,
                dtype: torch.dtype = torch.float32,
                channel_of: Sequence[int] | None = None,
-               pad_multiple: int = 1) -> ArenaLayout:
+               pad_multiple: int = 1, bucket_bytes: int | None = None,
+               warn_oversized: bool = True) -> ArenaLayout:
     """Pack flat buffers of ``sizes`` elements into one page-quantized arena.
 
     ``channel_of[i]`` is the virtual channel carrying buffer ``i`` (default:
@@ -189,6 +206,19 @@ def plan_arena(sizes: Sequence[int], *, page_bytes: int = PAGE_BYTES,
         raise ValueError(f"channel_of has {len(channel_of)} entries for "
                          f"{len(sizes)} buffers")
     quantum = math.lcm(page_bytes // dtype.itemsize, int(pad_multiple))
+
+    if bucket_bytes is not None and warn_oversized:
+        oversized = [i for i, n in enumerate(sizes)
+                     if n * dtype.itemsize > bucket_bytes]
+        global _warned_oversized
+        if oversized and not _warned_oversized:
+            _warned_oversized = True
+            warnings.warn(
+                f"{len(oversized)} bucket(s) exceed the {bucket_bytes}-byte "
+                f"target (oversized tree leaves are never split); each gets "
+                f"a dedicated page-aligned arena segment (ids "
+                f"{oversized[:8]}{'...' if len(oversized) > 8 else ''})",
+                RuntimeWarning, stacklevel=2)
 
     # channel-grouped order: each channel's buffers land contiguously
     order = sorted(range(len(sizes)), key=lambda i: (channel_of[i], i))
@@ -215,3 +245,49 @@ def plan_arena(sizes: Sequence[int], *, page_bytes: int = PAGE_BYTES,
                          spans=tuple(spans))
     layout.validate()
     return layout
+
+
+def arena_from_bucket_plan(plan: BucketPlan, *,
+                           page_bytes: int = PAGE_BYTES,
+                           channel_of: Sequence[int] | None = None,
+                           pad_multiple: int = 1,
+                           bucket_bytes: int | None = None,
+                           warn_oversized: bool = True) -> ArenaLayout:
+    """Arena layout of a bucket plan: one segment per bucket, in the plan's
+    dtype."""
+    return plan_arena(plan.bucket_sizes, page_bytes=page_bytes,
+                      dtype=plan.bucket_dtype, channel_of=channel_of,
+                      pad_multiple=max(pad_multiple, plan.pad_multiple),
+                      bucket_bytes=bucket_bytes,
+                      warn_oversized=warn_oversized)
+
+
+def fuse_schedule(schedule: CommSchedule, layout: ArenaLayout
+                  ) -> CommSchedule:
+    """The span-level schedule an arena executor runs: per phase, each
+    :class:`ArenaSpan` issues one collective over its members' contiguous
+    segments (padding included).  Slot ``bucket_ids`` index
+    :attr:`ArenaLayout.spans`; a span is ready when its last member is."""
+    if layout.n_segments != schedule.n_buckets:
+        raise ValueError(
+            f"layout has {layout.n_segments} segments but the schedule has "
+            f"{schedule.n_buckets} buckets; build both from the same plan")
+    phases = sorted({s.phase for s in schedule.slots})
+    span_sizes = tuple(sp.size for sp in layout.spans)
+    slots: list[IssueSlot] = []
+    for phase in phases:
+        ready_of: dict[int, float] = {}
+        for s in schedule.slots_for_phase(phase):
+            for b in s.bucket_ids:
+                ready_of[b] = max(ready_of.get(b, 0.0), s.ready)
+        phase_slots = [IssueSlot(phase=phase, bucket_ids=(idx,),
+                                 channel=sp.channel,
+                                 ready=max(ready_of[b] for b in sp.buckets))
+                       for idx, sp in enumerate(layout.spans)]
+        slots.extend(sorted(phase_slots, key=lambda s: (s.ready, s.channel)))
+    fused = CommSchedule(policy=schedule.policy,
+                         microbatches=schedule.microbatches,
+                         bucket_sizes=span_sizes,
+                         channels=schedule.channels, slots=tuple(slots))
+    fused.validate()
+    return fused

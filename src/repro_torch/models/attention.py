@@ -1,10 +1,13 @@
-"""GQA attention parameters and head layout.
+"""GQA attention: parameters, head layout and the blockwise training path.
 
-Port of the parts of ``repro.models.attention`` that decode needs: query
-heads are zero-padded up to a multiple of ``HEAD_PAD_TO`` (the padded rows
-of ``wo`` are zero, so padded heads never reach the output), and the
-``(B, S, H*D) <-> (B, H, S, D)`` head split.  The training attention path
-arrives with the training slice.
+Port of ``repro.models.attention`` for dense decoders: query heads are
+zero-padded up to a multiple of ``HEAD_PAD_TO`` (the padded rows of ``wo``
+are zero, so padded heads never reach the output); q head ``h`` reads kv
+head ``h // true_group``.  Training uses :func:`blockwise_attention`, the
+reference's plain online-softmax loop over key blocks in fp32 (it trains
+with that jnp function, not with its ``flash_attn`` kernel), written here
+in plain PyTorch.  Paged decode attention lives in
+:mod:`repro_torch.serve.engine`.
 """
 
 from __future__ import annotations
@@ -14,8 +17,9 @@ import math
 import torch
 
 from repro_torch.configs.base import AttnConfig
-from repro_torch.models.common import dense_init
+from repro_torch.models.common import apply_rope, dense, dense_init
 
+NEG_INF = -1e30
 HEAD_PAD_TO = 16  # model-axis size the padded head count must tile
 
 
@@ -51,3 +55,107 @@ def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
 def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     b, h, s, d = x.shape
     return x.transpose(1, 2).reshape(b, s, h * d)
+
+
+def _gather_kv_for_local_q(k: torch.Tensor, v: torch.Tensor,
+                           cfg: AttnConfig, hq: int):
+    """q head ``h`` reads kv head ``h // true_group`` (clipped for padded
+    heads); returns kv per q head."""
+    true_group = max(cfg.num_heads // cfg.num_kv_heads, 1)
+    idx = torch.clamp(torch.arange(hq, device=k.device) // true_group, 0,
+                      cfg.num_kv_heads - 1)
+    return k.index_select(1, idx), v.index_select(1, idx)
+
+
+def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
+          window: int | None, chunk: int | None) -> torch.Tensor:
+    m = torch.ones(torch.broadcast_shapes(q_pos.shape, k_pos.shape),
+                   dtype=torch.bool, device=q_pos.device)
+    if causal:
+        m &= k_pos <= q_pos
+    if window is not None:
+        m &= k_pos > q_pos - window
+    if chunk is not None:
+        m &= (k_pos // chunk) == (q_pos // chunk)
+    return m
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int | None = None,
+                        chunk: int | None = None, block_q: int = 2048,
+                        block_k: int = 2048,
+                        causal_skip: bool = False) -> torch.Tensor:
+    """q: (B,Hq,S,D), k/v: (B,Hkv,S,D).  fp32 online softmax over key
+    blocks, differentiable by autograd; the output is in q's dtype."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    bq = min(block_q, sq)
+    bk = min(block_k, sk)
+    nq = math.ceil(sq / bq)
+    nk = math.ceil(sk / bk)
+    dev = q.device
+
+    outs = []
+    for i in range(nq):
+        q0, q1 = i * bq, min((i + 1) * bq, sq)
+        qi = q[:, :, q0:q1].float() * scale
+        m = torch.full((b, hq, q1 - q0, 1), NEG_INF, device=dev)
+        l = torch.zeros((b, hq, q1 - q0, 1), device=dev)
+        acc = torch.zeros((b, hq, q1 - q0, d), device=dev)
+        for j in range(nk):
+            k0, k1 = j * bk, min((j + 1) * bk, sk)
+            if causal_skip and causal and k0 > q1 - 1:
+                continue          # a block wholly in the future
+            if causal_skip and window is not None and k1 - 1 <= q0 - window:
+                continue          # a block wholly out of the window
+            if (causal_skip and chunk is not None
+                    and (k1 - 1) // chunk < q0 // chunk):
+                continue          # a block before this q range's chunk
+            kj = k[:, :, k0:k1].float()
+            vj = v[:, :, k0:k1].float()
+            if group > 1:
+                kj = torch.repeat_interleave(kj, group, dim=1)
+                vj = torch.repeat_interleave(vj, group, dim=1)
+            s = qi @ kj.transpose(-1, -2)
+            q_pos = torch.arange(q0, q1, device=dev)[:, None]
+            k_pos = torch.arange(k0, k1, device=dev)[None, :]
+            msk = _mask(q_pos, k_pos, causal=causal, window=window,
+                        chunk=chunk)
+            s = torch.where(msk, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new)
+            l = alpha * l + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + p @ vj
+            m = m_new
+        outs.append(acc / torch.clamp(l, min=1e-30))
+    return torch.cat(outs, dim=2).to(q.dtype)
+
+
+def attn_apply(p: dict, x: torch.Tensor, cfg: AttnConfig, *, is_global: bool,
+               positions: torch.Tensor | None = None,
+               compute_dtype: torch.dtype = torch.bfloat16,
+               causal: bool = True, causal_skip: bool = False,
+               block_q: int = 2048, block_k: int = 2048) -> torch.Tensor:
+    """Self-attention over a full sequence (train / prefill) on one rank;
+    the tensor-parallel split arrives with its slice."""
+    b, s, _ = x.shape
+    hq = p["wq"]["w"].shape[1] // cfg.head_dim
+    hkv = p["wk"]["w"].shape[1] // cfg.head_dim
+    q = _split_heads(dense(p["wq"], x, compute_dtype), hq)
+    k = _split_heads(dense(p["wk"], x, compute_dtype), hkv)
+    v = _split_heads(dense(p["wv"], x, compute_dtype), hkv)
+    pos = (positions if positions is not None
+           else torch.arange(s, device=x.device))
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    if hq != hkv:
+        k, v = _gather_kv_for_local_q(k, v, cfg, hq)
+    window = None if is_global else cfg.window
+    chunk = None if is_global else cfg.chunk
+    o = blockwise_attention(q, k, v, causal=causal, window=window,
+                            chunk=chunk, block_q=block_q, block_k=block_k,
+                            causal_skip=causal_skip)
+    return dense(p["wo"], _merge_heads(o), compute_dtype)

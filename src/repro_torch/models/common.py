@@ -1,4 +1,4 @@
-"""Shared building blocks: inits, norms, linears, RoPE, activations.
+"""Shared building blocks: inits, norms, linears, RoPE, activations, loss.
 
 Port of ``repro.models.common``.  Parameters are plain nested dicts of
 tensors with the reference's keys, so a tree converted by
@@ -138,3 +138,22 @@ def unembed(p: dict, x: torch.Tensor,
             compute_dtype: torch.dtype) -> torch.Tensor:
     """Tied unembedding: logits over the whole vocabulary."""
     return x.to(compute_dtype) @ p["table"].to(compute_dtype).T
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Token-mean cross entropy in fp32 over the full vocabulary (the
+    vocab-parallel form arrives with tensor parallelism)."""
+    lf = logits.float()
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.take_along_dim(lf, labels.long()[..., None], dim=-1)[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    m = mask.float()
+    return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)

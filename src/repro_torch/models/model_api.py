@@ -44,6 +44,18 @@ class Model:
                              f"parameters are made on {dev}")
         return transformer.init_params(generator, self.cfg, dev)
 
+    def loss_fn(self, params: dict, batch: dict, *,
+                causal_skip: bool = False) -> torch.Tensor:
+        """Token-mean cross entropy of ``batch`` (the reference's
+        ``Model.loss_fn`` on one data-parallel rank)."""
+        return transformer.loss_fn(params, batch, self.cfg,
+                                   causal_skip=causal_skip)
+
+    def forward(self, params: dict, batch: dict, *,
+                causal_skip: bool = False) -> torch.Tensor:
+        return transformer.forward(params, batch["tokens"], self.cfg,
+                                   causal_skip=causal_skip)
+
     def param_count(self) -> int:
         """Element count of the tree, from shapes alone (nothing allocated)."""
         tree = transformer.init_params(None, self.cfg, torch.device("meta"))

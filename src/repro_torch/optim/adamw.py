@@ -1,0 +1,81 @@
+"""AdamW over parameter trees (replicated data parallelism).
+
+Port of the tree half of ``repro.optim.adamw`` (the flat-shard update of
+ZeRO arrives with the zero1 slice).  Parameters may be of any float dtype;
+moments and the update are fp32.  The update allocates new parameter and
+moment tensors, like the reference's functional one.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch import tree as tree_util
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    base_lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    schedule: str = "cosine"          # constant | linear | cosine | wsd
+    warmup: int = 100
+    total_steps: int = 1000
+
+
+def init_opt_state(params) -> dict:
+    zeros = lambda t: tree_util.tree_map(           # noqa: E731
+        lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+        t)
+    return {"mu": zeros(params), "nu": zeros(params)}
+
+
+def global_grad_norm(grads) -> torch.Tensor:
+    """Global L2 norm of a replicated gradient tree (fp32).  Without tensor
+    parallelism every leaf is counted once on every rank."""
+    sq = sum(torch.sum(torch.square(g.float())) for g in tree_util.leaves(grads))
+    return torch.sqrt(sq)
+
+
+def clip_factor(gnorm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+
+
+def _adamw_moments(g, mu, nu, step: int, cfg: OptimConfig):
+    g = g.float()
+    mu = cfg.b1 * mu + (1 - cfg.b1) * g
+    nu = cfg.b2 * nu + (1 - cfg.b2) * g * g
+    t = float(step) + 1.0
+    mu_hat = mu / (1 - cfg.b1 ** t)
+    nu_hat = nu / (1 - cfg.b2 ** t)
+    return mu_hat / (torch.sqrt(nu_hat) + cfg.eps), mu, nu
+
+
+@torch.no_grad()
+def adamw_tree_update(params, grads, opt_state: dict, step: int, lr: float,
+                      cfg: OptimConfig):
+    """``params' = (1 - lr*wd) * params - lr * adam(grads)``; returns
+    ``(new_params, new_opt_state)``."""
+    lp, treedef = tree_util.flatten(params)
+    lg = tree_util.leaves(grads)
+    lmu = tree_util.leaves(opt_state["mu"])
+    lnu = tree_util.leaves(opt_state["nu"])
+    if not len(lp) == len(lg) == len(lmu) == len(lnu):
+        raise ValueError("params, grads and optimizer state differ in "
+                         "structure")
+    new_p, new_mu, new_nu = [], [], []
+    for p, g, mu, nu in zip(lp, lg, lmu, lnu):
+        upd, mu2, nu2 = _adamw_moments(g, mu, nu, step, cfg)
+        p2 = p.float() * (1 - lr * cfg.weight_decay) - lr * upd
+        new_p.append(p2.to(p.dtype))
+        new_mu.append(mu2)
+        new_nu.append(nu2)
+    unf = treedef.unflatten
+    return unf(new_p), {"mu": unf(new_mu), "nu": unf(new_nu)}
+
+

@@ -1,5 +1,6 @@
-"""repro_torch CUDA kernels on the card: each kernel against its plain
-PyTorch version on the same card inputs, and run-to-run bitwise.
+"""repro_torch CUDA kernels on the card: each kernel (flash-decode,
+reduce_add, pack write/read) against its plain PyTorch version on the same
+card inputs, and run-to-run bitwise.
 
 Marked ``cuda``; without a card every test skips (a CUDA kernel has no CPU
 mode).  The file imports no JAX, so it runs where the port runs::
@@ -11,6 +12,10 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_decode import ops, ref
+from repro_torch.kernels.pack import ops as pk
+from repro_torch.kernels.pack import ref as pk_ref
+from repro_torch.kernels.reduce_add import ops as ra
+from repro_torch.kernels.reduce_add import ref as ra_ref
 
 
 @pytest.fixture
@@ -75,3 +80,50 @@ def test_flash_decode_kernel_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         ops.flash_decode_stats(q, k.transpose(2, 3).contiguous()
                                .transpose(2, 3), v, valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1024, 37 * 1024, 1000, 7])
+@pytest.mark.parametrize("start", [0, 1])
+@pytest.mark.parametrize("dtypes", [
+    (torch.float32, torch.float32, torch.float32),
+    (torch.bfloat16, torch.float32, torch.float32),
+    (torch.float32, torch.float32, torch.bfloat16)])
+def test_reduce_add_kernel_matches_plain_version_bitwise(cuda_device, n, start,
+                                                         dtypes):
+    at, bt, ot = dtypes
+    gen = torch.Generator(device=cuda_device).manual_seed(n + start)
+    a = torch.randn(n + 1, generator=gen, device=cuda_device).to(at)
+    b = torch.randn(n + 1, generator=gen, device=cuda_device).to(bt)
+    x, y = a[start:start + n], b[start:start + n]    # start 1: unaligned
+    before = ra.LAUNCHES
+    got = ra.add_accum(x, y, out_dtype=ot)
+    again = ra.add_accum(x, y, out_dtype=ot)
+    torch.cuda.synchronize(cuda_device)
+    assert ra.LAUNCHES == before + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, ra_ref.add_accum(x, y, out_dtype=ot))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arena_dtype,offset,size,src_dtype", [
+    (torch.float32, 0, 3 * 2**19, torch.float32),      # 2 MiB-aligned
+    (torch.float32, 2**19 + 13, 1000, torch.float32),  # odd offset
+    (torch.bfloat16, 2**19, 5000, torch.float32),      # fp32 into bf16
+    (torch.bfloat16, 3, 777, torch.bfloat16)])
+def test_pack_kernels_match_plain_versions_bitwise(cuda_device, arena_dtype,
+                                                    offset, size, src_dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(offset + size)
+    arena = torch.randn(8 * 2**19, generator=gen,
+                        device=cuda_device).to(arena_dtype)
+    src = torch.randn(size, generator=gen, device=cuda_device).to(src_dtype)
+    want = pk_ref.write_flat(arena.clone(), src, offset)
+    before = dict(pk.LAUNCHES)
+    got = pk.write_flat(arena, src, offset)
+    read = pk.read_flat(got, offset, size)
+    torch.cuda.synchronize(cuda_device)
+    assert got.data_ptr() == arena.data_ptr()          # in place
+    assert pk.LAUNCHES == {"write": before["write"] + 1,
+                           "read": before["read"] + 1}
+    assert torch.equal(got, want)
+    assert torch.equal(read, pk_ref.read_flat(want, offset, size))
