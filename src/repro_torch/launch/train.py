@@ -1,8 +1,7 @@
 """Training entry point: replicated data parallelism over the port's ring.
 
 Port of ``repro.launch.train`` (same flags; ``--layers`` cuts depth,
-``--local-op`` picks the CUDA kernels or their plain versions, ``--nproc``
-spawns that many local ranks).  Rank count and rank come from
+``--nproc`` spawns that many local ranks).  Rank count and rank come from
 ``torch.distributed``'s environment (``WORLD_SIZE``, ``RANK``,
 ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``); ranks take cards
 round-robin.  The backend is fixed when the group is created and printed:
@@ -36,7 +35,6 @@ import torch.multiprocessing as mp
 from repro_torch.comm.registry import list_transports
 from repro_torch.comm.schedule import SCHEDULE_POLICIES
 from repro_torch.configs import get_config, list_archs, reduced_config
-from repro_torch.core.ring import LOCAL_OPS
 from repro_torch.data import DataConfig, SyntheticTokens
 from repro_torch.device import resolve_device
 from repro_torch.launch.settings import settings_for
@@ -129,7 +127,6 @@ def setup(args, world: World) -> TrainRun:
         ccfg = dataclasses.replace(ccfg, channels=args.channels)
     if args.page_bytes is not None:
         ccfg = dataclasses.replace(ccfg, page_bytes=args.page_bytes)
-    ccfg = dataclasses.replace(ccfg, local_op=args.local_op)
     schedule = "wsd" if args.arch == "minicpm-2b" else "cosine"
     step_cfg = TrainStepConfig(
         dp_mode=dp_mode, comm=ccfg,
@@ -150,7 +147,7 @@ def setup(args, world: World) -> TrainRun:
         f"params={model.param_count() / 1e6:.1f}M world={world.size} "
         f"device={world.device} dp_mode={dp_mode} "
         f"transport={ccfg.transport} channels={ccfg.channels} "
-        f"arena={args.use_arena} local_op={args.local_op}")
+        f"arena={args.use_arena}")
     return TrainRun(model, trainer, world)
 
 
@@ -250,9 +247,6 @@ def parser() -> argparse.ArgumentParser:
                          "spans, one buffer allocated once)")
     ap.add_argument("--page-bytes", type=int, default=None,
                     help="arena page size (default 2 MiB)")
-    ap.add_argument("--local-op", default="kernel", choices=LOCAL_OPS,
-                    help="ring add and arena copies: the CUDA kernels, or "
-                         "their plain PyTorch versions")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights")

@@ -93,13 +93,11 @@ class TrainStep:
     """``step(state, batch) -> (state, metrics)`` for one rank.
 
     Builds its :class:`Communicator` on construction, which is collective:
-    every rank of the mesh builds its steps in the same order.  With
-    ``keep_grads`` the reduced (mean, unclipped) gradient tree of the last
-    call is kept in :attr:`last_grads`.
+    every rank of the mesh builds its steps in the same order.
     """
 
     def __init__(self, model: Model, mesh: RankMesh, cfg: TrainStepConfig,
-                 *, device: torch.device, keep_grads: bool = False):
+                 *, device: torch.device):
         require_replicated(cfg.dp_mode)
         self.model = model
         self.cfg = cfg
@@ -118,8 +116,6 @@ class TrainStep:
             self.comm.arena_schedule(local, policy, cfg.microbatches)
             if cfg.use_arena
             else self.comm.schedule(local, policy, cfg.microbatches))
-        self.keep_grads = keep_grads
-        self.last_grads = None
 
     def _grad_fn(self, params, mb):
         leaves, treedef = tree_util.flatten(params)
@@ -141,8 +137,6 @@ class TrainStep:
             loss, grads = self.comm.reduce_scheduled(
                 self._grad_fn, state["params"], batch, self.schedule,
                 op="all_reduce")
-        if self.keep_grads:
-            self.last_grads = grads
         gnorm = global_grad_norm(grads)
         factor = clip_factor(gnorm, self.cfg.optim.clip_norm)
         grads = tree_util.tree_map(lambda g: g * factor, grads)
