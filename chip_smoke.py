@@ -7,7 +7,7 @@ Run from the repository root with no arguments::
 
 Phases, each of which raises on a failed check (exit code != 0):
 
-1. build    — ``nvcc`` builds the three CUDA sources for sm_90a from the
+1. build    — ``nvcc`` builds the five CUDA sources for sm_90a from the
               repository, one compiler per source, all at once;
 2. kernel   — the flash-decode kernel against its plain PyTorch version on
               card inputs at the serve shape and around it (fp32
@@ -51,7 +51,37 @@ Phases, each of which raises on a failed check (exit code != 0):
               pack write and pack read at the main path's largest shapes,
               their plain versions and one PyTorch call each
               (``torch.add``, ``copy_``, ``clone``; yardsticks only),
-              beside the memory-rate bound.
+              beside the memory-rate bound;
+11. kernels_int8 — the int8 codec's ``quantize``/``dequantize`` and the
+              arena's ``write_quant``/``read_dequant`` (blocks 512, 128 and
+              96; 1, 7 and about 500,000 blocks; a zero block, and a
+              block holding a NaN and one holding an inf; arena offsets 0,
+              a 2 MiB page and a block multiple that is not a page
+              multiple; in place; error feedback fused and not) against
+              their plain versions: bitwise (NaN where they have NaN), and
+              run to run;
+12. train_int8 — the train phase with ``--wire-codec int8``: the int8
+              arena and the ``"ef"`` accumulator keep their ``data_ptr()``,
+              ``write_quant`` launches == (segments + spans) x steps,
+              ``read_dequant`` launches == (spans + segments) x steps, no
+              ``quantize`` launch (one rank makes no hop), the first loss
+              equal to the train phase's; then one profiled step;
+13. train_ring_int8 — train_ring with ``--wire-codec int8``: ``quantize``
+              launches == channel slices x p x steps, ``dequantize``
+              launches == channel slices x (2p - 1) x steps,
+              the other launches as predicted, recorded sends and bytes ==
+              the CommPlan's compressed prediction, and one step through
+              the kernels and through the plain versions from the same
+              state and the same local gradients: reduced gradients, new
+              parameters and new ``"ef"`` bitwise equal; then one step
+              with the arena off, every bucket through the int8 ring:
+              launches as predicted, sends and bytes == the plan's;
+14. timing  — time per call of ``write_quant`` (with error feedback) and
+              ``read_dequant`` at train_int8's largest segment and of
+              ``quantize``/``dequantize`` at train_ring_int8's largest hop,
+              their plain versions and, for the decodes, one PyTorch call
+              (``torch.mul`` of int8 by fp32 scales; no single PyTorch call
+              quantizes by block absmax), beside the memory-rate bound.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` gives them, and as its last line
@@ -99,7 +129,8 @@ def gpu_line() -> str:
 
 # the port's kernels as the profiler names them
 PORT_KERNELS = ("flash_decode_stats_kernel", "reduce_add_kernel",
-                "write_flat_kernel", "read_flat_kernel")
+                "write_flat_kernel", "read_flat_kernel", "quantize_kernel",
+                "write_quant_kernel", "read_dequant_kernel")
 
 
 def device_activity(fn, iters: int,
@@ -134,9 +165,49 @@ def device_activity(fn, iters: int,
 
 
 def port_kernels_seen(counts: dict) -> int:
-    """How many launches of the port's kernels the profiler recorded."""
+    """How many launches of the port's kernels the profiler recorded
+    (``quantize_kernel`` also matches ``dequantize_kernel``)."""
     return sum(c for name, c in counts.items()
                if any(k in name for k in PORT_KERNELS))
+
+
+def _kernel_ops():
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.pack import ops as pk
+    from repro_torch.kernels.pack_quant import ops as pq
+    from repro_torch.kernels.quant import ops as qt
+    from repro_torch.kernels.reduce_add import ops as ra
+
+    return fd, ra, pk, qt, pq
+
+
+def launch_counters() -> dict:
+    """Every kernel wrapper's launch count, by kernel."""
+    fd, ra, pk, qt, pq = _kernel_ops()
+    return {"flash_decode": fd.LAUNCHES, "reduce_add": ra.LAUNCHES,
+            "pack_write": pk.LAUNCHES["write"],
+            "pack_read": pk.LAUNCHES["read"],
+            "quantize": qt.LAUNCHES["quantize"],
+            "dequantize": qt.LAUNCHES["dequantize"],
+            "pack_quant_write": pq.LAUNCHES["write"],
+            "pack_quant_read": pq.LAUNCHES["read"]}
+
+
+def set_launch_counters(saved: dict) -> None:
+    """Sets the counts :func:`launch_counters` reads (restoring them after
+    launches made to time or check a kernel, which are not the main
+    path's)."""
+    fd, ra, pk, qt, pq = _kernel_ops()
+    fd.LAUNCHES, ra.LAUNCHES = saved["flash_decode"], saved["reduce_add"]
+    pk.LAUNCHES.update(write=saved["pack_write"], read=saved["pack_read"])
+    qt.LAUNCHES.update(quantize=saved["quantize"],
+                       dequantize=saved["dequantize"])
+    pq.LAUNCHES.update(write=saved["pack_quant_write"],
+                       read=saved["pack_quant_read"])
+
+
+def reset_launch_counters() -> None:
+    set_launch_counters(dict.fromkeys(launch_counters(), 0))
 
 
 def events_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -237,15 +308,20 @@ def phase_build() -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.pack import ops as pack_ops
+    from repro_torch.kernels.pack_quant import ops as pq_ops
+    from repro_torch.kernels.quant import ops as q_ops
     from repro_torch.kernels.reduce_add import ops as ra_ops
 
     t0 = time.perf_counter()
-    sources = [fd_ops.SOURCE, ra_ops.SOURCE, pack_ops.SOURCE]
+    sources = [fd_ops.SOURCE, ra_ops.SOURCE, pack_ops.SOURCE, q_ops.SOURCE,
+               pq_ops.SOURCE]
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(_build.build, sources))
     fd_ops._kernel_fn()
     ra_ops._kernel_fn()
     pack_ops._kernel_fns()
+    q_ops._kernel_fns()
+    pq_ops._kernel_fns()
     log(f"[build] {', '.join(path.name for path, _ in built)} in "
         f"{time.perf_counter() - t0:.1f} s")
     for _, report in built:
@@ -333,7 +409,7 @@ def phase_serve(dev):
         return logits
 
     eng.decode = checked_decode
-    ops.LAUNCHES = 0
+    reset_launch_counters()
     results = serve.serve_policies(run, ["continuous", "static"])
     launches = ops.LAUNCHES
     eng.decode = step
@@ -458,6 +534,8 @@ TRAIN_ARGS = ["--arch", ARCH, "--dp-mode", "replicated", "--transport",
               "--steps", "3", "--device", "cuda", "--seed", "0"]
 # two ranks on one 80 GB card: full width, depth cut to 4 layers
 RING_ARGS = TRAIN_ARGS + ["--layers", "4"]
+INT8_ARGS = ["--wire-codec", "int8"]
+MANY_BLOCKS = 500_000      # the kernel checks' largest block count
 
 
 def step_profile(trainer, rank: int, world: int, profiled: bool) -> dict:
@@ -465,8 +543,6 @@ def step_profile(trainer, rank: int, world: int, profiled: bool) -> dict:
     ``profiled`` its wall time, device busy time and idle share, and how
     many of the step's launches of the port's kernels the profiler
     recorded."""
-    from repro_torch.kernels.pack import ops as pk
-    from repro_torch.kernels.reduce_add import ops as ra
     from repro_torch.runtime.train_step import shard_batch
 
     batch = shard_batch(trainer.data.batch_at(trainer.state["step"]), rank,
@@ -479,9 +555,9 @@ def step_profile(trainer, rank: int, world: int, profiled: bool) -> dict:
     if not profiled:
         one()
         return {}
-    launches = ra.LAUNCHES + sum(pk.LAUNCHES.values())
+    launches = sum(launch_counters().values())
     wall, by_name, counts = device_activity(one, 1, warm=False)
-    launched = ra.LAUNCHES + sum(pk.LAUNCHES.values()) - launches
+    launched = sum(launch_counters().values()) - launches
     if not by_name:
         raise RuntimeError("the profiler recorded no device activity in a "
                            "train step")
@@ -584,7 +660,6 @@ def phase_train(dev) -> dict:
 
     import torch
 
-    from repro_torch.kernels.pack import ops as pk
     from repro_torch.launch import train as launch_train
 
     args = launch_train.parser().parse_args(TRAIN_ARGS)
@@ -596,19 +671,21 @@ def phase_train(dev) -> dict:
     layout = step.arena.layout
     ptr = trainer.state["arena"].data_ptr()
     torch.cuda.reset_peak_memory_stats(dev)
-    pk.LAUNCHES.update(write=0, read=0)
+    reset_launch_counters()
     hist = trainer.run()["history"]
-    launches = dict(pk.LAUNCHES)
+    counts = launch_counters()
+    launches = {"write": counts["pack_write"], "read": counts["pack_read"]}
     losses = [h["loss"] for h in hist]
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"[train] non-finite loss: {losses}")
     if trainer.state["arena"].data_ptr() != ptr:
         raise AssertionError("[train] the arena moved between steps")
     want = layout.n_segments * args.steps
-    if launches != {"write": want, "read": want}:
-        raise AssertionError(f"[train] pack launches {launches}, expected "
-                             f"{want} each ({layout.n_segments} segments x "
-                             f"{args.steps} steps)")
+    if counts != dict(dict.fromkeys(counts, 0), pack_write=want,
+                      pack_read=want):
+        raise AssertionError(f"[train] launches {counts}, expected {want} "
+                             f"pack writes and reads ({layout.n_segments} "
+                             f"segments x {args.steps} steps) and no other")
     peak = torch.cuda.max_memory_allocated(dev)
     prof = step_profile(trainer, 0, 1, profiled=True)
     out = {"losses": losses, "step_s": [h["sec"] for h in hist],
@@ -637,27 +714,108 @@ def phase_train(dev) -> dict:
     return out
 
 
+def phase_train_int8(dev, fp32_losses: list[float]) -> dict:
+    """The train phase's setup with the int8 wire: one rank, full llama3.2-1b
+    (16 layers), the int8 arena with error feedback, 3 steps."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch import train as launch_train
+
+    args = launch_train.parser().parse_args(TRAIN_ARGS + INT8_ARGS)
+    world = launch_train.init_distributed(args.device)
+    run = launch_train.setup(args, world)
+    _check_full_width(run.model.cfg, 16, "train_int8")
+    trainer = run.trainer
+    step = trainer.step_fn
+    layout = step.arena.layout
+    ptrs = (trainer.state["arena"].data_ptr(), trainer.state["ef"].data_ptr())
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counters()
+    hist = trainer.run()["history"]
+    launches = launch_counters()
+    losses = [h["loss"] for h in hist]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[train_int8] non-finite loss: {losses}")
+    if (trainer.state["arena"].data_ptr(),
+            trainer.state["ef"].data_ptr()) != ptrs:
+        raise AssertionError("[train_int8] the arena or ef moved")
+    segs, spans = layout.n_segments, layout.n_spans
+    # per step: pack_into encodes each segment, each reduced span is
+    # re-encoded; each span is decoded before its collective, each segment
+    # by unpack.  One rank makes no ring hop, so the codec never runs.
+    want = dict.fromkeys(launches, 0)
+    want.update(pack_quant_write=(segs + spans) * args.steps,
+                pack_quant_read=(spans + segs) * args.steps)
+    if launches != want:
+        raise AssertionError(f"[train_int8] launches {launches}, expected "
+                             f"{want} ({segs} segments, {spans} spans, "
+                             f"{args.steps} steps)")
+    if losses[0] != fp32_losses[0]:
+        raise AssertionError(f"[train_int8] first loss {losses[0]} != the "
+                             f"fp32 train phase's {fp32_losses[0]} (same "
+                             f"weights, same batch)")
+    dloss = [abs(a - b) for a, b in zip(losses, fp32_losses)]
+    peak = torch.cuda.max_memory_allocated(dev)
+    prof = step_profile(trainer, 0, 1, profiled=True)
+    out = {"losses": losses, "step_s": [h["sec"] for h in hist],
+           "launches": launches, "n_segments": segs, "n_spans": spans,
+           "arena_bytes": layout.total_bytes, "arena_pages": layout.n_pages,
+           "padding_fraction": layout.padding_fraction,
+           "payload_elems": layout.payload_elems,
+           "scale_region_bytes": layout.scale_region_bytes,
+           "ef_bytes": layout.payload_elems * 4,
+           "max_segment": max(seg.size for seg in layout.segments),
+           "block": layout.block, "dloss_vs_fp32": dloss,
+           "peak_bytes": peak, "profile": prof}
+    log(f"[train_int8] llama3.2-1b 16 layers, 1 rank, int8 arena "
+        f"{layout.total_bytes} B ({layout.n_pages} pages, padding "
+        f"{layout.padding_fraction:.4f}, scales "
+        f"{layout.scale_region_bytes} B), ef {out['ef_bytes']} B, "
+        f"{segs} segments / {spans} spans: losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; |loss - fp32 loss| "
+        f"{', '.join(f'{x:.2e}' for x in dloss)}; step wall "
+        f"{', '.join(f'{h['sec'] * 1e3:.0f}' for h in hist)} ms; peak "
+        f"{peak / 2**30:.1f} GiB")
+    log(f"[train_int8] launches write_quant {launches['pack_quant_write']} "
+        f"and read_dequant {launches['pack_quant_read']} == "
+        f"({segs} + {spans}) x {args.steps}, quantize 0; arena and ef "
+        f"data_ptr stable; first loss == the fp32 phase's")
+    log(f"[train_int8] profiled step: wall {prof['step_wall_ms']:.1f} ms, "
+        f"device busy {prof['step_device_ms']:.1f} ms, idle share "
+        f"{prof['idle_share']:.3f}; the profiler recorded "
+        f"{prof['port_kernels']['recorded']} of the "
+        f"{prof['port_kernels']['launched']} write_quant/read_dequant "
+        f"launches")
+    del run, trainer, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _ring_worker(argv: list[str]) -> dict:
-    """One of two ranks of the train_ring phase (a spawned process)."""
+    """One of two ranks of the train_ring phases (a spawned process): the
+    fp32 arena, or with ``--wire-codec int8`` the int8 arena and then one
+    step with the arena off (:func:`_bucket_pass`)."""
     import dataclasses
+    import gc
 
     import torch
     import torch.distributed as dist
 
     from repro_torch import tree as tree_util
     from repro_torch.core.ring import _channel_slices
-    from repro_torch.kernels.pack import ops as pk
-    from repro_torch.kernels.reduce_add import ops as ra
     from repro_torch.launch import train as launch_train
     from repro_torch.runtime.train_step import TrainStep, shard_batch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     args = launch_train.parser().parse_args(argv)
+    quant = args.wire_codec is not None
     world = launch_train.init_distributed(args.device)
     try:
         run = launch_train.setup(args, world)
-        _check_full_width(run.model.cfg, int(argv[argv.index("--layers") + 1]),
-                          "train_ring")
+        _check_full_width(run.model.cfg, args.layers, "train_ring")
         trainer = run.trainer
         step = trainer.step_fn
         comm = step.comm
@@ -666,34 +824,57 @@ def _ring_worker(argv: list[str]) -> dict:
         slices = sum(len(_channel_slices(sp.size // p,
                                          comm.transport.ring_cfg))
                      for sp in layout.spans)
-        ptr = trainer.state["arena"].data_ptr()
-        ra.LAUNCHES = 0
-        pk.LAUNCHES.update(write=0, read=0)
+        state = trainer.state
+        ptrs = [state[k].data_ptr() for k in ("arena", "ef") if k in state]
+        reset_launch_counters()
         comm.record.reset()
         hist = trainer.run()["history"]
-        counts = {"reduce_add": ra.LAUNCHES, **pk.LAUNCHES}
+        counts = launch_counters()
         record = comm.record.as_dict()
         steps = args.steps
-        predicted = {
-            "reduce_add": slices * (p - 1) * steps,
-            "write": layout.n_segments * steps,
-            "read": layout.n_segments * steps,
-            "sends": step.plan.arena_messages_per_device * steps,
-            "send_bytes": step.plan.arena_bytes_per_device * steps}
+        segs, spans = layout.n_segments, layout.n_spans
+        # derived from the code: per step, each span's ring all-reduce runs
+        # p - 1 reduce-scatter hops, each adding, and under the int8 codec
+        # encoding and decoding, every channel slice, then an all-gather
+        # that encodes each slice once and decodes each of the slice's p
+        # payloads (its own and p - 1 received) one by one; the fp32 arena
+        # packs and unpacks each segment once; the int8 arena encodes each
+        # segment (pack, with error feedback) and each reduced span
+        # (re-encode) and decodes each span (before its collective) and
+        # each segment (unpack)
+        predicted = {"flash_decode": 0,
+                     "reduce_add": slices * (p - 1) * steps,
+                     "pack_write": 0 if quant else segs * steps,
+                     "pack_read": 0 if quant else segs * steps,
+                     "quantize": slices * p * steps if quant else 0,
+                     "dequantize": slices * (2 * p - 1) * steps if quant
+                     else 0,
+                     "pack_quant_write": (segs + spans) * steps if quant
+                     else 0,
+                     "pack_quant_read": (spans + segs) * steps if quant
+                     else 0}
+        planned = {"sends": step.plan.arena_messages_per_device * steps,
+                   "send_bytes": step.plan.arena_bytes_per_device * steps}
         losses = [h["loss"] for h in hist]
-        stable = trainer.state["arena"].data_ptr() == ptr
+        stable = [trainer.state[k].data_ptr()
+                  for k in ("arena", "ef") if k in state] == ptrs
 
         # the same step through the kernels and through the plain versions:
         # both reduce the same local gradients, from one backward pass
         # (autograd's scatter-add backward is not bitwise reproducible
-        # from run to run on the card, which would hide what is compared)
+        # from run to run on the card, which would hide what is compared),
+        # from the same state (the int8 arena and "ef" are updated in place,
+        # so the plain step gets copies of them)
         plain = TrainStep(run.model, comm.mesh, dataclasses.replace(
             step.cfg, comm=dataclasses.replace(step.cfg.comm,
                                                local_op="plain")),
             device=world.device)
-        batch = shard_batch(trainer.data.batch_at(trainer.state["step"]),
+        state = trainer.state
+        plain_state = dict(state, **{k: state[k].clone()
+                                     for k in ("arena", "ef") if k in state})
+        batch = shard_batch(trainer.data.batch_at(state["step"]),
                             world.rank, p)
-        local = step._grad_fn(trainer.state["params"],
+        local = step._grad_fn(state["params"],
                               {k: v.to(world.device)
                                for k, v in batch.items()})
         reduced = []                   # each step's reduced gradient tree
@@ -703,95 +884,168 @@ def _ring_worker(argv: list[str]) -> dict:
 
             def wrapped(*a, **kw):
                 loss, out = reduce(*a, **kw)
-                reduced.append(out[0] if step.arena is not None else out)
+                reduced.append(out[0])
                 return loss, out
             c.reduce_scheduled = wrapped
 
         for s in (step, plain):
             s._grad_fn = lambda params, mb: local
             keep_reduced(s.comm)
-        new_k, _ = step(trainer.state, batch)
-        params_k = new_k["params"]
+        new_k, _ = step(state, batch)
+        kept_k = [new_k["params"]] + ([new_k["ef"]] if quant else [])
         del new_k
-        new_p, _ = plain(trainer.state, batch)
-        del step._grad_fn, step.comm.reduce_scheduled, local
+        new_p, _ = plain(plain_state, batch)
+        kept_p = [new_p["params"]] + ([new_p["ef"]] if quant else [])
+        del step._grad_fn, step.comm.reduce_scheduled, local, new_p
         torch.cuda.synchronize(world.device)
         pairs = list(zip(tree_util.leaves(reduced[0]),
-                         tree_util.leaves(reduced[1]))) \
-            + list(zip(tree_util.leaves(params_k),
-                       tree_util.leaves(new_p["params"])))
+                         tree_util.leaves(reduced[1])))
+        for a, b in zip(kept_k, kept_p):
+            pairs += list(zip(tree_util.leaves(a), tree_util.leaves(b)))
         bitwise = all(torch.equal(a, b) for a, b in pairs)
         max_diff = max((a.float() - b.float()).abs().max().item()
                        for a, b in pairs)
-        del new_p, params_k, plain, pairs, reduced
+        del plain, plain_state, pairs, reduced, kept_k, kept_p
         prof = step_profile(trainer, world.rank, p, profiled=world.rank == 0)
-        return {"backend": world.backend, "losses": losses,
+        out = {"backend": world.backend, "losses": losses,
                 "step_s": [h["sec"] for h in hist], "counts": counts,
-                "record": record, "predicted": predicted,
-                "arena_stable": stable, "bitwise": bitwise,
-                "max_diff": max_diff, "n_spans": layout.n_spans,
-                "n_segments": layout.n_segments,
-                "arena_bytes": layout.total_bytes,
+                "record": record, "predicted": predicted, "planned": planned,
+                "stable": stable, "bitwise": bitwise,
+                "max_diff": max_diff, "n_spans": spans,
+                "n_segments": segs, "arena_bytes": layout.total_bytes,
                 "arena_pages": layout.n_pages,
                 "padding_fraction": layout.padding_fraction,
+                "ef_bytes": (layout.payload_elems * 4 if quant else 0),
                 "hop_width": max(sp.size for sp in layout.spans) // p
                 // (2 * step.cfg.comm.chunks),
                 "params": run.model.param_count(),
                 "peak_bytes": torch.cuda.max_memory_allocated(world.device),
-                "profile": prof}
+                "profile": prof, "bucket": None}
+        if quant:
+            trainer.state = state = None
+            del run, trainer, step, comm, state
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["bucket"] = _bucket_pass(argv, world)
+        return out
     finally:
         dist.destroy_process_group()
 
 
-def phase_train_ring() -> dict:
+def _bucket_pass(argv: list[str], world) -> dict:
+    """One step of the int8 wire with the arena off: every gradient bucket
+    is all-reduced by the ring, whose hops run the codec's kernels.
+    Returns the launches beside the count the code predicts, the record
+    beside the plan and the loss."""
+    from repro_torch.core.ring import _channel_slices
+    from repro_torch.launch import train as launch_train
+
+    argv = [a for a in argv if a != "--use-arena"]
+    argv[argv.index("--steps") + 1] = "1"
+    args = launch_train.parser().parse_args(argv)
+    run = launch_train.setup(args, world)
+    comm = run.trainer.step_fn.comm
+    p = world.size
+    bplan = run.trainer.step_fn.plan.bucket_plan
+    # per bucket: p - 1 reduce-scatter hops, each encoding, decoding and
+    # adding every channel slice, then an all-gather that encodes each
+    # slice once and decodes each of its p payloads
+    slices = sum(len(_channel_slices(n // p, comm.transport.ring_cfg))
+                 for n in bplan.bucket_sizes)
+    predicted = dict.fromkeys(launch_counters(), 0)
+    predicted.update(reduce_add=slices * (p - 1), quantize=slices * p,
+                     dequantize=slices * (2 * p - 1))
+    reset_launch_counters()
+    comm.record.reset()
+    hist = run.trainer.run()["history"]
+    counts = launch_counters()
+    planned = {"sends": run.trainer.step_fn.plan.messages_per_device,
+               # the plan counts the used elements; the wire carries the
+               # buckets' padding too, at the same rate
+               "send_bytes": round(comm.transport.predicted_bytes_per_device(
+                   bplan.total_elems, comm.axis_sizes))}
+    return {"loss": hist[0]["loss"], "step_s": hist[0]["sec"],
+            "counts": counts, "predicted": predicted,
+            "record": comm.record.as_dict(), "planned": planned,
+            "n_buckets": bplan.n_buckets}
+
+
+def phase_train_ring(argv: list[str], tag: str) -> dict:
     """Two ranks on the one card over gloo, full width at 4 layers."""
     from repro_torch.launch import train as launch_train
 
-    ranks = launch_train.spawn(_ring_worker, 2, RING_ARGS, timeout=900)
+    ranks = launch_train.spawn(_ring_worker, 2, argv, timeout=900)
     for r, out in enumerate(ranks):
         if out["backend"] != "gloo":
-            raise AssertionError(f"[train_ring] rank {r} backend "
+            raise AssertionError(f"[{tag}] rank {r} backend "
                                  f"{out['backend']}, expected gloo")
         if not all(math.isfinite(x) for x in out["losses"]):
-            raise AssertionError(f"[train_ring] rank {r} non-finite loss")
-        if not out["arena_stable"]:
-            raise AssertionError(f"[train_ring] rank {r}: the arena moved")
+            raise AssertionError(f"[{tag}] rank {r} non-finite loss")
+        if not out["stable"]:
+            raise AssertionError(f"[{tag}] rank {r}: the arena moved")
         pred, counts, rec = out["predicted"], out["counts"], out["record"]
-        for key in ("reduce_add", "write", "read"):
-            if counts[key] != pred[key]:
-                raise AssertionError(f"[train_ring] rank {r} {key} launches "
-                                     f"{counts[key]} != predicted "
-                                     f"{pred[key]}")
+        if counts != pred:
+            raise AssertionError(f"[{tag}] rank {r} launches {counts} != "
+                                 f"predicted {pred}")
         for key in ("sends", "send_bytes"):
-            if rec[key] != pred[key]:
-                raise AssertionError(f"[train_ring] rank {r} recorded {key} "
-                                     f"{rec[key]} != plan {pred[key]}")
+            if rec[key] != out["planned"][key]:
+                raise AssertionError(f"[{tag}] rank {r} recorded {key} "
+                                     f"{rec[key]} != plan "
+                                     f"{out['planned'][key]}")
         if not out["bitwise"]:
-            raise AssertionError(f"[train_ring] rank {r}: kernel step and "
+            raise AssertionError(f"[{tag}] rank {r}: kernel step and "
                                  f"plain step differ (max |diff| "
                                  f"{out['max_diff']:.3e})")
     if ranks[0]["losses"] != ranks[1]["losses"]:
-        raise AssertionError("[train_ring] the ranks disagree on the loss")
+        raise AssertionError(f"[{tag}] the ranks disagree on the loss")
+    for r, out in enumerate(ranks):
+        bucket = out["bucket"]
+        if bucket is None:
+            continue
+        if not math.isfinite(bucket["loss"]):
+            raise AssertionError(f"[{tag}] bucket pass rank {r}: non-finite "
+                                 f"loss")
+        if bucket["counts"] != bucket["predicted"]:
+            raise AssertionError(f"[{tag}] bucket pass rank {r}: launches "
+                                 f"{bucket['counts']} != predicted "
+                                 f"{bucket['predicted']}")
+        for key in ("sends", "send_bytes"):
+            if bucket["record"][key] != bucket["planned"][key]:
+                raise AssertionError(
+                    f"[{tag}] bucket pass rank {r}: recorded {key} "
+                    f"{bucket['record'][key]} != plan "
+                    f"{bucket['planned'][key]}")
     out = ranks[0]
     staging = [o["record"]["staging_s"] for o in ranks]
     prof = out["profile"]
-    log(f"[train_ring] 2 ranks on one card over gloo, 4 layers "
-        f"({out['params']} params), arena {out['arena_bytes']} B, "
+    log(f"[{tag}] 2 ranks on one card over gloo, 4 layers "
+        f"({out['params']} params), arena {out['arena_bytes']} B "
+        f"({out['arena_pages']} pages, padding "
+        f"{out['padding_fraction']:.4f}), ef {out['ef_bytes']} B, "
         f"{out['n_spans']} spans / {out['n_segments']} segments: losses "
         f"{', '.join(f'{x:.4f}' for x in out['losses'])}; step wall "
         f"{', '.join(f'{x * 1e3:.0f}' for x in out['step_s'])} ms; host "
-        f"staging {staging[0]:.2f} / {staging[1]:.2f} s over 3 steps")
-    log(f"[train_ring] launches {out['counts']} == predicted "
-        f"{ {k: out['predicted'][k] for k in ('reduce_add', 'write', 'read')} }"
-        f"; recorded sends {out['record']['sends']} and bytes "
+        f"staging {staging[0]:.2f} / {staging[1]:.2f} s over 3 steps; peak "
+        f"{out['peak_bytes'] / 2**30:.1f} GiB")
+    log(f"[{tag}] launches == predicted "
+        f"{ {k: v for k, v in out['predicted'].items() if v} }; recorded "
+        f"sends {out['record']['sends']} and bytes "
         f"{out['record']['send_bytes']} == plan")
-    log(f"[train_ring] kernel step == plain-version step, grads and params "
-        f"bitwise on both ranks; profiled step (rank 0): wall "
-        f"{prof['step_wall_ms']:.1f} ms, device busy "
-        f"{prof['step_device_ms']:.1f} ms, idle share "
+    log(f"[{tag}] kernel step == plain-version step, grads and params"
+        f"{' and ef' if out['ef_bytes'] else ''} bitwise on both ranks; "
+        f"profiled step (rank 0): wall {prof['step_wall_ms']:.1f} ms, "
+        f"device busy {prof['step_device_ms']:.1f} ms, idle share "
         f"{prof['idle_share']:.3f}; the profiler recorded "
         f"{prof['port_kernels']['recorded']} of the "
-        f"{prof['port_kernels']['launched']} reduce_add and pack launches")
+        f"{prof['port_kernels']['launched']} launches of the port's kernels")
+    bucket = out["bucket"]
+    if bucket is not None:
+        log(f"[{tag}] arena off, 1 step over {bucket['n_buckets']} buckets: "
+            f"loss {bucket['loss']:.4f}, step wall "
+            f"{bucket['step_s'] * 1e3:.0f} ms; launches == predicted "
+            f"{ {k: v for k, v in bucket['predicted'].items() if v} }; "
+            f"recorded sends {bucket['record']['sends']} and bytes "
+            f"{bucket['record']['send_bytes']} == plan")
     return {"ranks": ranks, "staging_s": staging}
 
 
@@ -814,7 +1068,7 @@ def phase_timing_train(dev, hop_width: int, segment: int) -> dict:
     arena = torch.zeros(segment + 2 * page, device=dev)
     src = torch.randn(segment, generator=gen, device=dev)
     off = page
-    saved = (ra.LAUNCHES, dict(pk.LAUNCHES))
+    saved = launch_counters()
     table = {
         "reduce_add": (12 * hop_width, {
             "ms": lambda: ra.add_accum(a, b),
@@ -843,8 +1097,221 @@ def phase_timing_train(dev, hop_width: int, segment: int) -> dict:
             f"{nbytes / row['ms'] / 1e9:.3f} TB/s achieved by the kernel:")
         for k, t in times.items():
             log(times_line(k.removesuffix("_ms"), t))
-    ra.LAUNCHES = saved[0]                 # timing launches are not the path's
-    pk.LAUNCHES.update(saved[1])
+    set_launch_counters(saved)         # timing launches are not the path's
+    return out
+
+
+def phase_kernels_int8(dev) -> dict:
+    """The int8 codec's and the int8 arena's kernels against their plain
+    versions on the card: bitwise (payload, scale bytes, residual, decode),
+    and run to run.  Besides a zero block, the inputs of 7 blocks and more
+    hold a NaN in their second block and an inf in their third: the plain
+    versions give those blocks a NaN and an inf scale, and the kernels must
+    give the same bits."""
+    import torch
+
+    from repro_torch.kernels.pack_quant import ops as pq
+    from repro_torch.kernels.pack_quant import ref as pq_ref
+    from repro_torch.kernels.quant import ops as qt
+    from repro_torch.kernels.quant import ref as qt_ref
+
+    def gap(x, y) -> float:
+        """Largest |x - y|, equal values (NaN beside NaN, inf beside the
+        same inf) counting 0 and a NaN beside a number counting inf."""
+        x, y = x.float(), y.float()
+        same = (x == y) | (x.isnan() & y.isnan())
+        d = torch.where(same, 0.0, (x - y).abs()).nan_to_num(nan=math.inf)
+        return d.max().item() if d.numel() else 0.0
+
+    def equal(a, b) -> bool:
+        """Bit for bit, NaN included."""
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        return torch.equal(a, b)
+
+    def nonfinite(x, block) -> None:
+        if x.numel() >= 3 * block:
+            x[block + 5] = math.nan
+            x[2 * block + 3] = -math.inf
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    saved = launch_counters()
+    err = dict.fromkeys(("quantize", "dequantize", "pack_quant_write",
+                         "pack_quant_read"), 0.0)
+    many = MANY_BLOCKS
+    n_codec = 0
+    for block in (512, 128, 96):
+        for n_blocks in (1, 7, many):
+            x = torch.randn(block * n_blocks, generator=gen, device=dev) * 3
+            x[:block] = 0.0                             # a zero block,
+            x[1:block:2] = -0.0                         # -0.0 in it
+            nonfinite(x, block)
+            got, again = qt.quantize(x, block), qt.quantize(x, block)
+            want = qt_ref.quantize(x, block)
+            back, back2 = (qt.dequantize(*got, block),
+                           qt.dequantize(*got, block))
+            wback = qt_ref.dequantize(*want, block)
+            torch.cuda.synchronize(dev)
+            err["quantize"] = max(err["quantize"], gap(got[0], want[0]),
+                                  gap(got[1], want[1]))
+            err["dequantize"] = max(err["dequantize"], gap(back, wback))
+            if not all(equal(a, b) and equal(a, w)
+                       for a, b, w in zip(got, again, want)):
+                raise AssertionError(f"[kernels_int8] quantize block={block}"
+                                     f" blocks={n_blocks}: not bitwise")
+            if not (equal(back, back2) and equal(back, wback)):
+                raise AssertionError(f"[kernels_int8] dequantize block="
+                                     f"{block} blocks={n_blocks}: not "
+                                     f"bitwise")
+            n_codec += 1
+            del x, got, again, want, back, back2, wback
+    page = 2 * 2**20
+    n_arena = 0
+    for block in (512, 128, 96):
+        # a page offset that is also a block multiple (3 pages for 96)
+        for offset, n_blocks in ((0, 1), (math.lcm(page, block), 7),
+                                 (7 * block, many)):
+            n = block * n_blocks
+            scale_offset = -(-(offset + n) // page) * page
+            arena0 = torch.randint(-127, 128, (scale_offset + page,),
+                                   generator=gen, device=dev,
+                                   dtype=torch.int8)
+            src = torch.randn(n, generator=gen, device=dev) * 2
+            src[:block] = 0.0
+            src[1:block:2] = -0.0
+            nonfinite(src, block)
+            ef0 = torch.randn(n, generator=gen, device=dev) * 0.01
+            for fused in (False, True):
+                want, wef = arena0.clone(), ef0.clone()
+                pq_ref.write_quant_flat(want, src, offset, scale_offset,
+                                        block, wef if fused else None)
+                runs = []
+                for _ in range(2):
+                    arena, ef = arena0.clone(), ef0.clone()
+                    ptr = arena.data_ptr()
+                    out = pq.write_quant_flat(arena, src, offset,
+                                              scale_offset, block,
+                                              ef if fused else None)
+                    if out.data_ptr() != ptr:
+                        raise AssertionError("[kernels_int8] write_quant "
+                                             "did not write in place")
+                    runs.append((out, ef))
+                reads = [pq.read_dequant_flat(runs[0][0], offset, n,
+                                              scale_offset, block)
+                         for _ in range(2)]
+                wread = pq_ref.read_dequant_flat(want, offset, n,
+                                                 scale_offset, block)
+                torch.cuda.synchronize(dev)
+                err["pack_quant_write"] = max(err["pack_quant_write"],
+                                              gap(runs[0][0], want),
+                                              gap(runs[0][1], wef))
+                err["pack_quant_read"] = max(err["pack_quant_read"],
+                                             gap(reads[0], wread))
+                for out, ef in runs:
+                    if not (equal(out, want) and equal(ef, wef)):
+                        raise AssertionError(
+                            f"[kernels_int8] write_quant block={block} "
+                            f"offset={offset} blocks={n_blocks} ef={fused}:"
+                            f" not bitwise")
+                if not (equal(reads[0], reads[1])
+                        and equal(reads[0], wread)):
+                    raise AssertionError(
+                        f"[kernels_int8] read_dequant block={block} "
+                        f"offset={offset} blocks={n_blocks}: not bitwise")
+                n_arena += 1
+                del want, wef, runs, reads, wread
+            del arena0, src, ef0
+    set_launch_counters(saved)         # checks are not the main path's
+    torch.cuda.empty_cache()
+    log(f"[kernels_int8] quantize/dequantize: {n_codec} cases (blocks 512, "
+        f"128, 96 x 1, 7, {many} blocks, a zero block each, a NaN and an "
+        f"inf block from 7 blocks up) bitwise equal to the plain versions "
+        f"and run to run")
+    log(f"[kernels_int8] write_quant/read_dequant: {n_arena} cases (offsets "
+        f"0, a 2 MiB page, 7 blocks; 1, 7, {many} blocks; error feedback "
+        f"fused and not; in place) payload, scale bytes, residual and "
+        f"decode bitwise equal to the plain versions and run to run")
+    return {"codec_cases": n_codec, "arena_cases": n_arena,
+            "max_abs_err": err}
+
+
+def phase_timing_int8(dev, hop_width: int, segment: int,
+                      block: int) -> dict:
+    """Device time per call of the int8 kernels at the main path's largest
+    shapes: ``write_quant`` (with error feedback, as the pack runs it) and
+    ``read_dequant`` at train_int8's largest segment, ``quantize`` and
+    ``dequantize`` at train_ring_int8's largest hop; beside the plain
+    version, a PyTorch call where one computes the same function, and the
+    bound the card's memory rate sets."""
+    import torch
+
+    from repro_torch.kernels.pack_quant import ops as pq
+    from repro_torch.kernels.pack_quant import ref as pq_ref
+    from repro_torch.kernels.quant import ops as qt
+    from repro_torch.kernels.quant import ref as qt_ref
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    page = 2 * 2**20
+    x = torch.randn(hop_width, generator=gen, device=dev)
+    q, scales = qt.quantize(x, block)
+    src = torch.randn(segment, generator=gen, device=dev)
+    ef = torch.randn(segment, generator=gen, device=dev) * 0.01
+    scale_offset = -(-(page + segment) // page) * page
+    arena = torch.zeros(scale_offset + page, dtype=torch.int8, device=dev)
+    pq.write_quant_flat(arena, src, page, scale_offset, block)
+    lo = scale_offset + page // block * 4
+    arena_scales = arena[lo:lo + segment // block * 4].view(torch.float32)
+    saved = launch_counters()
+    wire = 1 + 4 / block               # bytes per element: int8 + its scale
+    table = {
+        # reads x, writes q and its scale
+        "quantize": (hop_width * (4 + wire), {
+            "ms": lambda: qt.quantize(x, block),
+            "plain_ms": lambda: qt_ref.quantize(x, block),
+            "library_ms": None}),
+        # reads q and its scale, writes fp32
+        "dequantize": (hop_width * (wire + 4), {
+            "ms": lambda: qt.dequantize(q, scales, block),
+            "plain_ms": lambda: qt_ref.dequantize(q, scales, block),
+            "library_ms": lambda: torch.mul(q.view(-1, block),
+                                            scales.view(-1, 1))}),
+        # reads src and ef, writes q, its scale and ef
+        "pack_quant_write": (segment * (4 + 4 + wire + 4), {
+            "ms": lambda: pq.write_quant_flat(arena, src, page,
+                                              scale_offset, block, ef),
+            "plain_ms": lambda: pq_ref.write_quant_flat(
+                arena, src, page, scale_offset, block, ef),
+            "library_ms": None}),
+        # reads q and its scale, writes fp32
+        "pack_quant_read": (segment * (wire + 4), {
+            "ms": lambda: pq.read_dequant_flat(arena, page, segment,
+                                               scale_offset, block),
+            "plain_ms": lambda: pq_ref.read_dequant_flat(
+                arena, page, segment, scale_offset, block),
+            "library_ms": lambda: torch.mul(
+                arena[page:page + segment].view(-1, block),
+                arena_scales.view(-1, 1))}),
+    }
+    out = {}
+    for name, (nbytes, calls) in table.items():
+        times = {k: call_times(f, 10) for k, f in calls.items()
+                 if f is not None}
+        row = {k: (times[k]["graph_ms"] if k in times else None)
+               for k in calls}
+        row["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        row["bound_by"] = "bytes"
+        row["bytes"] = nbytes
+        row["times"] = times
+        out[name] = row
+        no_library = ("" if calls["library_ms"]
+                      else "; no single PyTorch call computes it")
+        log(f"[timing] {name} ({nbytes:.0f} B), time per call; bound "
+            f"{row['bound_ms'] * 1e3:.2f} us (bytes), i.e. "
+            f"{nbytes / row['ms'] / 1e9:.3f} TB/s achieved by the kernel"
+            f"{no_library}:")
+        for k, t in times.items():
+            log(times_line(k.removesuffix("_ms"), t))
+    set_launch_counters(saved)         # timing launches are not the path's
     return out
 
 
@@ -874,20 +1341,45 @@ def main() -> None:
     fd_times = timing.pop("times")
     torch.cuda.empty_cache()
     train = phase_train(dev)
-    train_ring = phase_train_ring()
+    train_ring = phase_train_ring(RING_ARGS, "train_ring")
     ring0 = train_ring["ranks"][0]
     timing_train = phase_timing_train(dev, ring0["hop_width"],
                                       train["max_segment"])
+    kernels_int8 = phase_kernels_int8(dev)
+    train_int8 = phase_train_int8(dev, train["losses"])
+    train_ring_int8 = phase_train_ring(RING_ARGS + INT8_ARGS,
+                                       "train_ring_int8")
+    ring8 = train_ring_int8["ranks"][0]
+    log(f"[train_ring_int8] host staging through pinned memory over 3 "
+        f"steps, rank 0 / rank 1: int8 wire "
+        f"{train_ring_int8['staging_s'][0]:.3f} / "
+        f"{train_ring_int8['staging_s'][1]:.3f} s, fp32 wire (train_ring) "
+        f"{train_ring['staging_s'][0]:.3f} / "
+        f"{train_ring['staging_s'][1]:.3f} s; step wall int8 "
+        f"{', '.join(f'{x * 1e3:.0f}' for x in ring8['step_s'])} ms, fp32 "
+        f"{', '.join(f'{x * 1e3:.0f}' for x in ring0['step_s'])} ms")
+    timing_int8 = phase_timing_int8(dev, ring8["hop_width"],
+                                    train_int8["max_segment"],
+                                    train_int8["block"])
     gpu = gpu_line()
     src = "src/repro_torch/kernels"
     launches = {"reduce_add": ring0["counts"]["reduce_add"],
                 "pack_write": train["launches"]["write"],
-                "pack_read": train["launches"]["read"]}
-    # the kernel-vs-plain checks, and for the ring's add also the train_ring
-    # step's reduced gradients and new parameters against the plain step
-    errs = dict(kernels_train["max_abs_err"])
+                "pack_read": train["launches"]["read"],
+                "quantize": ring8["counts"]["quantize"],
+                "dequantize": ring8["counts"]["dequantize"],
+                "pack_quant_write": train_int8["launches"]["pack_quant_write"],
+                "pack_quant_read": train_int8["launches"]["pack_quant_read"]}
+    # the kernel-vs-plain checks, and for the ring's kernels also the
+    # two-rank phases' kernel step against the plain step (reduced
+    # gradients, new parameters and, under the int8 wire, new "ef")
+    errs = {**kernels_train["max_abs_err"], **kernels_int8["max_abs_err"]}
     errs["reduce_add"] = max(errs["reduce_add"],
                              *(o["max_diff"] for o in train_ring["ranks"]))
+    int8_step = max(o["max_diff"] for o in train_ring_int8["ranks"])
+    for name in ("quantize", "dequantize", "pack_quant_write",
+                 "pack_quant_read", "reduce_add"):
+        errs[name] = max(errs[name], int8_step)
     rows = [{
         "name": "flash_decode", "route": "cuda",
         "source": f"{src}/flash_decode/csrc/flash_decode.cu",
@@ -906,6 +1398,22 @@ def main() -> None:
             "max_abs_err": errs[name],
             **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}})
+    for name, source, replaces in (
+            ("quantize", "quant/csrc/quant.cu",
+             "src/repro/kernels/quant/quant.py:56"),
+            ("dequantize", "quant/csrc/quant.cu",
+             "src/repro/kernels/quant/quant.py:77"),
+            ("pack_quant_write", "pack_quant/csrc/pack_quant.cu",
+             "src/repro/kernels/pack_quant/pack_quant.py:73"),
+            ("pack_quant_read", "pack_quant/csrc/pack_quant.cu",
+             "src/repro/kernels/pack_quant/pack_quant.py:108")):
+        t = timing_int8[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": f"{src}/{source}",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": errs[name],
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")}})
     kernels = {"kernels": rows, "gpu": gpu}
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -914,6 +1422,8 @@ def main() -> None:
              "flash_decode_times": fd_times, "profile": profile,
              "kernels_train": kernels_train, "train": train,
              "train_ring": train_ring, "timing_train": timing_train,
+             "kernels_int8": kernels_int8, "train_int8": train_int8,
+             "train_ring_int8": train_ring_int8, "timing_int8": timing_int8,
              "torch": torch.__version__, "cuda": torch.version.cuda,
              "wall_s": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

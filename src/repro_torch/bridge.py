@@ -1,10 +1,15 @@
-"""Parameter bridge between the reference's numpy trees and the port.
+"""Parameter and train-state bridge between the reference's numpy trees and
+the port.
 
 The reference initialises parameters from ``jax.random``, which PyTorch
 cannot replay, so every model-level equivalence test starts from a tree the
 reference made, converted leaf by leaf.  A tree is nested dicts and lists
 (tuples allowed) of arrays; the structure and every dtype are kept, and a
-round trip is bitwise.
+round trip is bitwise.  :func:`state_from_numpy` and :func:`state_to_numpy`
+carry a whole train state the same way (parameters, AdamW moments, the
+int8 arena and the fp32 ``"ef"`` accumulator), so that a step can start
+from the same state on both sides; the step counter is a Python ``int`` in
+the port.
 """
 
 from __future__ import annotations
@@ -32,10 +37,12 @@ def _to_torch(a, device: torch.device) -> torch.Tensor:
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A copy on the host, never a view: the port updates some state
+    tensors (the arena, ``"ef"``) in place."""
     t = t.detach().cpu().contiguous()
     if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view(_bf16_numpy_dtype())
-    return t.numpy()
+        return t.view(torch.int16).numpy().view(_bf16_numpy_dtype()).copy()
+    return t.numpy().copy()
 
 
 def _map(tree, fn):
@@ -55,3 +62,20 @@ def params_from_numpy(tree, device: str | torch.device = "cuda"):
 def params_to_numpy(tree):
     """Tensor tree -> the same tree of numpy arrays on the host."""
     return _map(tree, _to_numpy)
+
+
+def state_from_numpy(state: dict, device: str | torch.device = "cuda"
+                     ) -> dict:
+    """One rank's train state as numpy (``"step"`` a scalar) -> the port's
+    state on ``device``."""
+    out = params_from_numpy({k: v for k, v in state.items() if k != "step"},
+                            device)
+    out["step"] = int(state["step"])
+    return out
+
+
+def state_to_numpy(state: dict) -> dict:
+    """The port's train state -> numpy (``"step"`` an int64 scalar)."""
+    out = params_to_numpy({k: v for k, v in state.items() if k != "step"})
+    out["step"] = np.int64(state["step"])
+    return out

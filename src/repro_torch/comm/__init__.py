@@ -7,19 +7,21 @@ schedules (:mod:`.schedule`).
 """
 
 from repro_torch.comm.api import CommConfig, Communicator
-from repro_torch.comm.plan import (ALPHA_S, ChannelAssignment, CommPlan,
-                                   LatencyModel, assign_channels)
+from repro_torch.comm.plan import (ALPHA_S, HBM_BANDWIDTH, ChannelAssignment,
+                                   CommPlan, LatencyModel, assign_channels)
 from repro_torch.comm.registry import (Transport, TransportSpec,
                                        get_transport, list_transports,
                                        register_transport, transport_specs)
 from repro_torch.comm.schedule import (SCHEDULE_POLICIES, CommSchedule,
                                        IssueSlot, build_schedule)
-from repro_torch.comm.wire_codec import IdentityCodec, make_codec
+from repro_torch.comm.wire_codec import (ErrorFeedback, IdentityCodec,
+                                         Int8BlockCodec, make_codec)
 
 __all__ = [
     "ALPHA_S", "ChannelAssignment", "CommConfig", "CommPlan",
-    "CommSchedule", "Communicator", "IdentityCodec", "IssueSlot",
-    "LatencyModel", "SCHEDULE_POLICIES", "Transport", "TransportSpec",
-    "assign_channels", "build_schedule", "get_transport", "list_transports",
-    "make_codec", "register_transport", "transport_specs",
+    "CommSchedule", "Communicator", "ErrorFeedback", "HBM_BANDWIDTH",
+    "IdentityCodec", "Int8BlockCodec", "IssueSlot", "LatencyModel",
+    "SCHEDULE_POLICIES", "Transport", "TransportSpec", "assign_channels",
+    "build_schedule", "get_transport", "list_transports", "make_codec",
+    "register_transport", "transport_specs",
 ]

@@ -15,9 +15,13 @@ from ``(mesh, CommConfig)``, a :class:`Communicator` owns
 * the **record** — a :class:`~repro_torch.core.p2p.CommRecord` of every
   message and byte this rank sent, to hold a step against :meth:`plan`.
 
-The halo exchange, all-to-all and the quantized arena arrive with their own
-slices.  Collectives are eager; they run in the caller's process on its
-rank, over the world ``torch.distributed`` was initialised with.
+Under ``wire_codec="int8"`` ring hops carry int8 payloads, the arena is the
+int8 :class:`~repro_torch.mem.arena.QuantCommArena` and gradients are
+compensated with error feedback (:meth:`Communicator.reduce_scheduled`,
+:meth:`Communicator.all_reduce_tree`).  The halo exchange and all-to-all
+arrive with their own slices.  Collectives are eager; they run in the
+caller's process on its rank, over the world ``torch.distributed`` was
+initialised with.
 """
 
 from __future__ import annotations
@@ -33,15 +37,15 @@ from repro_torch import tree as tree_util
 from repro_torch.comm.plan import ChannelAssignment, CommPlan, assign_channels
 from repro_torch.comm.registry import Rail, Transport, get_transport
 from repro_torch.comm.schedule import CommSchedule, build_schedule
-from repro_torch.comm.wire_codec import make_codec
+from repro_torch.comm.wire_codec import ErrorFeedback
 from repro_torch.core.bucketing import BucketPlan, GradientBucketer
 from repro_torch.core.p2p import CommRecord, axis_rings, joint_ring
 from repro_torch.core.ring import LOCAL_OPS, RingConfig
 from repro_torch.core.topology import RankMesh, reduce_axes_of
 
 if TYPE_CHECKING:  # repro_torch.mem imports comm.schedule: import it lazily
-    from repro_torch.mem.arena import CommArena
-    from repro_torch.mem.layout import ArenaLayout
+    from repro_torch.mem.arena import CommArena, QuantCommArena
+    from repro_torch.mem.layout import ArenaLayout, QuantArenaLayout
 
 
 @dataclass(frozen=True)
@@ -57,7 +61,7 @@ class CommConfig:
     chunks: int = 2                # per-segment ring chains
     bidirectional: bool = True
     wire_dtype: str | None = None
-    wire_codec: str | None = None  # "int8": the int8-wire slice
+    wire_codec: str | None = None  # "int8": quantized wire + arena codec
     codec_block: int = 512
     local_op: str = "kernel"       # "kernel" (CUDA kernels) | "plain"
     mean: bool = True
@@ -106,7 +110,6 @@ class Communicator:
         if cfg.wire_codec is not None and cfg.wire_dtype is not None:
             raise ValueError("wire_codec and wire_dtype are exclusive wire "
                              "formats; set at most one")
-        make_codec(codec)                  # int8: NotImplementedError here
         self.mesh = mesh
         self.cfg = cfg
         self.spec = spec
@@ -127,9 +130,15 @@ class Communicator:
                      joint=joint_ring(mesh, rank, self.axes, self.record))
                 for _ in range(max(cfg.channels, 1)))
         self.transport: Transport = cls(self.axes, self._ring_cfg, rails)
-        self.bucketer = GradientBucketer(
-            bucket_bytes=cfg.bucket_bytes,
-            pad_multiple=self.transport.flat_divisor(self.axis_sizes))
+        pad = self.transport.flat_divisor(self.axis_sizes)
+        if codec is not None:
+            # quantized segments hold whole codec blocks even when the
+            # transport's own divisor (e.g. psum) does not include them
+            pad = math.lcm(pad, cfg.codec_block)
+        self.bucketer = GradientBucketer(bucket_bytes=cfg.bucket_bytes,
+                                         pad_multiple=pad)
+        self._ef = (ErrorFeedback(self._ring_cfg.make_codec())
+                    if self._ring_cfg.codec is not None else None)
 
     # -- layout / planning ---------------------------------------------------
 
@@ -158,8 +167,12 @@ class Communicator:
         msgs_per_unit = self.transport.predicted_messages_per_device(
             self.axis_sizes)
         layout = self.arena_layout(tree, warn=False, _chans=chans)
+        # a quantized arena moves its (padded) payload at the codec's bytes
+        # per element; its scale segment never travels as a unit (scales
+        # ride each hop's payload, or stay local under an fp32 transport)
+        wire_elems = getattr(layout, "payload_elems", layout.total_elems)
         arena_bytes = self.transport.predicted_bytes_per_device(
-            layout.total_elems, self.axis_sizes)
+            wire_elems, self.axis_sizes)
         return CommPlan(transport=self.cfg.transport, axes=self.axes,
                         axis_sizes=self.axis_sizes, bucket_plan=bplan,
                         channels=chans, wire_bytes_per_elem=wire_per_elem,
@@ -174,12 +187,15 @@ class Communicator:
 
     def arena_layout(self, tree, *, warn: bool = True,
                      _chans: tuple[ChannelAssignment, ...] | None = None
-                     ) -> "ArenaLayout":
+                     ) -> "ArenaLayout | QuantArenaLayout":
         """The page-quantized arena placement of ``tree``'s buckets:
         offsets quantized to ``cfg.page_bytes`` (lcm'd with the transport's
         flat divisor so spans stay reduce-scatter legal), one contiguous
-        span per virtual channel."""
-        from repro_torch.mem.layout import arena_from_bucket_plan
+        span per virtual channel.  Under a wire codec it is the int8
+        :class:`~repro_torch.mem.layout.QuantArenaLayout` (payload and
+        trailing scale segment)."""
+        from repro_torch.mem.layout import (arena_from_bucket_plan,
+                                            quant_arena_from_bucket_plan)
 
         bplan = self.bucketer.plan(tree)
         chans = (_chans if _chans is not None
@@ -188,17 +204,27 @@ class Communicator:
         for a in chans:
             for b in a.buckets:
                 chan_of[b] = a.channel
+        if self.codec is not None:
+            return quant_arena_from_bucket_plan(
+                bplan, page_bytes=self.cfg.page_bytes,
+                block=self.cfg.codec_block, channel_of=chan_of,
+                pad_multiple=self.bucketer.pad_multiple,
+                bucket_bytes=self.cfg.bucket_bytes, warn_oversized=warn)
         return arena_from_bucket_plan(
             bplan, page_bytes=self.cfg.page_bytes, channel_of=chan_of,
             pad_multiple=self.bucketer.pad_multiple,
             bucket_bytes=self.cfg.bucket_bytes, warn_oversized=warn)
 
-    def arena(self, tree) -> "CommArena":
-        """A :class:`~repro_torch.mem.arena.CommArena` over
-        :meth:`arena_layout`; its copies follow ``cfg.local_op``, the knob
-        that also selects the ring's local add."""
-        from repro_torch.mem.arena import CommArena
+    def arena(self, tree) -> "CommArena | QuantCommArena":
+        """A :class:`~repro_torch.mem.arena.CommArena` (a
+        :class:`~repro_torch.mem.arena.QuantCommArena` under a wire codec)
+        over :meth:`arena_layout`; its kernels follow ``cfg.local_op``, the
+        knob that also selects the ring's local add and hop codec."""
+        from repro_torch.mem.arena import CommArena, QuantCommArena
 
+        if self.codec is not None:
+            return QuantCommArena(self.arena_layout(tree),
+                                  impl=self.cfg.local_op)
         return CommArena(self.arena_layout(tree), impl=self.cfg.local_op)
 
     # -- channelized execution ----------------------------------------------
@@ -238,6 +264,29 @@ class Communicator:
         if not self.cfg.mean:
             return buckets
         return [b * (1.0 / self.world) for b in buckets]
+
+    def all_reduce_tree(self, grads, ef_state: list | None = None):
+        """All-reduce(-mean) a local gradient tree.  Returns
+        ``(reduced, new_ef_state)``: under a lossy hop codec, ``ef_state``
+        (one fp32 residual per bucket, :meth:`ErrorFeedback.init`) is
+        compensated into the buckets first and the new residuals come back;
+        otherwise it passes through."""
+        if not self.axes:
+            return grads, ef_state
+        if not self.cfg.fuse:
+            leaves, treedef = tree_util.flatten(grads)
+            red = [self.transport.all_reduce(x.reshape(-1)).view(x.shape)
+                   for x in leaves]
+            if self.cfg.mean:
+                red = [(x.float() * (1.0 / self.world)).to(x.dtype)
+                       for x in red]
+            return treedef.unflatten(red), ef_state
+        buckets, bplan = self.bucketer.bucketize(grads)
+        new_res = ef_state
+        if self._ef is not None and ef_state is not None:
+            buckets, new_res = self._ef.compensate(buckets, list(ef_state))
+        reduced = self._mean_buckets(self.all_reduce(buckets))
+        return self.bucketer.debucketize(reduced, bplan), new_res
 
     # -- dependency-aware scheduled reduction --------------------------------
 
@@ -282,8 +331,9 @@ class Communicator:
 
     def reduce_scheduled(self, grad_fn: GradFn, params, batch: dict,
                          schedule: CommSchedule, *, op: str = "all_reduce",
-                         arena: "CommArena | None" = None,
-                         arena_buf: torch.Tensor | None = None):
+                         arena: "CommArena | QuantCommArena | None" = None,
+                         arena_buf: torch.Tensor | None = None,
+                         ef_buf: torch.Tensor | None = None):
         """Runs ``grad_fn(params, microbatch) -> (loss, grads)`` over
         ``schedule.microbatches`` slices of ``batch`` (split on the leading
         axis), issuing each bucket's collective at its schedule slot.
@@ -299,6 +349,18 @@ class Communicator:
         ``(loss, (tree, arena_buf))`` for ``all_reduce`` and ``none``,
         ``(loss, (span_shards, bucket_plan, arena_buf))`` for
         ``reduce_scatter``.
+
+        **Quantized arena mode** (``arena`` a
+        :class:`~repro_torch.mem.arena.QuantCommArena`): packing *encodes*
+        (fused pack+quantize, compensated with the ``ef_buf`` error-feedback
+        accumulator, which is updated in place), spans are decoded to fp32
+        before their collective (codec-capable transports re-encode on every
+        hop, so the wire carries int8 and scales; others reduce fp32), and
+        the reduced values re-encode into the arena for the fused
+        dequant+unpack out.  Every return gains ``ef_buf``:
+        ``(loss, (tree, arena_buf, ef_buf))`` for ``all_reduce`` and
+        ``none``, ``(loss, (span_shards, bucket_plan, arena_buf, ef_buf))``
+        for ``reduce_scatter``.
         """
         if op not in ("all_reduce", "reduce_scatter", "none"):
             raise ValueError(f"op must be all_reduce|reduce_scatter|none, "
@@ -306,6 +368,12 @@ class Communicator:
         if op == "reduce_scatter":
             self._require_rs("reduce-scatter")
         if arena is not None:
+            from repro_torch.mem.arena import QuantCommArena
+
+            if isinstance(arena, QuantCommArena):
+                return self._reduce_scheduled_arena_quant(
+                    grad_fn, params, batch, schedule, op, arena, arena_buf,
+                    ef_buf)
             return self._reduce_scheduled_arena(grad_fn, params, batch,
                                                 schedule, op, arena,
                                                 arena_buf)
@@ -493,3 +561,120 @@ class Communicator:
             acc.mul_(1.0 / self.world)
         tree = self.bucketer.debucketize(arena.unpack(acc), bplan)
         return loss, (tree, buf)
+
+    def _reduce_scheduled_arena_quant(self, grad_fn: GradFn, params,
+                                      batch: dict, schedule: CommSchedule,
+                                      op: str, arena: "QuantCommArena",
+                                      arena_buf: torch.Tensor | None,
+                                      ef_buf: torch.Tensor | None):
+        """Quantized-arena body of :meth:`reduce_scheduled` (see there).
+
+        The int8 arena cannot accumulate across microbatches, so gradients
+        accumulate in fp32 (bucket lists, or reduced span values under a
+        streamed policy) and the arena encodes at issue boundaries: fused
+        pack+quantize on the way in (error feedback compensated from
+        ``ef_buf``, residual written back), span dequant before each
+        collective, and, for ``all_reduce``, a re-encode of the reduced mean
+        so that the gradient the caller sees comes out of the fused
+        dequant+unpack, exactly what the wire would carry.
+        """
+        layout = arena.layout
+        if not self.axes:
+            raise ValueError("arena mode needs data axes; this "
+                             "communicator's mesh has none")
+        if op != "none":
+            if not self.cfg.fuse:
+                raise ValueError("arena mode needs fused aligned buckets "
+                                 "(fuse=True)")
+            if schedule.n_buckets != layout.n_spans:
+                raise ValueError(
+                    f"arena mode expects a span-level schedule with "
+                    f"{layout.n_spans} spans, got {schedule.n_buckets}; "
+                    f"build it with Communicator.arena_schedule")
+        m = max(schedule.microbatches, 1)
+        issue = self._issuer(op, schedule)
+        inv = 1.0 / m
+        buf = arena_buf
+        ef = ef_buf
+        streamed = schedule.policy != "accumulate_then_reduce"
+        losses = []
+        span_acc: list | None = None   # fp32 reduced spans (AR) / shards (RS)
+        bucket_acc: list | None = None  # accumulate_then_reduce fp32 buckets
+        leaf_acc: list | None = None    # op == "none" fp32 leaves
+        bplan: BucketPlan | None = None
+        treedef = None
+        leaf_meta: list[tuple] = []
+
+        def run_phase(phase):
+            """Decode each of the phase's spans and issue its collective."""
+            out: list = [None] * layout.n_spans
+            for slot in schedule.slots_for_phase(phase):
+                for s in slot.bucket_ids:       # span indices
+                    out[s] = issue(arena.dequant_span(buf, s), slot.channel)
+            return out
+
+        for i, mb in enumerate(self._microbatches(batch, m)):
+            loss, grads = grad_fn(params, mb)
+            losses.append(loss)
+            if op == "none":
+                leaves, treedef = tree_util.flatten(grads)
+                del grads
+                if len(leaves) != layout.n_segments:
+                    raise ValueError(
+                        f"arena has {layout.n_segments} segments but the "
+                        f"gradient tree has {len(leaves)} leaves; build "
+                        f"the arena from the same tree")
+                leaf_meta = [(l.shape, l.dtype) for l in leaves]
+                flat = [l.reshape(-1).float() for l in leaves]
+                if m > 1:
+                    flat = [l * inv for l in flat]
+                leaf_acc = (flat if leaf_acc is None
+                            else [a + l for a, l in zip(leaf_acc, flat)])
+                continue
+            buckets, bplan = self.bucketer.bucketize(grads)
+            del grads
+            if bplan.n_buckets != layout.n_segments:
+                raise ValueError(
+                    f"arena has {layout.n_segments} segments but the "
+                    f"gradient tree bucketizes into {bplan.n_buckets}; "
+                    f"build the arena with Communicator.arena on the same "
+                    f"tree")
+            buckets = [b.float() for b in buckets]
+            if m > 1:
+                buckets = [b * inv for b in buckets]
+            if buf is None:
+                buf = arena.zeros(buckets[0].device)
+            if not streamed:
+                bucket_acc = (buckets if bucket_acc is None
+                              else [a + b
+                                    for a, b in zip(bucket_acc, buckets)])
+                del buckets
+                continue
+            arena.pack_into(buf, buckets, ef)
+            del buckets
+            out = run_phase(i)
+            span_acc = (out if span_acc is None
+                        else [a + o for a, o in zip(span_acc, out)])
+        if op != "none" and not streamed:
+            arena.pack_into(buf, bucket_acc, ef)
+            del bucket_acc
+            span_acc = run_phase(m - 1)
+        loss = losses[0] if m == 1 else torch.stack(losses).mean()
+        if op == "none":
+            if buf is None:
+                buf = arena.zeros(leaf_acc[0].device)
+            arena.pack_into(buf, leaf_acc, ef)
+            leaves = [u.view(shape).to(torch.float32 if m > 1 else dtype)
+                      for u, (shape, dtype) in zip(arena.unpack(buf),
+                                                   leaf_meta)]
+            return loss, (treedef.unflatten(leaves), buf, ef)
+        if op == "reduce_scatter":
+            inv_w = 1.0 / self.world if self.cfg.mean else 1.0
+            return loss, ([s * inv_w for s in span_acc], bplan, buf, ef)
+        if self.cfg.mean:
+            span_acc = [s * (1.0 / self.world) for s in span_acc]
+        for s, vals in enumerate(span_acc):
+            arena.requant_span(buf, s, vals)
+        del span_acc
+        tree = self.bucketer.debucketize(arena.unpack(buf), bplan)
+        return loss, (tree, buf, ef)

@@ -3,11 +3,12 @@
 Port of the gradient half of ``repro.comm.plan`` (plain Python; the numbers
 equal the reference's): the bucket layout, the channel striping (which
 bucket rides which virtual channel) and the predicted wire bytes and
-messages per device, for the bucket path and for the page-aligned arena.
-The recording wrapper of :mod:`repro_torch.core.p2p` counts the same two
-quantities on the wire, so a run can be held against its plan.
-``HaloPlan``, ``A2APlan`` and the int8 codec's trade-off arrive with their
-slices.
+messages per device, for the bucket path and for the page-aligned arena,
+and under the int8 wire codec the compressed bytes and their price
+(:meth:`CommPlan.codec_tradeoff`).  The recording wrapper of
+:mod:`repro_torch.core.p2p` counts the same two quantities on the wire, so a
+run can be held against its plan.  ``HaloPlan`` and ``A2APlan`` arrive with
+their slices.
 """
 
 from __future__ import annotations
@@ -21,6 +22,10 @@ from repro_torch.core.bucketing import BucketPlan
 # rate (its own napkin math, not a measurement of any card in this port).
 ALPHA_S = 1.5e-6
 LINK_BANDWIDTH = 50e9
+# Device memory rate, bytes/s, that prices the codec's streaming kernels:
+# the NVIDIA H100 SXM's published 3.35 TB/s (its data sheet).  The reference
+# prices the TPU it targets instead; pass its rate to compare with it.
+HBM_BANDWIDTH = 3.35e12
 
 
 @dataclass(frozen=True)
@@ -75,7 +80,7 @@ class CommPlan:
     bytes_per_device: float        # predicted all-reduce wire bytes/device
     messages_per_device: float = 0.0  # discrete sends/device (α term)
     # arena mode: the page-quantized layout, whose padding crosses the wire
-    arena_layout: "object | None" = None     # repro_torch.mem.ArenaLayout
+    arena_layout: "object | None" = None     # ArenaLayout | QuantArenaLayout
     arena_bytes_per_device: float = 0.0
     arena_messages_per_device: float = 0.0
     wire_codec: str | None = None
@@ -132,6 +137,53 @@ class CommPlan:
         return model.collective_seconds(self.messages_per_device,
                                         self.bytes_per_device)
 
+    def codec_tradeoff(self, model: LatencyModel = LatencyModel(),
+                       hbm_bandwidth: float = HBM_BANDWIDTH) -> dict:
+        """Prices the quantized wire end to end: fp32 against int8+scales,
+
+            t_fp32  = α·msgs + bytes_fp32 / bw_link
+            t_codec = α·msgs + bytes_codec / bw_link + hbm_bytes / bw_hbm
+
+        with the same message count on both sides (the codec shrinks hop
+        payloads, not hop counts).  Kernel memory traffic per reduction, per
+        element of ``w = 1 + 4/block`` wire bytes: the encode reads the fp32
+        gradient and the error-feedback accumulator and writes the
+        accumulator and the wire form (``4+4+4+w``); the decode reads the
+        wire form and writes fp32 (``w+4``).
+
+        Computed for this plan's codec, or as a what-if at ``codec_block``
+        when ``wire_codec`` is ``None`` (``applied`` says which).  Arena
+        plans price the arena wire bytes (page padding included).
+        """
+        arena = self.arena_layout is not None
+        nbytes = (self.arena_bytes_per_device if arena
+                  else self.bytes_per_device)
+        msgs = (self.arena_messages_per_device if arena
+                else self.messages_per_device)
+        wpe_q = 1.0 + 4.0 / self.codec_block
+        fp32_bytes = nbytes * 4.0 / self.wire_bytes_per_elem
+        codec_bytes = (nbytes if self.wire_codec is not None
+                       else fp32_bytes * wpe_q / 4.0)
+        kernel_bytes = self.total_elems * ((4.0 + 4.0 + 4.0 + wpe_q)
+                                           + (wpe_q + 4.0))
+        kernel_s = kernel_bytes / hbm_bandwidth
+        t_fp32 = model.collective_seconds(msgs, fp32_bytes)
+        t_codec = model.collective_seconds(msgs, codec_bytes) + kernel_s
+        return {
+            "applied": self.wire_codec is not None,
+            "codec": self.wire_codec or "int8",
+            "codec_block": self.codec_block,
+            "wire_bytes_fp32": fp32_bytes,
+            "wire_bytes_codec": codec_bytes,
+            "compression_ratio": (fp32_bytes / codec_bytes if codec_bytes
+                                  else 0.0),
+            "kernel_hbm_bytes": kernel_bytes,
+            "t_kernel_s": kernel_s,
+            "t_fp32_s": t_fp32,
+            "t_codec_s": t_codec,
+            "speedup": t_fp32 / t_codec if t_codec else 0.0,
+        }
+
     def describe(self) -> dict:
         """JSON-friendly summary (the reference's keys)."""
         out = {
@@ -148,4 +200,8 @@ class CommPlan:
         }
         if self.arena_layout is not None:
             out["arena"] = self.arena_layout.describe()
+        if self.wire_codec is not None:
+            out["wire_codec"] = self.wire_codec
+            out["codec_block"] = self.codec_block
+            out["codec"] = self.codec_tradeoff()
         return out

@@ -12,7 +12,12 @@ all-gather ring whose schedule the code controls, as in the reference:
   ``kernels/reduce_add`` CUDA kernel (``local_op="kernel"``, the default;
   its plain version for CPU tensors) with fp32 accumulation.  The hop order
   fixes the add order, so results equal the reference's bit for bit;
-* **wire dtype** — hops can carry a narrow (bf16) copy of the partial sum.
+* **wire dtype** — hops can carry a narrow (bf16) copy of the partial sum;
+* **wire codec** — or an int8 block-absmax payload (``codec="int8"``):
+  every reduce-scatter hop re-encodes the running partial sum and decodes
+  what it receives, the all-gather encodes each block once at its source.
+  Encode and decode are the ``kernels/quant`` CUDA kernels under
+  ``local_op="kernel"`` (their plain versions for CPU tensors).
 
 All functions take flat, pre-padded 1-D buffers (``core.bucketing``
 produces them) and the :class:`~repro_torch.core.p2p.RingAxis` of each mesh
@@ -42,14 +47,16 @@ class RingConfig:
     wire_dtype: str | None = None      # None = carry accum dtype on the wire
     accum_dtype: str = "float32"
     local_op: str = "kernel"           # "kernel" (kernels/reduce_add) | "plain"
-    codec: str | None = None           # None | "int8" (the int8-wire slice)
+    codec: str | None = None           # None | "int8" (lossy block codec)
     codec_block: int = 512
 
     def make_codec(self):
+        """The hop codec; an int8 codec's encode and decode follow
+        ``local_op``, the knob that also selects the local add."""
         from repro_torch.comm.wire_codec import make_codec
 
         return make_codec(self.codec, wire_dtype=self.wire_dtype,
-                          block=self.codec_block)
+                          block=self.codec_block, impl=self.local_op)
 
     @property
     def channel_divisor(self) -> int:
@@ -106,15 +113,6 @@ def _check_divisible(seg: int, cfg: RingConfig) -> None:
             f"bidirectional={cfg.bidirectional}, codec={cfg.codec})")
 
 
-def _encode(codec, x: torch.Tensor) -> list[torch.Tensor]:
-    payload = codec.encode(x)
-    return [payload[k] for k in sorted(payload)]
-
-
-def _decode(codec, parts: list[torch.Tensor], keys) -> torch.Tensor:
-    return codec.decode(dict(zip(keys, parts)))
-
-
 def ring_reduce_scatter(x: torch.Tensor, axis: RingAxis,
                         cfg: RingConfig = RingConfig()) -> torch.Tensor:
     """Multi-channel ring reduce-scatter of a flat buffer.
@@ -139,15 +137,12 @@ def ring_reduce_scatter(x: torch.Tensor, axis: RingAxis,
     # ownership offset chosen so the final fully reduced segment is r's
     accs = [xs[(r - d) % p, start:start + width].to(accum)
             for start, width, d in slices]
-    keys = sorted(codec.encode(accs[0][:0]))
+    dirs = [d for _, _, d in slices]
     for s in range(p - 1):
-        wire = [t for a in accs for t in _encode(codec, a)]
-        dirs = [d for _, _, d in slices for _ in keys]
-        recv = axis.hop(wire, dirs)
-        k = len(keys)
-        accs = [local_add(_decode(codec, recv[i * k:(i + 1) * k], keys),
+        recv = axis.hop([codec.encode(a) for a in accs], dirs)
+        accs = [local_add(codec.decode(t),
                           xs[(r - d - (s + 1) * d) % p, start:start + width])
-                for i, (start, width, d) in enumerate(slices)]
+                for t, (start, width, d) in zip(recv, slices)]
     return torch.cat(accs) if len(accs) > 1 else accs[0]
 
 
@@ -156,7 +151,8 @@ def ring_all_gather(shard: torch.Tensor, axis: RingAxis,
     """Inverse of :func:`ring_reduce_scatter` (same channel layout).  The
     payload is encoded once at its source and forwarded verbatim; the
     rank's own block goes through the same encode/decode, as in the
-    reference."""
+    reference; each of the p payloads of a channel slice is decoded on its
+    own."""
     seg = shard.shape[0]
     _check_divisible(seg, cfg)
     p, r = axis.size, axis.index
@@ -164,21 +160,16 @@ def ring_all_gather(shard: torch.Tensor, axis: RingAxis,
         return shard
     codec = cfg.make_codec()
     slices = _channel_slices(seg, cfg)
-    keys = sorted(codec.encode(shard[:0]))
-    k = len(keys)
-    cur = [t for start, width, _ in slices
-           for t in _encode(codec, shard[start:start + width])]
-    outs = [torch.empty((p,) + t.shape, dtype=t.dtype, device=t.device)
-            for t in cur]                       # (p, width) per payload part
-    for o, t in zip(outs, cur):
-        o[r] = t
-    dirs = [d for _, _, d in slices for _ in keys]
+    dirs = [d for _, _, d in slices]
+    cur = [codec.encode(shard[start:start + width])
+           for start, width, _ in slices]
+    rows = [[t] * p for t in cur]        # each slice's payloads by source
     for s in range(p - 1):
         cur = axis.hop(cur, dirs)
-        for i, (o, t) in enumerate(zip(outs, cur)):
-            o[(r - (s + 1) * dirs[i]) % p] = t
-    blocks = [_decode(codec, outs[i * k:(i + 1) * k], keys).to(shard.dtype)
-              for i in range(len(slices))]
+        for row, t, d in zip(rows, cur, dirs):
+            row[(r - (s + 1) * d) % p] = t
+    blocks = [torch.stack([codec.decode(t) for t in row]).to(shard.dtype)
+              for row in rows]                  # (p, width) each
     return (torch.cat(blocks, dim=1) if len(blocks) > 1
             else blocks[0]).reshape(-1)
 

@@ -3,8 +3,9 @@
 Each kernel under ``kernels/*/csrc/`` exposes a plain C function, so it is
 compiled by ``nvcc`` alone (no PyTorch headers, seconds per file) into
 ``build/repro_torch/`` at the repository root and bound with ``ctypes``.
-The library is keyed by a hash of its source and flags, so an edited source
-is rebuilt and an unchanged one is reused; nothing is built at import.
+The library is keyed by a hash of its source, the headers it includes with
+``#include "..."`` and the flags, so an edited source or header is rebuilt
+and an unchanged one is reused; nothing is built at import.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -38,13 +40,29 @@ def nvcc_path() -> str:
                        "built on the machine with the card")
 
 
+_INCLUDE = re.compile(rb'^\s*#include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_bytes(source: Path, seen: set[Path] | None = None) -> bytes:
+    """``source`` followed by every header it includes with quotes,
+    recursively (each file once): what a build of it depends on."""
+    seen = set() if seen is None else seen
+    source = source.resolve()
+    if source in seen:
+        return b""
+    seen.add(source)
+    text = source.read_bytes()
+    return text + b"".join(source_bytes(source.parent / m.decode(), seen)
+                           for m in _INCLUDE.findall(text))
+
+
 def build(source: Path) -> tuple[Path, str]:
     """Compile ``source`` for sm_90a unless an identical build exists.
     Returns the library path and the compiler's report (registers, shared
     memory and spills per kernel; empty when the build was reused)."""
     source = Path(source).resolve()
     cmd_flags = ARCH_FLAGS + NVCC_FLAGS
-    key = hashlib.sha256(source.read_bytes()
+    key = hashlib.sha256(source_bytes(source)
                          + " ".join(cmd_flags).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{source.stem}-{key}.so"
     if out.exists():

@@ -10,7 +10,8 @@ staged explicitly through pinned host memory otherwise (several ranks on
 one card), gloo on the CPU.  ::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
-        --reduced --steps 20 --device cpu --nproc 2 --use-arena
+        --reduced --steps 20 --device cpu --nproc 2 --use-arena \\
+        --wire-codec int8
 
 It runs on ``cuda`` unless ``--device cpu`` is given.  ``--dp-mode zero1``
 and ``fsdp`` are not ported yet and raise, as does a defaulted mode that
@@ -134,7 +135,7 @@ def setup(args, world: World) -> TrainRun:
                           schedule=schedule, total_steps=args.steps),
         microbatches=1 if args.reduced else st.microbatches,
         schedule=args.accum_policy or "accumulate_then_reduce",
-        use_arena=args.use_arena)
+        use_arena=args.use_arena, wire_codec=args.wire_codec)
     data = SyntheticTokens(DataConfig(vocab_size=model.cfg.vocab_size,
                                       seq_len=args.seq,
                                       global_batch=args.batch))
@@ -147,7 +148,7 @@ def setup(args, world: World) -> TrainRun:
         f"params={model.param_count() / 1e6:.1f}M world={world.size} "
         f"device={world.device} dp_mode={dp_mode} "
         f"transport={ccfg.transport} channels={ccfg.channels} "
-        f"arena={args.use_arena}")
+        f"arena={args.use_arena} wire_codec={args.wire_codec}")
     return TrainRun(model, trainer, world)
 
 
@@ -247,6 +248,10 @@ def parser() -> argparse.ArgumentParser:
                          "spans, one buffer allocated once)")
     ap.add_argument("--page-bytes", type=int, default=None,
                     help="arena page size (default 2 MiB)")
+    ap.add_argument("--wire-codec", default=None, choices=["int8"],
+                    help="quantize the gradient wire (int8 payload + "
+                         "per-block scales; with --use-arena the fused "
+                         "pack+quantize arena and error feedback)")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights")

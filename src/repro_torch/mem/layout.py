@@ -1,12 +1,15 @@
 """ArenaLayout: page-quantized placement of buffers in one flat arena.
 
-Port of ``repro.mem.layout`` (the quantized-wire and halo layouts arrive
-with their slices): every buffer becomes an :class:`ArenaSegment` whose
-element offset and padded size are quantized to ``page_bytes`` (default the
-2 MiB huge page), and segments sharing a virtual channel fuse into one
-contiguous :class:`ArenaSpan`, which moves as one collective.  Its users are
-the serving KV arena (:mod:`repro_torch.serve.kv`) and the gradient arena
-(:func:`arena_from_bucket_plan`, :class:`repro_torch.mem.arena.CommArena`);
+Port of ``repro.mem.layout`` (the halo layout arrives with its slice):
+every buffer becomes an :class:`ArenaSegment` whose element offset and
+padded size are quantized to ``page_bytes`` (default the 2 MiB huge page),
+and segments sharing a virtual channel fuse into one contiguous
+:class:`ArenaSpan`, which moves as one collective.  Its users are the
+serving KV arena (:mod:`repro_torch.serve.kv`), the gradient arena
+(:func:`arena_from_bucket_plan`, :class:`repro_torch.mem.arena.CommArena`)
+and the int8 wire's arena (:func:`quant_arena_from_bucket_plan`, an int8
+payload laid out like the fp32 arena plus a trailing segment of fp32
+scales, :class:`repro_torch.mem.arena.QuantCommArena`);
 :func:`fuse_schedule` turns a bucket schedule into the span schedule the
 arena executes.  An oversized bucket (one leaf larger than the bucketer's
 target) gets its own segment like any other, with a warning once per
@@ -181,6 +184,146 @@ class ArenaLayout:
         }
 
 
+SCALE_BYTES = 4  # one fp32 scale per codec block, stored as arena bytes
+
+
+@dataclass(frozen=True)
+class QuantArenaLayout:
+    """Placement of a wire-codec arena: the int8 quantized payload laid out
+    exactly like an fp32 :class:`ArenaLayout` (one element is one byte),
+    plus one trailing page-quantized **scale segment** holding the fp32
+    scale of every codec block.  One flat int8 tensor carries payload and
+    scales; segments and spans delegate to the payload layout.
+
+    Payload offsets and padded sizes are ``block`` multiples (the plan folds
+    the codec block into the pad multiple), so a segment's first scale is
+    at ``offset // block`` (segments never share a scale block) and padding
+    occupies whole quant blocks, read by nobody.
+    """
+
+    payload: ArenaLayout       # int8 payload placement
+    block: int                 # codec block: payload elements per scale
+
+    # -- payload delegation (element counts == byte counts for int8) ---------
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.payload.dtype
+
+    @property
+    def page_bytes(self) -> int:
+        return self.payload.page_bytes
+
+    @property
+    def quantum(self) -> int:
+        return self.payload.quantum
+
+    @property
+    def segments(self) -> tuple[ArenaSegment, ...]:
+        return self.payload.segments
+
+    @property
+    def spans(self) -> tuple[ArenaSpan, ...]:
+        return self.payload.spans
+
+    @property
+    def n_segments(self) -> int:
+        return self.payload.n_segments
+
+    @property
+    def n_spans(self) -> int:
+        return self.payload.n_spans
+
+    @property
+    def used_elems(self) -> int:
+        return self.payload.used_elems
+
+    @property
+    def padding_elems(self) -> int:
+        return self.payload.padding_elems
+
+    @property
+    def padding_fraction(self) -> float:
+        return self.payload.padding_fraction
+
+    def segment_of(self, bucket: int) -> ArenaSegment:
+        return self.payload.segment_of(bucket)
+
+    # -- the trailing scale segment ------------------------------------------
+
+    @property
+    def payload_elems(self) -> int:
+        return self.payload.total_elems
+
+    @property
+    def n_scales(self) -> int:
+        return self.payload.total_elems // self.block
+
+    @property
+    def scale_offset(self) -> int:
+        """Byte offset of the scale segment (page-aligned, since the payload
+        total is quantum-aligned)."""
+        return self.payload.total_elems
+
+    @property
+    def scale_region_bytes(self) -> int:
+        return padded_size(max(self.n_scales * SCALE_BYTES, 1),
+                           self.page_bytes)
+
+    @property
+    def total_elems(self) -> int:
+        return self.scale_offset + self.scale_region_bytes
+
+    @property
+    def total_bytes(self) -> int:
+        return self.total_elems  # int8
+
+    @property
+    def n_pages(self) -> int:
+        return -(-self.total_bytes // self.page_bytes)
+
+    def scale_byte_range(self, offset: int, size: int) -> tuple[int, int]:
+        """Arena byte range of the scales covering payload
+        ``[offset : offset + size]``."""
+        lo = self.scale_offset + (offset // self.block) * SCALE_BYTES
+        return lo, lo + (size // self.block) * SCALE_BYTES
+
+    # -- wire accounting -----------------------------------------------------
+
+    @property
+    def wire_bytes_per_elem(self) -> float:
+        """Bytes one payload element costs on the wire: the int8 value plus
+        its share of the block scale."""
+        return 1.0 + SCALE_BYTES / self.block
+
+    def validate(self) -> None:
+        self.payload.validate()
+        if self.payload.dtype != torch.int8:
+            raise ValueError(f"quant arena payload must be int8, got "
+                             f"{self.payload.dtype}")
+        if self.block <= 0:
+            raise ValueError(f"block must be positive, got {self.block}")
+        for s in self.segments:
+            if s.offset % self.block or s.padded % self.block:
+                raise ValueError(f"segment {s.bucket}: offset/padded not a "
+                                 f"multiple of codec block {self.block}")
+
+    def describe(self) -> dict:
+        """JSON-friendly summary (the reference's keys)."""
+        return self.payload.describe() | {
+            "codec": "int8",
+            "codec_block": self.block,
+            "payload_elems": self.payload_elems,
+            "n_scales": self.n_scales,
+            "scale_offset": self.scale_offset,
+            "scale_region_bytes": self.scale_region_bytes,
+            "total_elems": self.total_elems,
+            "total_bytes": self.total_bytes,
+            "n_pages": self.n_pages,
+            "wire_bytes_per_elem": self.wire_bytes_per_elem,
+        }
+
+
 def plan_arena(sizes: Sequence[int], *, page_bytes: int = PAGE_BYTES,
                dtype: torch.dtype = torch.float32,
                channel_of: Sequence[int] | None = None,
@@ -262,8 +405,49 @@ def arena_from_bucket_plan(plan: BucketPlan, *,
                       warn_oversized=warn_oversized)
 
 
-def fuse_schedule(schedule: CommSchedule, layout: ArenaLayout
-                  ) -> CommSchedule:
+def plan_quant_arena(sizes: Sequence[int], *, page_bytes: int = PAGE_BYTES,
+                     block: int = 512,
+                     channel_of: Sequence[int] | None = None,
+                     pad_multiple: int = 1, bucket_bytes: int | None = None,
+                     warn_oversized: bool = True) -> QuantArenaLayout:
+    """Quantized-wire variant of :func:`plan_arena`: ``sizes`` are fp32
+    *value* counts, placed as int8 payload with the codec ``block`` folded
+    into the pad multiple (so segment offsets and padded sizes hold whole
+    quant blocks) and a trailing page-quantized scale segment appended."""
+    if block <= 0:
+        raise ValueError(f"block must be positive, got {block}")
+    pad = math.lcm(int(pad_multiple), int(block))
+    # sizes count fp32 gradient values; scale the oversized threshold to
+    # the int8 itemsize so the warning fires for the same leaves as fp32
+    bb = None if bucket_bytes is None else max(1, int(bucket_bytes) // 4)
+    payload = plan_arena(sizes, page_bytes=page_bytes, dtype=torch.int8,
+                         channel_of=channel_of, pad_multiple=pad,
+                         bucket_bytes=bb, warn_oversized=warn_oversized)
+    layout = QuantArenaLayout(payload=payload, block=int(block))
+    layout.validate()
+    return layout
+
+
+def quant_arena_from_bucket_plan(plan: BucketPlan, *,
+                                 page_bytes: int = PAGE_BYTES,
+                                 block: int = 512,
+                                 channel_of: Sequence[int] | None = None,
+                                 pad_multiple: int = 1,
+                                 bucket_bytes: int | None = None,
+                                 warn_oversized: bool = True
+                                 ) -> QuantArenaLayout:
+    """Quantized arena layout of a bucket plan: one int8 segment per bucket
+    plus the trailing scale segment."""
+    return plan_quant_arena(plan.bucket_sizes, page_bytes=page_bytes,
+                            block=block, channel_of=channel_of,
+                            pad_multiple=max(pad_multiple,
+                                             plan.pad_multiple),
+                            bucket_bytes=bucket_bytes,
+                            warn_oversized=warn_oversized)
+
+
+def fuse_schedule(schedule: CommSchedule,
+                  layout: ArenaLayout | QuantArenaLayout) -> CommSchedule:
     """The span-level schedule an arena executor runs: per phase, each
     :class:`ArenaSpan` issues one collective over its members' contiguous
     segments (padding included).  Slot ``bucket_ids`` index

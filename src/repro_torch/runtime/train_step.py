@@ -10,6 +10,14 @@ transport, issuing each bucket at its :class:`CommSchedule` slot.  With
 allocated once and written in place every step) and each channel's
 contiguous span is reduced as one collective.
 
+``wire_codec="int8"`` quantizes the wire: ring hops carry int8 payloads
+with one fp32 scale per block, and with ``use_arena`` the arena is the int8
+:class:`~repro_torch.mem.arena.QuantCommArena` written by the fused
+pack+quantize kernel, and the state grows an ``"ef"`` tensor, the fp32
+error-feedback residual of every payload element, compensated into every
+encode so that the quantisation error telescopes instead of accumulating.
+Both are allocated once and updated in place.
+
 ``zero1`` and ``fsdp`` arrive with their own slice; asking for them raises
 rather than training another mode.
 """
@@ -24,6 +32,7 @@ from repro_torch import tree as tree_util
 from repro_torch.comm.api import CommConfig, Communicator
 from repro_torch.comm.schedule import SCHEDULE_POLICIES, CommSchedule
 from repro_torch.core.topology import RankMesh
+from repro_torch.mem.arena import QuantCommArena
 from repro_torch.models.model_api import Model
 from repro_torch.models.parallel import ParallelCtx
 from repro_torch.models.transformer import init_params
@@ -53,10 +62,16 @@ class TrainStepConfig:
     microbatches: int = 1              # grad-accumulation slices
     schedule: str = "accumulate_then_reduce"  # SCHEDULE_POLICIES member
     use_arena: bool = False            # page-aligned CommArena, fused spans
+    wire_codec: str | None = None      # None | "int8": quantized wire; with
+                                       # use_arena the int8 arena and the
+                                       # "ef" state tensor
     causal_skip: bool = False
 
     def comm_config(self, data_axes: tuple[str, ...]) -> CommConfig:
-        return replace(self.comm, data_axes=data_axes)
+        ccfg = self.comm
+        if self.wire_codec is not None:
+            ccfg = replace(ccfg, wire_codec=self.wire_codec)
+        return replace(ccfg, data_axes=data_axes)
 
     @property
     def schedule_policy(self) -> str:
@@ -129,7 +144,13 @@ class TrainStep:
 
     def __call__(self, state: dict, batch: dict) -> tuple[dict, dict]:
         batch = {k: v.to(self.device) for k, v in batch.items()}
-        if self.arena is not None:
+        ef = None
+        if isinstance(self.arena, QuantCommArena):
+            loss, (grads, buf, ef) = self.comm.reduce_scheduled(
+                self._grad_fn, state["params"], batch, self.schedule,
+                op="all_reduce", arena=self.arena, arena_buf=state["arena"],
+                ef_buf=state["ef"])
+        elif self.arena is not None:
             loss, (grads, buf) = self.comm.reduce_scheduled(
                 self._grad_fn, state["params"], batch, self.schedule,
                 op="all_reduce", arena=self.arena, arena_buf=state["arena"])
@@ -148,6 +169,8 @@ class TrainStep:
                      "step": state["step"] + 1}
         if self.arena is not None:
             new_state["arena"] = buf
+        if ef is not None:
+            new_state["ef"] = ef
         metrics = {"loss": self.ctx.pmean_data(loss), "grad_norm": gnorm,
                    "lr": lr}
         return new_state, metrics
@@ -155,9 +178,10 @@ class TrainStep:
 
 def init_train_state(model: Model, step: TrainStep, *, params=None,
                      generator: torch.Generator | None = None) -> dict:
-    """``{"params", "opt", "step"}`` (+ ``"arena"``, allocated here once)
-    on the step's device: ``params`` when given (e.g. bridged from the
-    reference), else fresh ones drawn from ``generator``."""
+    """``{"params", "opt", "step"}`` (+ ``"arena"``, and under a wire codec
+    ``"ef"``, both allocated here once) on the step's device: ``params``
+    when given (e.g. bridged from the reference), else fresh ones drawn
+    from ``generator``."""
     if params is None:
         if generator is None:
             raise ValueError("pass params or a generator")
@@ -165,4 +189,6 @@ def init_train_state(model: Model, step: TrainStep, *, params=None,
     state = {"params": params, "opt": init_opt_state(params), "step": 0}
     if step.arena is not None:
         state["arena"] = step.arena.zeros(step.device)
+        if isinstance(step.arena, QuantCommArena):
+            state["ef"] = step.arena.ef_zeros(step.device)
     return state

@@ -5,6 +5,7 @@ llama3.2-1b parameters at 2 and 4 ranks.  Plans are plain arithmetic, so
 they must be equal; the reference's Communicator reads only the mesh's
 axis names and shape, given here without devices."""
 
+import dataclasses
 import types
 
 import jax
@@ -123,9 +124,23 @@ def test_construction_time_refusals():
             [torch.zeros(1024)])
 
 
-def test_int8_codec_waits_for_its_slice():
-    with pytest.raises(NotImplementedError, match="int8-wire slice"):
-        make_codec("int8")
-    with pytest.raises(NotImplementedError, match="int8-wire slice"):
-        Communicator(RankMesh(("data",), (2,)), CommConfig(wire_codec="int8"),
-                     connect=False)
+def test_int8_codec_waits_for_its_slice(trees):
+    """The int8 wire's slice has landed: ``make_codec("int8")`` builds the
+    block codec, and a communicator under ``wire_codec="int8"`` builds and
+    plans like the reference's (its codec price compared at the reference's
+    memory rate, the port's default being the H100's)."""
+    codec = make_codec("int8", block=256)
+    assert (codec.block, codec.impl) == (256, "kernel")
+    assert codec.wire_bytes(1024) == 1024 + 4 * 4
+    jtree, tree = trees
+    jcomm, comm = _comms(2, "ring_hier", 0, 2, True, 64 * 1024, 8192, None)
+    jcomm, comm = (type(c)(c.mesh, dataclasses.replace(c.cfg,
+                                                       wire_codec="int8"),
+                           **kw)
+                   for c, kw in ((jcomm, {}), (comm, {"connect": False})))
+    assert comm.codec == jcomm.codec == "int8"
+    jplan, plan = jcomm.plan(jtree), comm.plan(tree)
+    d, jd = plan.describe(), jplan.describe()
+    assert d.pop("codec") == plan.codec_tradeoff()
+    assert jd.pop("codec") == plan.codec_tradeoff(hbm_bandwidth=819e9)
+    assert d == jd
