@@ -7,7 +7,7 @@ Run from the repository root with no arguments::
 
 Phases, each of which raises on a failed check (exit code != 0):
 
-1. build    — ``nvcc`` builds the five CUDA sources for sm_90a from the
+1. build    — ``nvcc`` builds the six CUDA sources for sm_90a from the
               repository, one compiler per source, all at once;
 2. kernel   — the flash-decode kernel against its plain PyTorch version on
               card inputs at the serve shape and around it (fp32
@@ -33,13 +33,44 @@ Phases, each of which raises on a failed check (exit code != 0):
               rate sets: CUDA events around replays of a CUDA graph of many
               calls (reported), printed beside eager CUDA events, the host
               clock and the profiler's device activities;
-8. train    — ``launch.train``'s setup on one rank: full llama3.2-1b (16
+8. kernels_attn — the flash-attention kernel against its plain version
+              over S in {1, 7, 64, 200, 1000, 4096} x (Hq, Hkv) in {(32, 8),
+              (4, 2), (8, 1)} x D in {16, 32, 64, 128} x causal, window 64
+              and non-causal x fp32 and bf16 (the reference's tolerances:
+              rtol/atol 2e-5 at fp32, atol 3e-2 at bf16), run-to-run
+              bitwise; Sq != Sk and requires_grad raise;
+9. prefill  — ``build_prefill`` on llama3.2-1b at full width (16 layers,
+              seeded random weights): at B=1, S=4096, for two seeds of
+              weights and tokens, the kernel prefill against the fp32
+              blockwise (plain attention) prefill: at fp32 compute every
+              logit within rtol/atol 1e-4; at bf16 compute the kernel
+              prefill's relative L2 error at most 1.05 times the bf16
+              blockwise prefill's and its count of logits outside rtol
+              2e-2 / atol 5e-2 at most 1.25 times; at B=1, S=32768
+              (prefill_32k's length)
+              one warm, one timed and one profiled prefill, every one
+              launching the kernel once per layer (16) and no other kernel,
+              logits finite; wall, peak memory, device busy and idle share;
+10. serve_contiguous — ``launch.serve`` without ``--paged``: the
+              contiguous-cache loop at full width with the reference's
+              defaults (batch 4, cache 512, 16 tokens): logits finite,
+              tokens/s, no kernel launched (its decode attention is plain,
+              as the reference's);
+11. timing  — time per call of the flash-attention kernel at one prefill
+              layer's shape (q (1, 32, 32768, 64), k/v (1, 8, 32768, 64),
+              bf16, causal) beside PyTorch's fused
+              ``scaled_dot_product_attention`` (yardstick only) and the
+              bound the card's dense bf16 rate sets; the kernel's output
+              held against the plain version's (query blocks of 1024) at
+              that shape (atol 3e-2), the plain version timed there too,
+              and both at S=4096;
+12. train    — ``launch.train``'s setup on one rank: full llama3.2-1b (16
               layers), replicated, ``ring_hier``, chunks 2, the arena on,
               seq 256, global batch 8, bf16 compute over fp32 master
               weights, 3 steps: losses finite, the arena's ``data_ptr()``
               unchanged, pack write and read launches == segments x steps;
               then one profiled step;
-9. train_ring — two ranks spawned on the one card (gloo, hops staged
+13. train_ring — two ranks spawned on the one card (gloo, hops staged
               through pinned host memory), full width at 4 layers, 3 steps:
               ``reduce_add`` launches == spans x channel slices x (p-1) x
               steps, pack launches == segments x steps, recorded sends and
@@ -47,12 +78,12 @@ Phases, each of which raises on a failed check (exit code != 0):
               and through the plain versions from the same state and the
               same local gradients: reduced gradients and new parameters
               bitwise equal;
-10. timing  — time per call, by the same four clocks, of ``reduce_add``,
+14. timing  — time per call, by the same four clocks, of ``reduce_add``,
               pack write and pack read at the main path's largest shapes,
               their plain versions and one PyTorch call each
               (``torch.add``, ``copy_``, ``clone``; yardsticks only),
               beside the memory-rate bound;
-11. kernels_int8 — the int8 codec's ``quantize``/``dequantize`` and the
+15. kernels_int8 — the int8 codec's ``quantize``/``dequantize`` and the
               arena's ``write_quant``/``read_dequant`` (blocks 512, 128 and
               96; 1, 7 and about 500,000 blocks; a zero block, and a
               block holding a NaN and one holding an inf; arena offsets 0,
@@ -60,13 +91,13 @@ Phases, each of which raises on a failed check (exit code != 0):
               multiple; in place; error feedback fused and not) against
               their plain versions: bitwise (NaN where they have NaN), and
               run to run;
-12. train_int8 — the train phase with ``--wire-codec int8``: the int8
+16. train_int8 — the train phase with ``--wire-codec int8``: the int8
               arena and the ``"ef"`` accumulator keep their ``data_ptr()``,
               ``write_quant`` launches == (segments + spans) x steps,
               ``read_dequant`` launches == (spans + segments) x steps, no
               ``quantize`` launch (one rank makes no hop), the first loss
               equal to the train phase's; then one profiled step;
-13. train_ring_int8 — train_ring with ``--wire-codec int8``: ``quantize``
+17. train_ring_int8 — train_ring with ``--wire-codec int8``: ``quantize``
               launches == channel slices x p x steps, ``dequantize``
               launches == channel slices x (2p - 1) x steps,
               the other launches as predicted, recorded sends and bytes ==
@@ -76,7 +107,7 @@ Phases, each of which raises on a failed check (exit code != 0):
               parameters and new ``"ef"`` bitwise equal; then one step
               with the arena off, every bucket through the int8 ring:
               launches as predicted, sends and bytes == the plan's;
-14. timing  — time per call of ``write_quant`` (with error feedback) and
+18. timing  — time per call of ``write_quant`` (with error feedback) and
               ``read_dequant`` at train_int8's largest segment and of
               ``quantize``/``dequantize`` at train_ring_int8's largest hop,
               their plain versions and, for the decodes, one PyTorch call
@@ -130,7 +161,8 @@ def gpu_line() -> str:
 # the port's kernels as the profiler names them
 PORT_KERNELS = ("flash_decode_stats_kernel", "reduce_add_kernel",
                 "write_flat_kernel", "read_flat_kernel", "quantize_kernel",
-                "write_quant_kernel", "read_dequant_kernel")
+                "write_quant_kernel", "read_dequant_kernel",
+                "flash_attn_fwd_kernel")
 
 
 def device_activity(fn, iters: int,
@@ -172,19 +204,21 @@ def port_kernels_seen(counts: dict) -> int:
 
 
 def _kernel_ops():
+    from repro_torch.kernels.flash_attn import ops as fa
     from repro_torch.kernels.flash_decode import ops as fd
     from repro_torch.kernels.pack import ops as pk
     from repro_torch.kernels.pack_quant import ops as pq
     from repro_torch.kernels.quant import ops as qt
     from repro_torch.kernels.reduce_add import ops as ra
 
-    return fd, ra, pk, qt, pq
+    return fd, ra, pk, qt, pq, fa
 
 
 def launch_counters() -> dict:
     """Every kernel wrapper's launch count, by kernel."""
-    fd, ra, pk, qt, pq = _kernel_ops()
-    return {"flash_decode": fd.LAUNCHES, "reduce_add": ra.LAUNCHES,
+    fd, ra, pk, qt, pq, fa = _kernel_ops()
+    return {"flash_decode": fd.LAUNCHES, "flash_attn": fa.LAUNCHES,
+            "reduce_add": ra.LAUNCHES,
             "pack_write": pk.LAUNCHES["write"],
             "pack_read": pk.LAUNCHES["read"],
             "quantize": qt.LAUNCHES["quantize"],
@@ -197,8 +231,9 @@ def set_launch_counters(saved: dict) -> None:
     """Sets the counts :func:`launch_counters` reads (restoring them after
     launches made to time or check a kernel, which are not the main
     path's)."""
-    fd, ra, pk, qt, pq = _kernel_ops()
+    fd, ra, pk, qt, pq, fa = _kernel_ops()
     fd.LAUNCHES, ra.LAUNCHES = saved["flash_decode"], saved["reduce_add"]
+    fa.LAUNCHES = saved["flash_attn"]
     pk.LAUNCHES.update(write=saved["pack_write"], read=saved["pack_read"])
     qt.LAUNCHES.update(quantize=saved["quantize"],
                        dequantize=saved["dequantize"])
@@ -271,19 +306,22 @@ def call_times(fn, iters: int) -> dict:
         fn()
     torch.cuda.synchronize()
     host = (time.perf_counter() - t0) / iters * 1e3
+    # the profiler keeps only some of the activities of a window of
+    # back-to-back calls, and at times none (PERF.md section 6): its clock
+    # is printed beside the CUDA-event clocks, "not recorded" when empty
     _, by_name, counts = device_activity(fn, iters)
-    if not by_name:
-        raise RuntimeError("the profiler recorded no device activity")
     return {"graph_ms": graph_ms(fn, iters), "events_ms": events,
-            "host_ms": host, "profiler_ms": sum(by_name.values()),
+            "host_ms": host,
+            "profiler_ms": sum(by_name.values()) if by_name else None,
             "profiler_activities_per_call": sum(counts.values()) / iters}
 
 
 def times_line(name: str, times: dict) -> str:
+    prof = ("not recorded" if times["profiler_ms"] is None
+            else f"{times['profiler_ms'] * 1e3:9.2f} us")
     return (f"[timing]   {name:8s} graph+events {times['graph_ms'] * 1e3:9.2f}"
             f" us | eager events {times['events_ms'] * 1e3:9.2f} us | host "
-            f"clock {times['host_ms'] * 1e3:9.2f} us | profiler "
-            f"{times['profiler_ms'] * 1e3:9.2f} us "
+            f"clock {times['host_ms'] * 1e3:9.2f} us | profiler {prof} "
             f"({times['profiler_activities_per_call']:.2f} activities/call)")
 
 
@@ -306,6 +344,7 @@ def phase_build() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attn import ops as fa_ops
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.pack import ops as pack_ops
     from repro_torch.kernels.pack_quant import ops as pq_ops
@@ -314,7 +353,7 @@ def phase_build() -> None:
 
     t0 = time.perf_counter()
     sources = [fd_ops.SOURCE, ra_ops.SOURCE, pack_ops.SOURCE, q_ops.SOURCE,
-               pq_ops.SOURCE]
+               pq_ops.SOURCE, fa_ops.SOURCE]
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(_build.build, sources))
     fd_ops._kernel_fn()
@@ -322,6 +361,7 @@ def phase_build() -> None:
     pack_ops._kernel_fns()
     q_ops._kernel_fns()
     pq_ops._kernel_fns()
+    fa_ops._kernel_fn()
     log(f"[build] {', '.join(path.name for path, _ in built)} in "
         f"{time.perf_counter() - t0:.1f} s")
     for _, report in built:
@@ -842,7 +882,7 @@ def _ring_worker(argv: list[str]) -> dict:
         # segment (pack, with error feedback) and each reduced span
         # (re-encode) and decodes each span (before its collective) and
         # each segment (unpack)
-        predicted = {"flash_decode": 0,
+        predicted = {"flash_decode": 0, "flash_attn": 0,
                      "reduce_add": slices * (p - 1) * steps,
                      "pack_write": 0 if quant else segs * steps,
                      "pack_read": 0 if quant else segs * steps,
@@ -1315,6 +1355,346 @@ def phase_timing_int8(dev, hop_width: int, segment: int,
     return out
 
 
+# flash attention: the kernel checks' grid and tolerances (the reference's,
+# tests/test_kernels.py: fp32 2e-5, bf16 3e-2 absolute)
+ATTN_SEQS = (1, 7, 64, 200, 1000, 4096)
+ATTN_HEADS = ((32, 8), (4, 2), (8, 1))
+ATTN_DIMS = (16, 32, 64, 128)
+ATTN_MASKS = ((True, None), (True, 64), (False, None))
+ATTN_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (0.0, 3e-2)}
+PREFILL_CHECK_SEQ = 4096     # kernel prefill vs blockwise prefill
+PREFILL_SEQ = 32768          # prefill_32k's length, at batch 1
+PREFILL_FP32_TOL = 1e-4      # tests/test_torch_prefill.py's fp32 tolerance
+PREFILL_CHECK_SEEDS = (0, 1)  # weights and tokens of the S=4096 check
+# the bf16 kernel prefill's error against the fp32 blockwise prefill, as a
+# multiple of the bf16 blockwise prefill's: relative L2 and elementwise
+# misses of the engine's tolerance, at most (PERF.md section 6)
+PREFILL_BF16_L2_MARGIN, PREFILL_BF16_MISS_MARGIN = 1.05, 1.25
+# the H100 SXM's dense bf16 tensor-core peak (NVIDIA's data sheet)
+BF16_FLOPS_PER_S = 989e12
+
+
+def attn_inputs(dev, seed, b, hq, hkv, s, d, dtype):
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, hq, s, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, hkv, s, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, hkv, s, d), generator=gen, device=dev).to(dtype)
+    return q, k, v
+
+
+def phase_kernels_attn(dev) -> dict:
+    """The flash-attention kernel against its plain version on card inputs:
+    every S x (Hq, Hkv) x D x mask x dtype of the grid above, within the
+    reference's tolerances, and run to run bitwise; then its refusals."""
+    import itertools
+
+    import torch
+
+    from repro_torch.kernels.flash_attn import ops, ref
+
+    saved = launch_counters()
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    n = 0
+    for i, (s, (hq, hkv), d, (causal, window), dt) in enumerate(
+            itertools.product(ATTN_SEQS, ATTN_HEADS, ATTN_DIMS, ATTN_MASKS,
+                              ("float32", "bfloat16"))):
+        q, k, v = attn_inputs(dev, i, 2, hq, hkv, s, d, getattr(torch, dt))
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        again = ops.flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.attention(q, k, v, causal=causal, window=window,
+                             block_q=1024)
+        torch.cuda.synchronize(dev)
+        what = (f"S={s} Hq={hq} Hkv={hkv} D={d} causal={causal} "
+                f"window={window} {dt}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"[kernels_attn] {what}: two runs differ")
+        rtol, atol = ATTN_TOL[dt]
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol,
+                                   msg=lambda m: f"[kernels_attn] {what}: {m}")
+        err[dt] = max(err[dt], (got.float() - want.float()).abs().max().item())
+        n += 1
+        del q, k, v, got, again, want
+    q, k, v = attn_inputs(dev, 0, 1, 4, 2, 64, 64, torch.bfloat16)
+    refusals = ((ValueError, lambda: ops.flash_attention(q[:, :, :32], k, v)),
+                (RuntimeError, lambda: ops.flash_attention(
+                    q.clone().requires_grad_(), k, v)))
+    for exc, call in refusals:
+        try:
+            call()
+        except exc:
+            continue
+        raise AssertionError(f"[kernels_attn] no {exc.__name__} raised")
+    set_launch_counters(saved)         # checks are not the main path's
+    torch.cuda.empty_cache()
+    log(f"[kernels_attn] {n} cases (S {ATTN_SEQS} x (Hq, Hkv) {ATTN_HEADS} "
+        f"x D {ATTN_DIMS} x causal / window 64 / non-causal x fp32, bf16; "
+        f"B=2) within the reference's tolerances of the plain version and "
+        f"bitwise run to run: max |kernel - plain| fp32 "
+        f"{err['float32']:.3e}, bf16 {err['bfloat16']:.3e}; Sq != Sk and "
+        f"requires_grad raise")
+    return {"cases": n, "max_abs_err": err}
+
+
+def phase_prefill(dev) -> dict:
+    """``build_prefill`` on llama3.2-1b at full width, 16 layers: at S=4096,
+    for each seed of ``PREFILL_CHECK_SEEDS``, the kernel prefill against
+    the fp32 blockwise (plain attention) prefill on the same weights and
+    tokens, at fp32 and at bf16 compute; at S=32768 one warm, one timed and
+    one profiled prefill, each launching the kernel once per layer."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import build_model
+    from repro_torch.runtime.serve_step import build_prefill
+
+    cfg = get_config(ARCH)
+    model = build_model(cfg)
+    _check_full_width(model.cfg, 16, "prefill")
+    layers = model.cfg.num_layers
+
+    def tokens(s, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randint(0, model.cfg.vocab_size, (1, s), generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    def kernel_prefill(fn, params, batch, what):
+        reset_launch_counters()
+        logits = fn(params, batch)
+        torch.cuda.synchronize(dev)
+        counts = launch_counters()
+        if counts != dict(dict.fromkeys(counts, 0), flash_attn=layers):
+            raise AssertionError(f"[prefill] {what}: launches {counts}, "
+                                 f"expected {layers} flash_attn and no other")
+        return logits
+
+    def error(got, want, rtol, atol):
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError("[prefill] non-finite logits")
+        diff = (got.float() - want).abs()
+        return {"max_abs_diff": diff.max().item(),
+                "rel_l2": (diff.norm() / want.norm()).item(),
+                "outside": int((diff > atol + rtol * want.abs()).sum())}
+
+    # Every prefill is held against the fp32 blockwise prefill.  At fp32
+    # compute only the order of the sums differs, so the kernel prefill is
+    # held elementwise at the CPU prefill test's fp32 tolerance.  At bf16
+    # compute (the config's) both prefills round every layer's activations
+    # to bf16 and their errors grow through 16 layers (a few logits of
+    # either miss the engine's elementwise tolerance), so the kernel
+    # prefill's error is held to the blockwise prefill's: its relative L2
+    # and its count of elementwise misses at most the margins above times
+    # the blockwise prefill's.
+    shape = ShapeConfig("prefill_check", PREFILL_CHECK_SEQ, 1, "prefill")
+    m32, m16 = (build_model(cfg.with_(dtype=dt))
+                for dt in ("float32", "bfloat16"))
+    check = {}
+    for seed in PREFILL_CHECK_SEEDS:
+        params = m32.init(torch.Generator(device=dev).manual_seed(seed), dev)
+        batch = {"tokens": tokens(PREFILL_CHECK_SEQ, seed + 1)}
+        what = f"S={PREFILL_CHECK_SEQ} seed {seed}"
+        want = build_prefill(m32, shape, attn_impl="blockwise",
+                             device=dev)(params, batch).float()
+        row = {"fp32": error(kernel_prefill(build_prefill(m32, shape,
+                                                          device=dev),
+                                            params, batch, f"{what} fp32"),
+                             want, PREFILL_FP32_TOL, PREFILL_FP32_TOL),
+               "bf16_kernel": error(kernel_prefill(
+                   build_prefill(m16, shape, device=dev), params, batch,
+                   f"{what} bf16"), want, ENGINE_RTOL, ENGINE_ATOL),
+               "bf16_blockwise": error(build_prefill(
+                   m16, shape, attn_impl="blockwise", device=dev)(
+                       params, batch), want, ENGINE_RTOL, ENGINE_ATOL)}
+        check[f"seed{seed}"] = row
+        del params, batch, want
+        gc.collect()
+        torch.cuda.empty_cache()
+        for name, e in row.items():
+            tol = ("rtol/atol 1e-4" if name == "fp32"
+                   else "rtol 2e-2 / atol 5e-2")
+            log(f"[prefill] llama3.2-1b 16 layers, B=1 {what}, {name} vs "
+                f"fp32 blockwise: max |logit diff| {e['max_abs_diff']:.4e}, "
+                f"relative L2 {e['rel_l2']:.4e}, {e['outside']} logits "
+                f"outside {tol}")
+        if row["fp32"]["outside"]:
+            raise AssertionError(f"[prefill] {what} fp32: kernel prefill "
+                                 f"and blockwise prefill differ elementwise")
+        for key, margin in (("rel_l2", PREFILL_BF16_L2_MARGIN),
+                            ("outside", PREFILL_BF16_MISS_MARGIN)):
+            got, base = row["bf16_kernel"][key], row["bf16_blockwise"][key]
+            if got > margin * base:
+                raise AssertionError(
+                    f"[prefill] {what} bf16: the kernel prefill's {key} "
+                    f"{got:.4e} is above {margin} x the blockwise "
+                    f"prefill's {base:.4e}")
+    log(f"[prefill] flash_attn launches {layers} per kernel prefill")
+
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    shape = ShapeConfig("prefill_32k_b1", PREFILL_SEQ, 1, "prefill")
+    prefill = build_prefill(model, shape, device=dev)
+    batch = {"tokens": tokens(PREFILL_SEQ, 1)}
+    kernel_prefill(prefill, params, batch, "warm-up")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    logits = kernel_prefill(prefill, params, batch, "timed")
+    wall = time.perf_counter() - t0
+    timed_launches = launch_counters()["flash_attn"]
+    peak = torch.cuda.max_memory_allocated(dev)
+    if tuple(logits.shape) != (1, PREFILL_SEQ, model.cfg.vocab_size):
+        raise AssertionError(f"[prefill] logits {tuple(logits.shape)}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("[prefill] S=32768: non-finite logits")
+    del logits
+    gc.collect()
+    reset_launch_counters()
+    prof_wall, by_name, counts = device_activity(
+        lambda: prefill(params, batch), 1, warm=False)
+    launched = launch_counters()["flash_attn"]
+    if launched != layers:
+        raise AssertionError(f"[prefill] profiled: {launched} launches")
+    if not by_name:
+        raise RuntimeError("[prefill] no device activity in a prefill")
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    seen = port_kernels_seen(counts)
+    log(f"[prefill] B=1 S={PREFILL_SEQ}: wall {wall * 1e3:.1f} ms "
+        f"({PREFILL_SEQ / wall:.0f} tokens/s), peak "
+        f"{peak / 2**30:.2f} GiB, logits finite; flash_attn launches "
+        f"{timed_launches} in the timed prefill ({layers} each in the warm, "
+        f"timed and profiled ones)")
+    log(f"[prefill] profiled prefill: wall {prof_wall:.1f} ms, device busy "
+        f"{busy:.1f} ms, idle share {1 - busy / prof_wall:.3f}; the profiler "
+        f"recorded {seen} of the {launched} flash_attn launches")
+    for name, ms in top:
+        log(f"[prefill]   {ms:9.2f} ms/prefill  {name[:90]}")
+    del params, batch, prefill
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"check": check, "launches": timed_launches, "wall_ms": wall * 1e3,
+            "peak_bytes": peak, "tokens_per_s": PREFILL_SEQ / wall,
+            "profile": {"wall_ms": prof_wall, "device_ms": busy,
+                        "idle_share": 1 - busy / prof_wall,
+                        "port_kernels": {"launched": launched,
+                                         "recorded": seen},
+                        "top_device_ms": {k[:90]: v for k, v in top}}}
+
+
+def phase_serve_contiguous(dev) -> dict:
+    """``launch.serve`` without ``--paged``: the contiguous-cache loop on
+    llama3.2-1b at full width with the reference's defaults (batch 4, cache
+    512, 16 tokens).  It decodes with plain attention, as the reference's
+    ``decode_attention``, so it launches no kernel."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch import serve
+
+    args = serve.parser().parse_args(["--arch", ARCH, "--device", "cuda",
+                                      "--seed", "0"])
+    reset_launch_counters()
+    out = serve.run_contiguous(args)
+    counts = launch_counters()
+    logits = out.pop("logits")
+    if tuple(logits.shape) != (args.batch, 128256):
+        raise AssertionError(f"[serve_contiguous] logits "
+                             f"{tuple(logits.shape)}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("[serve_contiguous] non-finite logits")
+    if any(counts.values()):
+        raise AssertionError(f"[serve_contiguous] launches {counts}: the "
+                             f"contiguous decode runs no kernel")
+    log(f"[serve_contiguous] llama3.2-1b 16 layers, batch {args.batch}, "
+        f"cache {args.cache}, {args.tokens} tokens: "
+        f"{out['tokens_per_s']:.1f} tok/s ({out['wall_s'] * 1e3:.0f} ms, "
+        f"first step included), logits finite, no kernel launched")
+    del logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**out, "batch": args.batch, "cache": args.cache,
+            "tokens": args.tokens}
+
+
+def phase_timing_attn(dev) -> dict:
+    """Time per call of the flash-attention kernel at one prefill layer's
+    shape (q (1, 32, 32768, 64), k/v (1, 8, 32768, 64), bf16, causal),
+    beside its plain version (query blocks of 1024, so that each block's
+    fp32 scores take 4.3 GB), PyTorch's fused
+    ``scaled_dot_product_attention`` (yardstick only) and the bound; the
+    kernel's output is first held against the plain version's there.  Both
+    are also timed at S=4096."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attn import ops, ref
+
+    b, hq, hkv, d = 1, 32, 8, 64
+    q, k, v = attn_inputs(dev, 21, b, hq, hkv, PREFILL_SEQ, d, torch.bfloat16)
+    short = [t[:, :, :PREFILL_CHECK_SEQ].contiguous() for t in (q, k, v)]
+    # the fused backends only: the math backend would build the whole
+    # (1, 32, 32768, 32768) score matrix at once
+    fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.CUDNN_ATTENTION]
+
+    def library():
+        with sdpa_kernel(fused):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+
+    saved = launch_counters()
+    got = ops.flash_attention(q, k, v).float()
+    want = ref.attention(q, k, v, block_q=1024).float()
+    rtol, atol = ATTN_TOL["bfloat16"]
+    torch.testing.assert_close(
+        got, want, rtol=rtol, atol=atol,
+        msg=lambda m: f"[timing] flash_attn at S={PREFILL_SEQ}: {m}")
+    err = (got - want).abs().max().item()
+    del got, want
+    torch.cuda.empty_cache()
+    # 4 calls of ~0.27 s per window: the profiler keeps only some of the
+    # activities of long back-to-back calls (PERF.md section 6)
+    times = {"kernel": call_times(lambda: ops.flash_attention(q, k, v), 4),
+             "plain": call_times(
+                 lambda: ref.attention(q, k, v, block_q=1024), 3),
+             "library": call_times(library, 10),
+             "kernel_4096": call_times(
+                 lambda: ops.flash_attention(*short), 10),
+             "plain_4096": call_times(
+                 lambda: ref.attention(*short, block_q=1024), 10)}
+    set_launch_counters(saved)         # timing launches are not the path's
+    s = PREFILL_SEQ
+    flops = 4 * b * hq * d * s * (s + 1) // 2      # causal: q . k and p . v
+    nbytes = 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d)   # q, o, k, v
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    out = {"ms": times["kernel"]["graph_ms"],
+           "plain_ms": times["plain"]["graph_ms"],
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_ms": times["library"]["graph_ms"],
+           "max_abs_err": err,
+           "kernel_4096_ms": times["kernel_4096"]["graph_ms"],
+           "plain_4096_ms": times["plain_4096"]["graph_ms"],
+           "flops": flops, "bytes": nbytes, "times": times}
+    log(f"[timing] flash_attn q (1, 32, {s}, 64), k/v (1, 8, {s}, 64) bf16 "
+        f"causal ({flops:.3e} FLOP, {nbytes} B): max |kernel - plain| "
+        f"{err:.3e} (atol {atol}); time per call, bound "
+        f"{out['bound_ms']:.3f} ms ({out['bound_by']}, at 989 TFLOP/s bf16 "
+        f"dense), i.e. {flops / out['ms'] / 1e9:.1f} TFLOP/s achieved by "
+        f"the kernel; kernel_4096 and plain_4096 at S=4096:")
+    for name, t in times.items():
+        log(times_line(name, t))
+    del q, k, v, short
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -1340,6 +1720,10 @@ def main() -> None:
     timing = phase_timing(dev)
     fd_times = timing.pop("times")
     torch.cuda.empty_cache()
+    kernels_attn = phase_kernels_attn(dev)
+    prefill = phase_prefill(dev)
+    serve_contiguous = phase_serve_contiguous(dev)
+    timing_attn = phase_timing_attn(dev)
     train = phase_train(dev)
     train_ring = phase_train_ring(RING_ARGS, "train_ring")
     ring0 = train_ring["ranks"][0]
@@ -1414,6 +1798,15 @@ def main() -> None:
             "max_abs_err": errs[name],
             **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}})
+    rows.append({
+        "name": "flash_attn", "route": "cuda",
+        "source": f"{src}/flash_attn/csrc/flash_attn.cu",
+        "replaces": "src/repro/kernels/flash_attn/flash_attn.py:102",
+        "launches": prefill["launches"],
+        "max_abs_err": max(*kernels_attn["max_abs_err"].values(),
+                           timing_attn["max_abs_err"]),
+        **{k: timing_attn[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")}})
     kernels = {"kernels": rows, "gpu": gpu}
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -1424,6 +1817,8 @@ def main() -> None:
              "train_ring": train_ring, "timing_train": timing_train,
              "kernels_int8": kernels_int8, "train_int8": train_int8,
              "train_ring_int8": train_ring_int8, "timing_int8": timing_int8,
+             "kernels_attn": kernels_attn, "prefill": prefill,
+             "serve_contiguous": serve_contiguous, "timing_attn": timing_attn,
              "torch": torch.__version__, "cuda": torch.version.cuda,
              "wall_s": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

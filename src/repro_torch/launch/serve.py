@@ -1,17 +1,22 @@
-"""Serving entry point: paged KV arena + continuous batching on one GPU.
+"""Serving entry point on one GPU, with weights drawn from a seeded
+generator.  Port of ``repro.launch.serve``'s two paths:
 
-Port of the ``--paged`` path of ``repro.launch.serve``: the
-``repro_torch.serve`` stack (page arena, scheduler, CUDA flash-decode
-attention) driven over a mixed-length synthetic trace, with weights drawn
-from a seeded generator.  ``--policy both`` runs the continuous-vs-static
-A/B::
+* default: the contiguous-cache decode loop over ``build_decode_step``,
+  from position 0 with token 0 and greedy argmax, printing tokens/s::
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
-        --paged --policy both
+      PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
+          --batch 4 --cache 512 --tokens 16
+
+* ``--paged``: the ``repro_torch.serve`` stack (page arena, scheduler, CUDA
+  flash-decode attention) over a mixed-length synthetic trace;
+  ``--policy both`` runs the continuous-vs-static A/B::
+
+      PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
+          --paged --policy both
 
 It runs on ``cuda`` unless ``--device cpu`` is given, on one rank (the
-reference's ``--model-parallel`` page-parallel decode and its
-contiguous-cache path are not ported yet).
+reference's ``--model-parallel`` page-parallel decode and
+``--production-mesh`` are not ported yet).
 """
 
 from __future__ import annotations
@@ -23,8 +28,11 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.configs import get_config, list_archs, reduced_config
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch.settings import settings_for
 from repro_torch.models import Model, build_model
+from repro_torch.runtime.serve_step import build_decode_step
 from repro_torch.serve.engine import (PagedDecodeEngine,
                                       predicted_collectives_per_token,
                                       predicted_wire_bytes_per_token)
@@ -100,13 +108,51 @@ def run_paged(args) -> dict:
     return serve_policies(setup_paged(args), policies)
 
 
+def run_contiguous(args) -> dict:
+    """Decodes ``--tokens`` tokens for ``--batch`` sequences against
+    ``--cache``-slot caches, from position 0 with token 0, feeding back the
+    greedy argmax; returns the wall time (device work included), tokens/s
+    and the last logits."""
+    dev = resolve_device(args.device)
+    cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    model = build_model(cfg)
+    shape = ShapeConfig("serve", args.cache, args.batch, "decode")
+    wm = settings_for(args.arch).serve_weights if not args.reduced \
+        else "resident"
+    step = build_decode_step(model, shape, weight_mode=wm, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = model.init(gen, dev)
+    state = model.init_decode_state(args.batch, args.cache, device=dev)
+    token = torch.zeros((args.batch,), dtype=torch.int32, device=dev)
+    logits = None
+    t0 = time.perf_counter()
+    for pos in range(args.tokens):
+        logits, state = step(params, token, state, pos)
+        token = torch.clamp(torch.argmax(logits, -1).to(torch.int32), 0,
+                            model.cfg.vocab_size - 1)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    print(f"{args.arch}: {args.tokens * args.batch / dt:.1f} tok/s "
+          f"(batch {args.batch}, cache {args.cache})")
+    return {"wall_s": dt, "tokens_per_s": args.tokens * args.batch / dt,
+            "logits": logits}
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True, choices=list_archs())
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="contiguous: sequences decoded together")
+    ap.add_argument("--cache", type=int, default=512,
+                    help="contiguous: KV-cache slots per sequence")
+    ap.add_argument("--tokens", type=int, default=16,
+                    help="contiguous: tokens decoded per sequence")
     ap.add_argument("--paged", action="store_true",
                     help="serve through the paged KV engine + continuous "
-                         "batching scheduler (the only path ported so far)")
+                         "batching scheduler instead of the "
+                         "contiguous-cache loop")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "attention instead of the CUDA kernel)")
@@ -114,16 +160,17 @@ def parser() -> argparse.ArgumentParser:
                     help="seed of the random weights")
     ap.add_argument("--policy", default="continuous",
                     choices=["continuous", "static", "both"],
-                    help="batching policy ('both' prints the A/B ratio)")
+                    help="paged: batching policy ('both' prints the A/B "
+                         "ratio)")
     ap.add_argument("--attn-impl", default="kernel", choices=["kernel", "ref"],
-                    help="score pages with the CUDA flash-decode kernel or "
-                         "its plain PyTorch version")
+                    help="paged: score pages with the CUDA flash-decode "
+                         "kernel or its plain PyTorch version")
     ap.add_argument("--page-tokens", type=int, default=16,
-                    help="token positions per KV page")
+                    help="paged: token positions per KV page")
     ap.add_argument("--slots", type=int, default=4,
-                    help="concurrent sequence slots")
+                    help="paged: concurrent sequence slots")
     ap.add_argument("--groups", type=int, default=4,
-                    help="mixed-trace groups (1 long + slots-1 short "
+                    help="paged: mixed-trace groups (1 long + slots-1 short "
                          "requests each)")
     ap.add_argument("--long-len", type=int, default=64)
     ap.add_argument("--short-len", type=int, default=4)
@@ -133,10 +180,10 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> None:
     args = parser().parse_args(argv)
-    if not args.paged:
-        raise SystemExit("only the --paged serving path is ported; the "
-                         "contiguous-cache loop is not yet")
-    run_paged(args)
+    if args.paged:
+        run_paged(args)
+    else:
+        run_contiguous(args)
 
 
 if __name__ == "__main__":

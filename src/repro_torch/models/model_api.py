@@ -33,6 +33,10 @@ class Model:
             raise NotImplementedError(
                 f"{self.cfg.name}: encoder-decoder models are not ported yet "
                 f"(remaining-families slice)")
+        if self.cfg.frontend == "vision_stub":
+            raise NotImplementedError(
+                f"{self.cfg.name}: the vision stub's patch embeddings are not "
+                f"ported yet (remaining-families slice)")
 
     def init(self, generator: torch.Generator,
              device: str | torch.device = "cuda") -> dict:
@@ -52,9 +56,24 @@ class Model:
                                    causal_skip=causal_skip)
 
     def forward(self, params: dict, batch: dict, *,
-                causal_skip: bool = False) -> torch.Tensor:
+                causal_skip: bool = False,
+                attn_impl: str = "blockwise") -> torch.Tensor:
         return transformer.forward(params, batch["tokens"], self.cfg,
-                                   causal_skip=causal_skip)
+                                   causal_skip=causal_skip,
+                                   attn_impl=attn_impl)
+
+    def init_decode_state(self, batch: int, seq_len: int, *,
+                          device: str | torch.device = "cuda") -> list:
+        """Zero bf16 KV caches for ``batch`` sequences of ``seq_len``
+        positions on ``device``."""
+        return transformer.init_decode_state(self.cfg, batch, seq_len,
+                                             device=resolve_device(device))
+
+    def decode_step(self, params: dict, token: torch.Tensor, state: list,
+                    pos: int, *, seq_len: int | None = None
+                    ) -> tuple[torch.Tensor, list]:
+        return transformer.decode_step(params, token, state, pos, self.cfg,
+                                       seq_len=seq_len)
 
     def param_count(self) -> int:
         """Element count of the tree, from shapes alone (nothing allocated)."""

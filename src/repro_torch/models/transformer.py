@@ -1,12 +1,13 @@
-"""Decoder-only transformer (dense family): parameters, forward and loss.
+"""Decoder-only transformer (dense family): parameters, forward, loss and
+single-token decode.
 
 Port of ``repro.models.transformer`` for dense stacks: the same tree
 (``embed``, ``blocks[i]`` with ``ln1``/``ln2``/``attn``/``mlp``,
-``final_norm``, optional ``lm_head``) and the training forward.  Gradients
-come from autograd; with ``remat="layer"`` each block is recomputed in the
-backward pass (``torch.utils.checkpoint``), as the reference's
-``jax.checkpoint``.  MoE, SSM and hybrid stacks arrive with their own
-slices of the port.
+``final_norm``, optional ``lm_head``), the training / prefill forward and
+the decode step against a per-layer KV cache.  Gradients come from
+autograd; with ``remat="layer"`` each block is recomputed in the backward
+pass (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``.
+MoE, SSM and hybrid stacks arrive with their own slices of the port.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import attn_apply, attn_init
+from repro_torch.models.attention import (attn_apply, attn_decode,
+                                          attn_init, init_cache)
 from repro_torch.models.common import (dense, dense_init, embed, embed_init,
                                        glu_mlp, glu_mlp_init, rmsnorm,
                                        rmsnorm_init, softmax_xent, unembed)
@@ -59,13 +61,14 @@ def init_params(generator, cfg: ModelConfig, device=None) -> dict:
 
 
 def block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, i: int, *,
-                positions: torch.Tensor, causal_skip: bool) -> torch.Tensor:
+                positions: torch.Tensor, causal_skip: bool,
+                attn_impl: str = "blockwise") -> torch.Tensor:
     cdt = getattr(torch, cfg.dtype)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     mix = attn_apply(p["attn"], h, cfg.attn,
                      is_global=cfg.layer_kind(i).get("attn_global", True),
                      positions=positions, compute_dtype=cdt,
-                     causal_skip=causal_skip)
+                     causal_skip=causal_skip, attn_impl=attn_impl)
     x = x + mix.to(x.dtype)
     if "mlp" not in p:
         return x
@@ -75,8 +78,11 @@ def block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, i: int, *,
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
-            causal_skip: bool = False) -> torch.Tensor:
-    """tokens: (B, S) -> logits (B, S, V) in the compute dtype."""
+            causal_skip: bool = False,
+            attn_impl: str = "blockwise") -> torch.Tensor:
+    """tokens: (B, S) -> logits (B, S, V) in the compute dtype.
+    ``attn_impl="kernel"`` runs every layer's attention through the
+    ``flash_attn`` kernel (the serving prefill; no gradient)."""
     _require_dense(cfg)
     cdt = getattr(torch, cfg.dtype)
     x = embed(params["embed"], tokens.long(), cdt)
@@ -84,10 +90,16 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     for i, bp in enumerate(params["blocks"]):
         if cfg.remat == "layer" and torch.is_grad_enabled():
             x = checkpoint(block_apply, bp, x, cfg, i, positions=positions,
-                           causal_skip=causal_skip, use_reentrant=False)
+                           causal_skip=causal_skip, attn_impl=attn_impl,
+                           use_reentrant=False)
         else:
             x = block_apply(bp, x, cfg, i, positions=positions,
-                            causal_skip=causal_skip)
+                            causal_skip=causal_skip, attn_impl=attn_impl)
+    return _logits(params, x, cfg)
+
+
+def _logits(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    cdt = getattr(torch, cfg.dtype)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
         return unembed(params["embed"], x, cdt)
@@ -99,3 +111,51 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *,
     """batch: {"tokens": (B,S), "labels": (B,S), optional "mask"}."""
     logits = forward(params, batch["tokens"], cfg, causal_skip=causal_skip)
     return softmax_xent(logits, batch["labels"], batch.get("mask"))
+
+
+def _is_global(cfg: ModelConfig, i: int) -> bool:
+    return cfg.layer_kind(i).get("attn_global", True)
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
+                      cache_dtype: torch.dtype = torch.bfloat16,
+                      device=None) -> list:
+    """One ``{"kv": {"k", "v"}}`` per layer, zeros."""
+    _require_dense(cfg)
+    return [{"kv": init_cache(cfg.attn, batch, seq_len,
+                              is_global=_is_global(cfg, i), dtype=cache_dtype,
+                              device=device)}
+            for i in range(cfg.num_layers)]
+
+
+def cache_len(cfg: ModelConfig, i: int, seq_len: int) -> int:
+    """Global KV-cache length of layer ``i`` (mirrors ``init_cache``)."""
+    c = seq_len
+    if not _is_global(cfg, i):
+        if cfg.attn.window is not None:
+            c = min(c, cfg.attn.window)
+        elif cfg.attn.chunk is not None:
+            c = min(c, cfg.attn.chunk)
+    return c
+
+
+def decode_step(params: dict, token: torch.Tensor, state: list, pos: int,
+                cfg: ModelConfig, *, seq_len: int | None = None
+                ) -> tuple[torch.Tensor, list]:
+    """token: (B,) ints at position ``pos``; returns (logits (B, V), state)
+    with every layer's cache written in place."""
+    _require_dense(cfg)
+    cdt = getattr(torch, cfg.dtype)
+    x = embed(params["embed"], token.long()[:, None], cdt)
+    for i, bp in enumerate(params["blocks"]):
+        h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
+        clen = cache_len(cfg, i, seq_len) if seq_len else None
+        mix, state[i]["kv"] = attn_decode(
+            bp["attn"], h, cfg.attn, state[i]["kv"],
+            is_global=_is_global(cfg, i), pos=pos, compute_dtype=cdt,
+            cache_len_global=clen)
+        x = x + mix.to(x.dtype)
+        if "mlp" in bp:
+            h = rmsnorm(bp["ln2"], x, cfg.norm_eps)
+            x = x + glu_mlp(bp["mlp"], h, cfg.act, cdt).to(x.dtype)
+    return _logits(params, x, cfg)[:, 0], state

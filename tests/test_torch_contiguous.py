@@ -1,0 +1,86 @@
+"""repro_torch contiguous-cache decode against the JAX reference, on the
+CPU.
+
+Reduced llama3.2-1b, parameters made by the reference's ``Model.init`` and
+bridged.  The port's ``build_decode_step`` against the reference's
+``Model.decode_step``: 12 tokens into an 8-slot cache, so the rolling
+write wraps and the oldest positions leave the softmax; the logits within
+1e-4 at an fp32 cache and fp32 compute (only the order of the sums
+differs), and the greedy next tokens equal.  Then the serve CLI's
+contiguous loop on the CPU.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import reduced_config as jax_reduced_config
+from repro.models import build_model as jax_build_model
+from repro.models.transformer import (init_decode_state as
+                                     jax_init_decode_state)
+from repro_torch import bridge
+from repro_torch.configs import reduced_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import build_model
+from repro_torch.models.transformer import init_decode_state
+from repro_torch.runtime.serve_step import build_decode_step
+
+ARCH = "llama3.2-1b"
+BATCH, CACHE, TOKENS = 3, 8, 12
+
+
+def test_decode_step_matches_reference_through_a_cache_wrap():
+    jmodel = jax_build_model(jax_reduced_config(ARCH))
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    model = build_model(reduced_config(ARCH))
+    params = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                      "cpu")
+    jstate = jax_init_decode_state(jmodel.cfg, BATCH, CACHE,
+                                   cache_dtype=jnp.float32)
+    state = init_decode_state(model.cfg, BATCH, CACHE,
+                              cache_dtype=torch.float32, device="cpu")
+    step = build_decode_step(model, ShapeConfig("serve", CACHE, BATCH,
+                                                "decode"), device="cpu")
+    rng = np.random.RandomState(3)
+    tok = rng.randint(0, model.cfg.vocab_size, (BATCH,)).astype(np.int32)
+    ptrs = [layer["kv"][n].data_ptr() for layer in state for n in "kv"]
+    for pos in range(TOKENS):
+        want, jstate = jmodel.decode_step(jparams, jnp.asarray(tok), jstate,
+                                          jnp.asarray(pos), seq_len=CACHE)
+        got, state = step(params, torch.from_numpy(tok), state, pos)
+        want = np.asarray(want, np.float32)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4,
+                                   err_msg=f"position {pos}")
+        nxt = got.argmax(-1).to(torch.int32).numpy()
+        np.testing.assert_array_equal(nxt, want.argmax(-1), f"position {pos}")
+        tok = nxt
+    # the caches were written in place, and hold the reference's rows
+    assert [layer["kv"][n].data_ptr() for layer in state for n in "kv"] \
+        == ptrs
+    for layer, jlayer in zip(state, jstate):
+        for name in ("k", "v"):
+            np.testing.assert_allclose(layer["kv"][name].numpy(),
+                                       np.asarray(jlayer["kv"][name]),
+                                       rtol=1e-4, atol=1e-4)
+
+
+def test_decode_refuses_what_is_not_ported():
+    model = build_model(reduced_config(ARCH))
+    shape = ShapeConfig("serve", CACHE, BATCH, "decode")
+    with pytest.raises(NotImplementedError, match="fsdp slice"):
+        build_decode_step(model, shape, weight_mode="gathered", device="cpu")
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    short = model.init_decode_state(BATCH, CACHE // 2, device="cpu")
+    with pytest.raises(NotImplementedError, match="model axis"):
+        build_decode_step(model, shape, device="cpu")(
+            params, torch.zeros(BATCH, dtype=torch.int32), short, 0)
+
+
+def test_launch_serve_contiguous_on_cpu(capsys):
+    launch_serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
+                       "--batch", "2", "--cache", "16", "--tokens", "3"])
+    out = capsys.readouterr().out
+    assert "tok/s (batch 2, cache 16)" in out

@@ -33,9 +33,11 @@ from repro.serve import plan_kv_arena as jax_plan_kv_arena
 from repro.serve.engine import _gather_local_kv as jax_gather
 from repro_torch import bridge
 from repro_torch.configs import reduced_config
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.kernels.flash_decode import ops
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import build_model
+from repro_torch.runtime.serve_step import build_decode_step, build_prefill
 from repro_torch.serve import (PagedDecodeEngine, ServeScheduler,
                                mixed_trace, plan_kv_arena)
 from repro_torch.serve.engine import _gather_local_kv
@@ -167,6 +169,15 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(models, monkeypatch):
         bridge.params_from_numpy({"w": np.zeros(2)})
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         launch_serve.main(["--arch", ARCH, "--reduced", "--paged"])
+    shape = ShapeConfig("serve", 16, 2, "decode")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_prefill(model, shape)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_decode_step(model, shape)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        model.init_decode_state(2, 16)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch_serve.main(["--arch", ARCH, "--reduced"])
     with pytest.raises(ValueError, match="generator lives on"):
         model.init(torch.Generator(), "meta")
 
@@ -179,8 +190,6 @@ def test_engine_refuses_what_is_not_ported(models):
     with pytest.raises(ValueError):
         PagedDecodeEngine(model, plan_kv_arena(model.cfg, **PLAN_KW),
                           attn_impl="pallas", device="cpu")
-    with pytest.raises(SystemExit):
-        launch_serve.main(["--arch", ARCH, "--reduced", "--device", "cpu"])
 
 
 def test_launch_serve_paged_on_cpu(capsys):

@@ -1,0 +1,96 @@
+"""repro_torch flash-attention kernel on the card: the kernel against its
+plain PyTorch version on the same card inputs (causal, windowed and
+non-causal masks; GQA; ragged S; fp32 and bf16), run to run bitwise, and
+its refusals.
+
+Marked ``cuda``; without a card every test skips (a CUDA kernel has no CPU
+mode).  The file imports no JAX, so it runs where the port runs::
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_flash_attn_cuda.py
+"""
+
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attn import ops, ref
+
+# the reference's kernel tolerances (tests/test_kernels.py): fp32 2e-5,
+# bf16 3e-2 absolute (one bf16 rounding of an O(1) output)
+TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+       torch.bfloat16: dict(rtol=0.0, atol=3e-2)}
+
+
+@pytest.fixture
+def cuda_device():
+    """The card; decided at run time, never at collection, so every test
+    worker collects the same tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain version in fp32
+    return torch.device("cuda")
+
+
+def _qkv(dev, seed, b, hq, hkv, s, d, dtype):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, hq, s, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, hkv, s, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, hkv, s, d), generator=gen, device=dev).to(dtype)
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,hq,hkv,d", [
+    (1, 4, 2, 16), (7, 8, 1, 32), (64, 4, 2, 16), (200, 32, 8, 64),
+    (256, 8, 1, 128), (1000, 4, 2, 64)])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 64),
+                                           (False, None)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain_version(cuda_device, s, hq, hkv,
+                                                      d, causal, window,
+                                                      dtype):
+    q, k, v = _qkv(cuda_device, s + d, 2, hq, hkv, s, d, dtype)
+    before = ops.LAUNCHES
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    again = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize(cuda_device)
+    assert ops.LAUNCHES == before + 2
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.equal(got, again)                      # run-to-run bitwise
+    want = ref.attention(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_takes_strided_heads(cuda_device):
+    """q/k/v as head views of (B, S, H, D) projections, as the model's
+    head split gives them: same bits as from contiguous copies."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn((2, 130, 12, 64), generator=gen, device=cuda_device)
+    q, k, v = (x[:, :, :8].transpose(1, 2), x[:, :, 8:10].transpose(1, 2),
+               x[:, :, 10:].transpose(1, 2))
+    got = ops.flash_attention(q, k, v)
+    want = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.cuda.synchronize(cuda_device)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda_device):
+    q, k, v = _qkv(cuda_device, 0, 1, 4, 2, 64, 48, torch.float32)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention(q, k, v)
+    q, k, v = _qkv(cuda_device, 0, 1, 4, 2, 64, 64, torch.float16)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q, k, v)
+    q, k, v = _qkv(cuda_device, 0, 1, 4, 2, 64, 64, torch.bfloat16)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q.float(), k, v)
+    with pytest.raises(ValueError, match="contiguous along D"):
+        ops.flash_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3),
+                            v)
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        ops.flash_attention(q[:, :, :32], k, v)
+    with pytest.raises(ValueError, match="chunked"):
+        ops.flash_attention(q, k, v, chunk=32)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q.requires_grad_(), k, v)
