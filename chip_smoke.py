@@ -7,7 +7,7 @@ Run from the repository root with no arguments::
 
 Phases, each of which raises on a failed check (exit code != 0):
 
-1. build    — ``nvcc`` builds the six CUDA sources for sm_90a from the
+1. build    — ``nvcc`` builds the seven CUDA sources for sm_90a from the
               repository, one compiler per source, all at once;
 2. kernel   — the flash-decode kernel against its plain PyTorch version on
               card inputs at the serve shape and around it (fp32
@@ -33,37 +33,47 @@ Phases, each of which raises on a failed check (exit code != 0):
               rate sets: CUDA events around replays of a CUDA graph of many
               calls (reported), printed beside eager CUDA events, the host
               clock and the profiler's device activities;
-8. kernels_attn — the flash-attention kernel against its plain version
-              over S in {1, 7, 64, 200, 1000, 4096} x (Hq, Hkv) in {(32, 8),
-              (4, 2), (8, 1)} x D in {16, 32, 64, 128} x causal, window 64
-              and non-causal x fp32 and bf16 (the reference's tolerances:
-              rtol/atol 2e-5 at fp32, atol 3e-2 at bf16), run-to-run
-              bitwise; Sq != Sk and requires_grad raise;
+8. kernels_attn — the flash-attention kernels against their plain version
+              over S in {1, 7, 64, 127, 128, 129, 200, 255, 256, 257, 1000,
+              4096} x (Hq, Hkv) in {(32, 8), (4, 2), (8, 1)} x D in {16, 32,
+              64, 128} x causal, window 64 and non-causal x fp32 (the SIMT
+              kernel) and bf16 (the wgmma kernel), then bf16 in two
+              layouts TMA cannot take (a 260-element sequence stride, k/v
+              2 bytes past alignment) on the SIMT route, each case's route
+              asserted and each route's launches counted (the reference's
+              tolerances: rtol/atol 2e-5 at fp32, atol 3e-2 at bf16),
+              run-to-run bitwise; Sq != Sk and requires_grad raise;
 9. prefill  — ``build_prefill`` on llama3.2-1b at full width (16 layers,
-              seeded random weights): at B=1, S=4096, for two seeds of
+              seeded random weights): at B=1, S=4096, for ten seeds of
               weights and tokens, the kernel prefill against the fp32
               blockwise (plain attention) prefill: at fp32 compute every
               logit within rtol/atol 1e-4; at bf16 compute the kernel
               prefill's relative L2 error at most 1.05 times the bf16
               blockwise prefill's and its count of logits outside rtol
-              2e-2 / atol 5e-2 at most 1.25 times; at B=1, S=32768
-              (prefill_32k's length)
+              2e-2 / atol 5e-2 at most 1.25 times; every fp32 prefill
+              launches the SIMT kernel and every bf16 one the wgmma kernel,
+              once per layer; at B=1, S=32768 (prefill_32k's length)
               one warm, one timed and one profiled prefill, every one
-              launching the kernel once per layer (16) and no other kernel,
-              logits finite; wall, peak memory, device busy and idle share;
+              launching the wgmma kernel once per layer (16), the SIMT
+              kernel and every other kernel never, logits finite; wall,
+              peak memory, device busy and idle share;
 10. serve_contiguous — ``launch.serve`` without ``--paged``: the
               contiguous-cache loop at full width with the reference's
               defaults (batch 4, cache 512, 16 tokens): logits finite,
               tokens/s, no kernel launched (its decode attention is plain,
               as the reference's);
-11. timing  — time per call of the flash-attention kernel at one prefill
-              layer's shape (q (1, 32, 32768, 64), k/v (1, 8, 32768, 64),
-              bf16, causal) beside PyTorch's fused
-              ``scaled_dot_product_attention`` (yardstick only) and the
-              bound the card's dense bf16 rate sets; the kernel's output
-              held against the plain version's (query blocks of 1024) at
-              that shape (atol 3e-2), the plain version timed there too,
-              and both at S=4096;
+11. timing  — time per call of the wgmma flash-attention kernel at one
+              prefill layer's shape (q (1, 32, 32768, 64), k/v (1, 8, 32768,
+              64), bf16, causal) beside PyTorch's fused
+              ``scaled_dot_product_attention`` (yardstick only; it rounds P
+              to bf16 once, the kernel splits it in two bf16 halves) and
+              the bound the card's dense
+              bf16 rate sets for the function's work (``attention_flops``),
+              with the flops the kernel executes printed beside it; the
+              kernel's output held against the plain version's (query
+              blocks of 1024) at that shape (atol 3e-2), the plain version
+              timed there too, and both at S=4096; the SIMT kernel, the
+              plain version and SDPA at fp32, S=4096;
 12. train    — ``launch.train``'s setup on one rank: full llama3.2-1b (16
               layers), replicated, ``ring_hier``, chunks 2, the arena on,
               seq 256, global batch 8, bf16 compute over fp32 master
@@ -162,7 +172,7 @@ def gpu_line() -> str:
 PORT_KERNELS = ("flash_decode_stats_kernel", "reduce_add_kernel",
                 "write_flat_kernel", "read_flat_kernel", "quantize_kernel",
                 "write_quant_kernel", "read_dequant_kernel",
-                "flash_attn_fwd_kernel")
+                "flash_attn_fwd_kernel", "flash_attn_wgmma_kernel")
 
 
 def device_activity(fn, iters: int,
@@ -241,8 +251,18 @@ def set_launch_counters(saved: dict) -> None:
                        read=saved["pack_quant_read"])
 
 
+def attn_routes() -> dict:
+    """flash_attn's launches by route: "wgmma" (bf16) and "simt" (fp32)."""
+    return dict(_kernel_ops()[5].LAUNCHES_BY_ROUTE)
+
+
+def set_attn_routes(saved: dict) -> None:
+    _kernel_ops()[5].LAUNCHES_BY_ROUTE.update(saved)
+
+
 def reset_launch_counters() -> None:
     set_launch_counters(dict.fromkeys(launch_counters(), 0))
+    set_attn_routes(dict.fromkeys(attn_routes(), 0))
 
 
 def events_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -353,7 +373,7 @@ def phase_build() -> None:
 
     t0 = time.perf_counter()
     sources = [fd_ops.SOURCE, ra_ops.SOURCE, pack_ops.SOURCE, q_ops.SOURCE,
-               pq_ops.SOURCE, fa_ops.SOURCE]
+               pq_ops.SOURCE, fa_ops.SOURCE, fa_ops.WGMMA_SOURCE]
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(_build.build, sources))
     fd_ops._kernel_fn()
@@ -362,11 +382,13 @@ def phase_build() -> None:
     q_ops._kernel_fns()
     pq_ops._kernel_fns()
     fa_ops._kernel_fn()
+    fa_ops._wgmma_fn()
     log(f"[build] {', '.join(path.name for path, _ in built)} in "
         f"{time.perf_counter() - t0:.1f} s")
     for _, report in built:
         for line in report.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(w in line.lower() for w in ("registers", "spill", "error",
+                                               "warning")):
                 log(f"[build]   {line.strip()}")
 
 
@@ -1357,15 +1379,25 @@ def phase_timing_int8(dev, hop_width: int, segment: int,
 
 # flash attention: the kernel checks' grid and tolerances (the reference's,
 # tests/test_kernels.py: fp32 2e-5, bf16 3e-2 absolute)
-ATTN_SEQS = (1, 7, 64, 200, 1000, 4096)
+# S around the wgmma kernel's 128-row q tiles and 128-key (64 at D=128) tiles
+ATTN_SEQS = (1, 7, 64, 127, 128, 129, 200, 255, 256, 257, 1000, 4096)
 ATTN_HEADS = ((32, 8), (4, 2), (8, 1))
 ATTN_DIMS = (16, 32, 64, 128)
 ATTN_MASKS = ((True, None), (True, 64), (False, None))
 ATTN_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (0.0, 3e-2)}
+# at the 32k layer shape the outputs shrink with the row (about
+# sqrt(e / (i + 1)) at row i), so atol 3e-2 is of their own size there;
+# beside it, the relative L2 of the kernel against the plain version, set
+# between the kernel's reading and that of the plain version with p rounded
+# once to bf16 (PERF.md section 6), which must fail it
+ATTN_32K_REL_L2 = 5e-4
+# the flash_attn kernel each dtype launches in the grid's layouts
+ATTN_ROUTE = {"float32": "simt", "bfloat16": "wgmma"}
+ATTN_UNALIGNED_SEQ = 257     # the bf16 cases in layouts TMA cannot take
 PREFILL_CHECK_SEQ = 4096     # kernel prefill vs blockwise prefill
 PREFILL_SEQ = 32768          # prefill_32k's length, at batch 1
 PREFILL_FP32_TOL = 1e-4      # tests/test_torch_prefill.py's fp32 tolerance
-PREFILL_CHECK_SEEDS = (0, 1)  # weights and tokens of the S=4096 check
+PREFILL_CHECK_SEEDS = tuple(range(10))  # weights and tokens, S=4096 check
 # the bf16 kernel prefill's error against the fp32 blockwise prefill, as a
 # multiple of the bf16 blockwise prefill's: relative L2 and elementwise
 # misses of the engine's tolerance, at most (PERF.md section 6)
@@ -1384,30 +1416,54 @@ def attn_inputs(dev, seed, b, hq, hkv, s, d, dtype):
     return q, k, v
 
 
+def unaligned_bf16_attn_inputs(dev, seed):
+    """bf16 q/k/v in layouts TMA cannot take, so ``route`` gives them to the
+    SIMT kernel: head views of a (1, S, 4*64 + 4) projection (a sequence
+    stride of 260 elements, 520 bytes) and k/v 2 bytes past alignment."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    s = ATTN_UNALIGNED_SEQ
+    x = torch.randn((1, s, 4 * 64 + 4), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    heads = x[..., :256].unflatten(-1, (4, 64)).transpose(1, 2)
+    flat = torch.randn(2 * s * 64 + 1, generator=gen,
+                       device=dev).to(torch.bfloat16)
+    shifted = flat[1:].view(1, 2, s, 64)
+    return {"260-element sequence stride": (heads, heads[:, :2],
+                                            heads[:, :2]),
+            "k/v 2 bytes past alignment": (heads.contiguous(), shifted,
+                                           shifted)}
+
+
 def phase_kernels_attn(dev) -> dict:
-    """The flash-attention kernel against its plain version on card inputs:
-    every S x (Hq, Hkv) x D x mask x dtype of the grid above, within the
-    reference's tolerances, and run to run bitwise; then its refusals."""
+    """The flash-attention kernels against their plain version on card
+    inputs: every S x (Hq, Hkv) x D x mask x dtype of the grid above, fp32
+    on the SIMT route and bf16 on the wgmma route, then bf16 in layouts TMA
+    cannot take on the SIMT route, within the reference's tolerances, and
+    run to run bitwise; then the refusals."""
     import itertools
 
     import torch
 
     from repro_torch.kernels.flash_attn import ops, ref
 
-    saved = launch_counters()
+    saved, saved_routes = launch_counters(), attn_routes()
+    reset_launch_counters()
     err = {"float32": 0.0, "bfloat16": 0.0}
-    n = 0
-    for i, (s, (hq, hkv), d, (causal, window), dt) in enumerate(
-            itertools.product(ATTN_SEQS, ATTN_HEADS, ATTN_DIMS, ATTN_MASKS,
-                              ("float32", "bfloat16"))):
-        q, k, v = attn_inputs(dev, i, 2, hq, hkv, s, d, getattr(torch, dt))
+    want_routes = dict.fromkeys(attn_routes(), 0)
+
+    def check(q, k, v, causal, window, way, what):
+        dt = str(q.dtype).removeprefix("torch.")
+        if ops.route(q, k, v) != way:
+            raise AssertionError(f"[kernels_attn] {what}: route "
+                                 f"{ops.route(q, k, v)}, expected {way}")
         got = ops.flash_attention(q, k, v, causal=causal, window=window)
         again = ops.flash_attention(q, k, v, causal=causal, window=window)
+        want_routes[way] += 2
         want = ref.attention(q, k, v, causal=causal, window=window,
                              block_q=1024)
         torch.cuda.synchronize(dev)
-        what = (f"S={s} Hq={hq} Hkv={hkv} D={d} causal={causal} "
-                f"window={window} {dt}")
         if not torch.equal(got, again):
             raise AssertionError(f"[kernels_attn] {what}: two runs differ")
         rtol, atol = ATTN_TOL[dt]
@@ -1415,8 +1471,23 @@ def phase_kernels_attn(dev) -> dict:
                                    atol=atol,
                                    msg=lambda m: f"[kernels_attn] {what}: {m}")
         err[dt] = max(err[dt], (got.float() - want.float()).abs().max().item())
+
+    n = 0
+    for i, (s, (hq, hkv), d, (causal, window), dt) in enumerate(
+            itertools.product(ATTN_SEQS, ATTN_HEADS, ATTN_DIMS, ATTN_MASKS,
+                              ("float32", "bfloat16"))):
+        q, k, v = attn_inputs(dev, i, 2, hq, hkv, s, d, getattr(torch, dt))
+        check(q, k, v, causal, window, ATTN_ROUTE[dt],
+              f"S={s} Hq={hq} Hkv={hkv} D={d} causal={causal} "
+              f"window={window} {dt}")
         n += 1
-        del q, k, v, got, again, want
+        del q, k, v
+    unaligned = unaligned_bf16_attn_inputs(dev, n)
+    for what, (q, k, v) in unaligned.items():
+        check(q, k, v, True, 64, "simt",
+              f"S={ATTN_UNALIGNED_SEQ} bf16, {what}")
+    n_unaligned = len(unaligned)
+    del unaligned
     q, k, v = attn_inputs(dev, 0, 1, 4, 2, 64, 64, torch.bfloat16)
     refusals = ((ValueError, lambda: ops.flash_attention(q[:, :, :32], k, v)),
                 (RuntimeError, lambda: ops.flash_attention(
@@ -1427,15 +1498,25 @@ def phase_kernels_attn(dev) -> dict:
         except exc:
             continue
         raise AssertionError(f"[kernels_attn] no {exc.__name__} raised")
+    routes = attn_routes()
+    if routes != want_routes:
+        raise AssertionError(f"[kernels_attn] launches by route {routes}, "
+                             f"expected {want_routes}")
     set_launch_counters(saved)         # checks are not the main path's
+    set_attn_routes(saved_routes)
     torch.cuda.empty_cache()
     log(f"[kernels_attn] {n} cases (S {ATTN_SEQS} x (Hq, Hkv) {ATTN_HEADS} "
         f"x D {ATTN_DIMS} x causal / window 64 / non-causal x fp32, bf16; "
-        f"B=2) within the reference's tolerances of the plain version and "
-        f"bitwise run to run: max |kernel - plain| fp32 "
-        f"{err['float32']:.3e}, bf16 {err['bfloat16']:.3e}; Sq != Sk and "
-        f"requires_grad raise")
-    return {"cases": n, "max_abs_err": err}
+        f"B=2) and {n_unaligned} bf16 layouts TMA cannot take (S="
+        f"{ATTN_UNALIGNED_SEQ}, Hq=4, Hkv=2, D=64, window 64: a "
+        f"260-element sequence stride, k/v 2 bytes past alignment) within "
+        f"the reference's tolerances of the plain version and bitwise run "
+        f"to run: max |kernel - plain| fp32 {err['float32']:.3e}, bf16 "
+        f"{err['bfloat16']:.3e}; launches by route (two per case): simt "
+        f"{routes['simt']} (fp32 and the unaligned bf16), wgmma "
+        f"{routes['wgmma']} (bf16); Sq != Sk and requires_grad raise")
+    return {"cases": n + n_unaligned, "max_abs_err": err,
+            "routes": routes}
 
 
 def phase_prefill(dev) -> dict:
@@ -1463,14 +1544,18 @@ def phase_prefill(dev) -> dict:
         return torch.randint(0, model.cfg.vocab_size, (1, s), generator=gen,
                              device=dev, dtype=torch.int32)
 
-    def kernel_prefill(fn, params, batch, what):
+    def kernel_prefill(fn, params, batch, what, route="wgmma"):
         reset_launch_counters()
         logits = fn(params, batch)
         torch.cuda.synchronize(dev)
-        counts = launch_counters()
+        counts, routes = launch_counters(), attn_routes()
         if counts != dict(dict.fromkeys(counts, 0), flash_attn=layers):
             raise AssertionError(f"[prefill] {what}: launches {counts}, "
                                  f"expected {layers} flash_attn and no other")
+        if routes != dict(dict.fromkeys(routes, 0), **{route: layers}):
+            raise AssertionError(f"[prefill] {what}: flash_attn launches by "
+                                 f"route {routes}, expected {layers} of "
+                                 f"{route} and no other")
         return logits
 
     def error(got, want, rtol, atol):
@@ -1494,6 +1579,7 @@ def phase_prefill(dev) -> dict:
     m32, m16 = (build_model(cfg.with_(dtype=dt))
                 for dt in ("float32", "bfloat16"))
     check = {}
+    t_check = time.perf_counter()
     for seed in PREFILL_CHECK_SEEDS:
         params = m32.init(torch.Generator(device=dev).manual_seed(seed), dev)
         batch = {"tokens": tokens(PREFILL_CHECK_SEQ, seed + 1)}
@@ -1502,7 +1588,8 @@ def phase_prefill(dev) -> dict:
                              device=dev)(params, batch).float()
         row = {"fp32": error(kernel_prefill(build_prefill(m32, shape,
                                                           device=dev),
-                                            params, batch, f"{what} fp32"),
+                                            params, batch, f"{what} fp32",
+                                            route="simt"),
                              want, PREFILL_FP32_TOL, PREFILL_FP32_TOL),
                "bf16_kernel": error(kernel_prefill(
                    build_prefill(m16, shape, device=dev), params, batch,
@@ -1532,7 +1619,18 @@ def phase_prefill(dev) -> dict:
                     f"[prefill] {what} bf16: the kernel prefill's {key} "
                     f"{got:.4e} is above {margin} x the blockwise "
                     f"prefill's {base:.4e}")
-    log(f"[prefill] flash_attn launches {layers} per kernel prefill")
+        ratios = {}
+        for key in ("rel_l2", "outside"):
+            got, base = row["bf16_kernel"][key], row["bf16_blockwise"][key]
+            ratios[key] = got / base if base else (math.inf if got else 1.0)
+        row["ratios"] = ratios
+        log(f"[prefill] {what} bf16_kernel / bf16_blockwise: relative L2 "
+            f"{ratios['rel_l2']:.4f} (gate {PREFILL_BF16_L2_MARGIN}), misses "
+            f"{ratios['outside']:.4f} (gate {PREFILL_BF16_MISS_MARGIN})")
+    log(f"[prefill] flash_attn launches {layers} per kernel prefill: the "
+        f"SIMT kernel at fp32, the wgmma kernel at bf16; the "
+        f"{len(PREFILL_CHECK_SEEDS)} seeds' check took "
+        f"{time.perf_counter() - t_check:.1f} s")
 
     params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
     shape = ShapeConfig("prefill_32k_b1", PREFILL_SEQ, 1, "prefill")
@@ -1543,7 +1641,7 @@ def phase_prefill(dev) -> dict:
     t0 = time.perf_counter()
     logits = kernel_prefill(prefill, params, batch, "timed")
     wall = time.perf_counter() - t0
-    timed_launches = launch_counters()["flash_attn"]
+    timed_launches = attn_routes()      # kernel_prefill held them to 16 / 0
     peak = torch.cuda.max_memory_allocated(dev)
     if tuple(logits.shape) != (1, PREFILL_SEQ, model.cfg.vocab_size):
         raise AssertionError(f"[prefill] logits {tuple(logits.shape)}")
@@ -1554,9 +1652,14 @@ def phase_prefill(dev) -> dict:
     reset_launch_counters()
     prof_wall, by_name, counts = device_activity(
         lambda: prefill(params, batch), 1, warm=False)
-    launched = launch_counters()["flash_attn"]
-    if launched != layers:
-        raise AssertionError(f"[prefill] profiled: {launched} launches")
+    counts_prof, routes_prof = launch_counters(), attn_routes()
+    if (counts_prof != dict(dict.fromkeys(counts_prof, 0), flash_attn=layers)
+            or routes_prof != dict(dict.fromkeys(routes_prof, 0),
+                                   wgmma=layers)):
+        raise AssertionError(f"[prefill] profiled: launches {counts_prof}, "
+                             f"by route {routes_prof}, expected {layers} "
+                             f"wgmma and no other")
+    launched = routes_prof["wgmma"]
     if not by_name:
         raise RuntimeError("[prefill] no device activity in a prefill")
     busy = sum(by_name.values())
@@ -1564,9 +1667,10 @@ def phase_prefill(dev) -> dict:
     seen = port_kernels_seen(counts)
     log(f"[prefill] B=1 S={PREFILL_SEQ}: wall {wall * 1e3:.1f} ms "
         f"({PREFILL_SEQ / wall:.0f} tokens/s), peak "
-        f"{peak / 2**30:.2f} GiB, logits finite; flash_attn launches "
-        f"{timed_launches} in the timed prefill ({layers} each in the warm, "
-        f"timed and profiled ones)")
+        f"{peak / 2**30:.2f} GiB, logits finite; flash_attn launches in "
+        f"the timed prefill: wgmma {timed_launches['wgmma']}, simt "
+        f"{timed_launches['simt']} ({layers} each in the warm, timed and "
+        f"profiled ones)")
     log(f"[prefill] profiled prefill: wall {prof_wall:.1f} ms, device busy "
         f"{busy:.1f} ms, idle share {1 - busy / prof_wall:.3f}; the profiler "
         f"recorded {seen} of the {launched} flash_attn launches")
@@ -1575,7 +1679,8 @@ def phase_prefill(dev) -> dict:
     del params, batch, prefill
     gc.collect()
     torch.cuda.empty_cache()
-    return {"check": check, "launches": timed_launches, "wall_ms": wall * 1e3,
+    return {"check": check, "launches": timed_launches["wgmma"],
+            "launches_by_route": timed_launches, "wall_ms": wall * 1e3,
             "peak_bytes": peak, "tokens_per_s": PREFILL_SEQ / wall,
             "profile": {"wall_ms": prof_wall, "device_ms": busy,
                         "idle_share": 1 - busy / prof_wall,
@@ -1620,14 +1725,62 @@ def phase_serve_contiguous(dev) -> dict:
             "tokens": args.tokens}
 
 
+def wgmma_executed_flops(b: int, hq: int, s: int, d: int) -> int:
+    """The tensor-core flops the wgmma kernel executes, causal without a
+    window: every key tile it runs, masked entries included, at 2*D flops
+    per (query, key) for Q.K^T and twice that for P.V (P split into two
+    bf16 halves).  Its tiles are those of flash_attn_wgmma.cu: 128 query
+    rows (kBQ) by 128 keys up to D=64, 64 at D=128 (Cfg<D>::BK)."""
+    bq, bk = 128, (128 if d <= 64 else 64)
+    nk = -(-s // bk)
+    tiles = sum(min(nk, (q0 + bq - 1) // bk + 1) for q0 in range(0, s, bq))
+    return b * hq * tiles * bq * bk * 6 * d
+
+
+def attention_p_rounded_once(q, k, v, block_q: int):
+    """The plain causal attention with one change: p = exp(s - max) enters
+    P.V rounded once to bf16, while l sums the fp32 p; what a kernel that
+    rounds p once computes.  The control of the 32k relative L2 check."""
+    import torch
+
+    from repro_torch.kernels.flash_attn import ref
+
+    s_len, d = q.shape[2], q.shape[3]
+    k = k.repeat_interleave(q.shape[1] // k.shape[1], dim=1).float()
+    v = v.repeat_interleave(q.shape[1] // v.shape[1], dim=1).float()
+    k_pos = torch.arange(s_len, device=q.device)
+    outs = []
+    for q0 in range(0, s_len, block_q):
+        q1 = min(q0 + block_q, s_len)
+        sc = torch.einsum("bhqd,bhkd->bhqk", q[:, :, q0:q1].float(), k)
+        sc.mul_(1.0 / math.sqrt(d))
+        q_pos = torch.arange(q0, q1, device=q.device)[:, None]
+        sc.masked_fill_(k_pos[None, :] > q_pos, ref.NEG_INF)
+        p = sc.sub_(sc.amax(-1, keepdim=True)).exp_()
+        l = p.sum(-1, keepdim=True)
+        o = torch.einsum("bhqk,bhkd->bhqd", p.bfloat16().float(), v)
+        outs.append((o / l).to(q.dtype))
+        del sc, p
+    return torch.cat(outs, dim=2)
+
+
+def relative_l2(got, want) -> float:
+    """||got - want|| / ||want||, summed in fp64."""
+    return ((got.double() - want.double()).norm()
+            / want.double().norm()).item()
+
+
 def phase_timing_attn(dev) -> dict:
-    """Time per call of the flash-attention kernel at one prefill layer's
-    shape (q (1, 32, 32768, 64), k/v (1, 8, 32768, 64), bf16, causal),
-    beside its plain version (query blocks of 1024, so that each block's
-    fp32 scores take 4.3 GB), PyTorch's fused
-    ``scaled_dot_product_attention`` (yardstick only) and the bound; the
-    kernel's output is first held against the plain version's there.  Both
-    are also timed at S=4096."""
+    """Time per call of the wgmma flash-attention kernel at one prefill
+    layer's shape (q (1, 32, 32768, 64), k/v (1, 8, 32768, 64), bf16,
+    causal), beside its plain version (query blocks of 1024, so that each
+    block's fp32 scores take 4.3 GB), PyTorch's fused
+    ``scaled_dot_product_attention`` (yardstick only: its flash backend
+    rounds P to bf16, the kernel keeps it at about 2^-17) and the bound
+    the card's bf16 rate sets for the function's work; the kernel's output
+    is first held against the plain version's there.  Both are also timed
+    at S=4096, and the fp32 route (the SIMT kernel), its plain version and
+    SDPA at fp32, S=4096."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -1637,6 +1790,7 @@ def phase_timing_attn(dev) -> dict:
     b, hq, hkv, d = 1, 32, 8, 64
     q, k, v = attn_inputs(dev, 21, b, hq, hkv, PREFILL_SEQ, d, torch.bfloat16)
     short = [t[:, :, :PREFILL_CHECK_SEQ].contiguous() for t in (q, k, v)]
+    short32 = [t.float() for t in short]
     # the fused backends only: the math backend would build the whole
     # (1, 32, 32768, 32768) score matrix at once
     fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
@@ -1647,7 +1801,23 @@ def phase_timing_attn(dev) -> dict:
             return F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                   enable_gqa=True)
 
-    saved = launch_counters()
+    # at fp32 only the memory-efficient backend runs; kv heads repeated
+    # beforehand, outside the timed call
+    rep32 = [short32[0]] + [t.repeat_interleave(hq // hkv, dim=1)
+                            for t in short32[1:]]
+
+    def library_fp32():
+        with sdpa_kernel(fused):
+            return F.scaled_dot_product_attention(*rep32, is_causal=True)
+
+    for args, way in (((q, k, v), "wgmma"), (short, "wgmma"),
+                      (short32, "simt")):
+        if ops.route(*args) != way:
+            raise AssertionError(f"[timing] flash_attn at q "
+                                 f"{tuple(args[0].shape)} "
+                                 f"{args[0].dtype}: route "
+                                 f"{ops.route(*args)}, expected {way}")
+    saved, saved_routes = launch_counters(), attn_routes()
     got = ops.flash_attention(q, k, v).float()
     want = ref.attention(q, k, v, block_q=1024).float()
     rtol, atol = ATTN_TOL["bfloat16"]
@@ -1655,42 +1825,84 @@ def phase_timing_attn(dev) -> dict:
         got, want, rtol=rtol, atol=atol,
         msg=lambda m: f"[timing] flash_attn at S={PREFILL_SEQ}: {m}")
     err = (got - want).abs().max().item()
-    del got, want
+    # the check that scales with the outputs; the control must fail it
+    rel = {"kernel": relative_l2(got, want)}
+    del got
+    ctrl = attention_p_rounded_once(q, k, v, block_q=1024)
+    rel["p_rounded_once"] = relative_l2(ctrl, want)
+    del ctrl, want
+    log(f"[timing] flash_attn at S={PREFILL_SEQ}: relative L2 against the "
+        f"plain version {rel['kernel']:.4e} (limit {ATTN_32K_REL_L2:.0e}); "
+        f"the plain version with p rounded once to bf16 "
+        f"{rel['p_rounded_once']:.4e}")
+    if not rel["kernel"] <= ATTN_32K_REL_L2:
+        raise AssertionError(f"[timing] flash_attn at S={PREFILL_SEQ}: "
+                             f"relative L2 {rel['kernel']:.4e} > "
+                             f"{ATTN_32K_REL_L2:.0e}")
+    if rel["p_rounded_once"] <= ATTN_32K_REL_L2:
+        raise AssertionError(f"[timing] flash_attn at S={PREFILL_SEQ}: the "
+                             f"control (p rounded once) passes the relative "
+                             f"L2 check ({rel['p_rounded_once']:.4e}): it "
+                             f"cannot tell split P from one rounding")
     torch.cuda.empty_cache()
-    # 4 calls of ~0.27 s per window: the profiler keeps only some of the
-    # activities of long back-to-back calls (PERF.md section 6)
-    times = {"kernel": call_times(lambda: ops.flash_attention(q, k, v), 4),
+    # 10 calls of ~13 ms per window (the plain version: 3 of ~0.6 s): the
+    # profiler keeps only some of the activities of long back-to-back calls
+    # (PERF.md section 6)
+    times = {"kernel": call_times(lambda: ops.flash_attention(q, k, v), 10),
              "plain": call_times(
                  lambda: ref.attention(q, k, v, block_q=1024), 3),
              "library": call_times(library, 10),
              "kernel_4096": call_times(
                  lambda: ops.flash_attention(*short), 10),
              "plain_4096": call_times(
-                 lambda: ref.attention(*short, block_q=1024), 10)}
+                 lambda: ref.attention(*short, block_q=1024), 10),
+             "simt_fp32_4096": call_times(
+                 lambda: ops.flash_attention(*short32), 10),
+             "plain_fp32_4096": call_times(
+                 lambda: ref.attention(*short32, block_q=1024), 10),
+             "library_fp32_4096": call_times(library_fp32, 10)}
     set_launch_counters(saved)         # timing launches are not the path's
+    set_attn_routes(saved_routes)
     s = PREFILL_SEQ
-    flops = 4 * b * hq * d * s * (s + 1) // 2      # causal: q . k and p . v
+    # the bound counts the function's work, never what a kernel adds to it
+    flops = ops.attention_flops(b, hq, s, d, causal=True)
+    executed = wgmma_executed_flops(b, hq, s, d)
     nbytes = 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d)   # q, o, k, v
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    # the fp32 route at S=4096: its own bound at the CUDA cores' fp32 rate
+    flops_4096 = ops.attention_flops(b, hq, PREFILL_CHECK_SEQ, d, causal=True)
     out = {"ms": times["kernel"]["graph_ms"],
            "plain_ms": times["plain"]["graph_ms"],
            "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "library_ms": times["library"]["graph_ms"],
-           "max_abs_err": err,
+           "max_abs_err": err, "rel_l2": rel,
            "kernel_4096_ms": times["kernel_4096"]["graph_ms"],
            "plain_4096_ms": times["plain_4096"]["graph_ms"],
-           "flops": flops, "bytes": nbytes, "times": times}
+           "simt_fp32_4096_ms": times["simt_fp32_4096"]["graph_ms"],
+           "plain_fp32_4096_ms": times["plain_fp32_4096"]["graph_ms"],
+           "library_fp32_4096_ms": times["library_fp32_4096"]["graph_ms"],
+           "simt_fp32_4096_bound_ms": flops_4096 / FP32_FLOPS_PER_S * 1e3,
+           "flops": flops, "executed_flops": executed, "bytes": nbytes,
+           "times": times}
     log(f"[timing] flash_attn q (1, 32, {s}, 64), k/v (1, 8, {s}, 64) bf16 "
-        f"causal ({flops:.3e} FLOP, {nbytes} B): max |kernel - plain| "
-        f"{err:.3e} (atol {atol}); time per call, bound "
-        f"{out['bound_ms']:.3f} ms ({out['bound_by']}, at 989 TFLOP/s bf16 "
-        f"dense), i.e. {flops / out['ms'] / 1e9:.1f} TFLOP/s achieved by "
-        f"the kernel; kernel_4096 and plain_4096 at S=4096:")
+        f"causal: max |kernel - plain| {err:.3e} (atol {atol}); bound "
+        f"{out['bound_ms']:.3f} ms ({out['bound_by']}: {flops:.4e} FLOP of "
+        f"attention at 989 TFLOP/s bf16 dense; {nbytes} B at 3.35 TB/s); "
+        f"wgmma kernel {out['ms']:.3f} ms, {flops / out['ms'] / 1e9:.1f} "
+        f"TFLOP/s of attention, {out['bound_ms'] / out['ms']:.3f} of the "
+        f"bound; it executes {executed:.4e} FLOP on the tensor cores (P "
+        f"split, masked halves of diagonal tiles), "
+        f"{executed / out['ms'] / 1e9:.1f} TFLOP/s executed; SDPA "
+        f"{out['library_ms']:.3f} ms (rounds P to bf16), kernel / SDPA "
+        f"{out['ms'] / out['library_ms']:.3f}; SIMT kernel at fp32, S=4096: "
+        f"{out['simt_fp32_4096_ms']:.3f} ms against "
+        f"{out['simt_fp32_4096_bound_ms']:.3f} ms at 67 TFLOP/s fp32, SDPA "
+        f"at fp32 {out['library_fp32_4096_ms']:.3f} ms; time per call:")
     for name, t in times.items():
         log(times_line(name, t))
-    del q, k, v, short
+    del q, k, v, short, short32, rep32
     torch.cuda.empty_cache()
     return out
 
@@ -1800,7 +2012,8 @@ def main() -> None:
                                  "library_ms")}})
     rows.append({
         "name": "flash_attn", "route": "cuda",
-        "source": f"{src}/flash_attn/csrc/flash_attn.cu",
+        "source": f"{src}/flash_attn/csrc/flash_attn_wgmma.cu",
+        "fp32_source": f"{src}/flash_attn/csrc/flash_attn.cu",
         "replaces": "src/repro/kernels/flash_attn/flash_attn.py:102",
         "launches": prefill["launches"],
         "max_abs_err": max(*kernels_attn["max_abs_err"].values(),

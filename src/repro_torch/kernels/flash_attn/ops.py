@@ -1,12 +1,22 @@
 """Wrapper for blockwise (flash) attention forward, the serving prefill's
 attention.
 
-Port of ``repro.kernels.flash_attn.ops``.  For CUDA tensors it launches the
-hand-written kernel (``csrc/flash_attn.cu``) or raises for what the kernel
-does not take; unlike the reference, which falls back to its oracle when S
-does not tile or D % 8 != 0, nothing falls back on the device: the kernel
-masks a ragged last tile itself.  For CPU tensors it runs the plain
-version, ``ref.attention``.
+Port of ``repro.kernels.flash_attn.ops``.  For CUDA tensors it launches one
+of two hand-written kernels, or raises for what they do not take.
+:func:`route` chooses the kernel from dtype and layout before any launch:
+
+* ``"wgmma"``: ``csrc/flash_attn_wgmma.cu``, for bf16 inputs whose base
+  addresses and batch, head and sequence strides TMA takes (positive
+  multiples of 16 bytes; the stride of an axis of length 1 is never read).
+  Tensor cores fed by TMA; p enters P.V as two bf16 halves (about 2^-17
+  relative, not the reference's fp32 p).
+* ``"simt"``: ``csrc/flash_attn.cu``, fp32 FMAs on the CUDA cores, for fp32
+  inputs and for bf16 layouts TMA cannot take.
+
+Unlike the reference, which falls back to its oracle when S does not tile
+or D % 8 != 0, nothing falls back on the device: both kernels mask a ragged
+last tile themselves, and no failed build or launch leads to another route.
+For CPU tensors it runs the plain version, ``ref.attention``.
 
 On both devices it refuses what the reference's kernel does not compute:
 Sq != Sk (the TPU kernel numbers query and key positions from 0, its oracle
@@ -26,12 +36,17 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attn import ref
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attn.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "flash_attn.cu"               # the "simt" route
+WGMMA_SOURCE = CSRC / "flash_attn_wgmma.cu"   # the "wgmma" route
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
+_TMA_ALIGN = 16      # bytes: TMA's base address and stride unit
 
-# kernel launches by this wrapper (CPU calls are not launches)
+# kernel launches by this wrapper (CPU calls are not launches): the sum, and
+# by route
 LAUNCHES = 0
+LAUNCHES_BY_ROUTE = {"wgmma": 0, "simt": 0}
 
 
 @functools.cache
@@ -44,6 +59,72 @@ def _kernel_fn():
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _wgmma_fn():
+    """The wgmma kernel's bound C entry point, built and loaded once per
+    process."""
+    fn = _build.load(WGMMA_SOURCE).flash_attention_wgmma_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 9
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _admitted_pairs(s: int, causal: bool, window: int | None) -> int:
+    """(query, key) pairs of one (batch, head) that the mask admits: key
+    ``k`` for query ``i`` where ``k <= i`` (causal) and ``k > i - window``."""
+    w = s if window is None else min(window, s)
+    if causal:      # min(i + 1, w) keys for query i
+        return w * (w + 1) // 2 + (s - w) * w
+    # s - max(0, i - w + 1) keys for query i
+    return s * s - (s - w) * (s - w + 1) // 2
+
+
+def attention_flops(b: int, hq: int, s: int, d: int, causal: bool = True,
+                    window: int | None = None) -> int:
+    """The function's work: 4*D flops (q.k and p.v, a multiply and an add
+    each) per admitted (query, key) pair, for every batch and query head;
+    4*B*Hq*D*S*(S+1)/2 causal without a window.  The card's bound is
+    counted from this, never from what a kernel executes beyond it."""
+    return 4 * b * hq * d * _admitted_pairs(s, causal, window)
+
+
+def _tma_layout(t: torch.Tensor) -> bool:
+    """Whether TMA takes ``t``'s base address and its batch, head and
+    sequence strides: positive multiples of 16 bytes on every axis longer
+    than 1."""
+    size = t.element_size()
+    return t.data_ptr() % _TMA_ALIGN == 0 and all(
+        n == 1 or (st > 0 and st * size % _TMA_ALIGN == 0)
+        for n, st in zip(t.shape[:3], t.stride()[:3]))
+
+
+def _tma_strides(t: torch.Tensor) -> list[int]:
+    """``t``'s batch, head and sequence strides for the wgmma kernel's TMA
+    maps; the stride of an axis of length 1 is never read, so it is given
+    as one row of D elements, which TMA takes."""
+    return [t.shape[3] if n == 1 else st
+            for n, st in zip(t.shape[:3], t.stride()[:3])]
+
+
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel that :func:`flash_attention` launches for CUDA q/k/v of
+    one dtype: ``"wgmma"`` for bf16 whose layouts TMA takes
+    (:func:`_tma_layout`), else ``"simt"``.  It reads only dtype, shape,
+    strides and ``data_ptr()``, so CPU tensors are routed as the same
+    layout on the card would be; other devices, or q/k/v on more than one
+    device, raise."""
+    devs = {t.device for t in (q, k, v)}
+    if len(devs) != 1 or next(iter(devs)).type not in ("cuda", "cpu"):
+        raise ValueError(f"route takes q/k/v on one cuda or cpu device, "
+                         f"got {sorted(map(str, devs))}")
+    if q.dtype == torch.bfloat16 and all(map(_tma_layout, (q, k, v))):
+        return "wgmma"
+    return "simt"
 
 
 def _check(q, k, v, window, chunk) -> None:
@@ -85,21 +166,35 @@ def _launch(q, k, v, causal, window):
         if t.stride(3) != 1:
             raise ValueError(f"flash_attention kernel needs {name} "
                              f"contiguous along D")
+    way = route(q, k, v)
     out = torch.empty((b, hq, s, d), dtype=q.dtype, device=q.device)
     # a window as long as the sequence masks nothing
     win = window if window is not None and window < s else 0
-    fn = _kernel_fn()
+    scale = 1.0 / (d ** 0.5)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, hq, k.shape[1], s, d, int(q.dtype == torch.bfloat16),
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 1.0 / (d ** 0.5), int(causal), win, stream)
+        if way == "wgmma":
+            err = _wgmma_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              out.data_ptr(), b, hq, k.shape[1], s, d,
+                              *_tma_strides(q), *_tma_strides(k),
+                              *_tma_strides(v), scale, int(causal), win,
+                              stream)
+        else:
+            err = _kernel_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               out.data_ptr(), b, hq, k.shape[1], s, d,
+                               int(q.dtype == torch.bfloat16),
+                               *q.stride()[:3], *k.stride()[:3],
+                               *v.stride()[:3], scale, int(causal), win,
+                               stream)
     if err:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
-                           f"{err} at q {tuple(q.shape)}, k "
+        what = (f"the driver refused a TMA tensor map (CUresult "
+                f"{err - 1000})" if way == "wgmma" and err >= 1000
+                else f"CUDA error {err}")
+        raise RuntimeError(f"flash_attention {way} kernel launch failed: "
+                           f"{what} at q {tuple(q.shape)}, k "
                            f"{tuple(k.shape)}, {q.dtype}")
     LAUNCHES += 1
+    LAUNCHES_BY_ROUTE[way] += 1
     return out
 
 

@@ -1,7 +1,9 @@
-"""repro_torch flash-attention kernel on the card: the kernel against its
-plain PyTorch version on the same card inputs (causal, windowed and
-non-causal masks; GQA; ragged S; fp32 and bf16), run to run bitwise, and
-its refusals.
+"""repro_torch flash-attention kernels on the card: each against its plain
+PyTorch version on the same card inputs (causal, windowed and non-causal
+masks; GQA; ragged S and the bf16 kernel's tile boundaries; fp32 through
+the SIMT kernel, bf16 through the wgmma kernel, counted by route), run to
+run bitwise, bf16 layouts TMA cannot take on the SIMT route, a row that
+meets a wholly masked key tile first, and their refusals.
 
 Marked ``cuda``; without a card every test skips (a CUDA kernel has no CPU
 mode).  The file imports no JAX, so it runs where the port runs::
@@ -18,6 +20,7 @@ from repro_torch.kernels.flash_attn import ops, ref
 # bf16 3e-2 absolute (one bf16 rounding of an O(1) output)
 TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
        torch.bfloat16: dict(rtol=0.0, atol=3e-2)}
+ROUTE = {torch.float32: "simt", torch.bfloat16: "wgmma"}
 
 
 @pytest.fixture
@@ -49,13 +52,37 @@ def test_flash_attention_kernel_matches_plain_version(cuda_device, s, hq, hkv,
                                                       d, causal, window,
                                                       dtype):
     q, k, v = _qkv(cuda_device, s + d, 2, hq, hkv, s, d, dtype)
-    before = ops.LAUNCHES
+    route = ROUTE[dtype]
+    before, by_route = ops.LAUNCHES, dict(ops.LAUNCHES_BY_ROUTE)
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
     again = ops.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize(cuda_device)
     assert ops.LAUNCHES == before + 2
+    assert ops.LAUNCHES_BY_ROUTE == {**by_route, route: by_route[route] + 2}
     assert got.dtype == dtype and got.shape == q.shape
     assert torch.equal(got, again)                      # run-to-run bitwise
+    want = ref.attention(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [127, 128, 129, 255, 256, 257])
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 64),
+                                           (False, None)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_at_tile_boundaries(cuda_device, s, d, causal,
+                                                   window, dtype):
+    """Around the wgmma kernel's 128-row q tiles and its key tiles (128, or
+    64 at D=128), where the ragged, diagonal and window masks meet."""
+    q, k, v = _qkv(cuda_device, s * d, 2, 8, 2, s, d, dtype)
+    by_route = dict(ops.LAUNCHES_BY_ROUTE)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    again = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize(cuda_device)
+    route = ROUTE[dtype]
+    assert ops.LAUNCHES_BY_ROUTE == {**by_route, route: by_route[route] + 2}
+    assert torch.equal(got, again)
     want = ref.attention(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
@@ -72,6 +99,71 @@ def test_flash_attention_kernel_takes_strided_heads(cuda_device):
     want = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
     torch.cuda.synchronize(cuda_device)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_flash_attention_wgmma_takes_strided_heads(cuda_device):
+    """The same head views in bf16, through the wgmma kernel's TMA maps."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn((2, 130, 12, 64), generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    q, k, v = (x[:, :, :8].transpose(1, 2), x[:, :, 8:10].transpose(1, 2),
+               x[:, :, 10:].transpose(1, 2))
+    by_route = dict(ops.LAUNCHES_BY_ROUTE)
+    got = ops.flash_attention(q, k, v)
+    want = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.cuda.synchronize(cuda_device)
+    assert ops.LAUNCHES_BY_ROUTE["wgmma"] == by_route["wgmma"] + 2
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_flash_attention_takes_unaligned_bf16_on_the_simt_route(cuda_device):
+    """bf16 layouts TMA cannot take (a 260-element sequence stride; a base
+    2 bytes past alignment) launch the SIMT kernel, chosen before the
+    launch, and agree with the plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn((1, 200, 4 * 64 + 4), generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    heads = x[..., :256].unflatten(-1, (4, 64)).transpose(1, 2)
+    assert heads.stride(2) == 260
+    flat = torch.randn(2 * 200 * 64 + 1, generator=gen,
+                       device=cuda_device).to(torch.bfloat16)
+    shifted = flat[1:].view(1, 2, 200, 64)         # 2 bytes past alignment
+    for q, k, v in ((heads, heads[:, :2], heads[:, :2]),
+                    (heads.contiguous(), shifted, shifted)):
+        assert ops.route(q, k, v) == "simt"
+        by_route = dict(ops.LAUNCHES_BY_ROUTE)
+        got = ops.flash_attention(q, k, v, window=64)
+        torch.cuda.synchronize(cuda_device)
+        assert ops.LAUNCHES_BY_ROUTE == {**by_route,
+                                         "simt": by_route["simt"] + 1}
+        want = ref.attention(q, k, v, window=64)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_flash_attention_wgmma_row_meets_a_wholly_masked_key_tile_first(
+        cuda_device, d):
+    """Causal, window 64, S=257: rows 192-255 of the second 128-row q tile
+    find key tile 0 wholly outside their window before their first
+    admitted key.  Their running max stays at the masked score -1e30 over
+    that tile, and the first admitted key's rescale factor clears what it
+    summed: the output is finite and agrees with the plain version."""
+    q, k, v = _qkv(cuda_device, 257 + d, 1, 4, 2, 257, d, torch.bfloat16)
+    by_route = dict(ops.LAUNCHES_BY_ROUTE)
+    got = ops.flash_attention(q, k, v, causal=True, window=64)
+    torch.cuda.synchronize(cuda_device)
+    assert ops.LAUNCHES_BY_ROUTE["wgmma"] == by_route["wgmma"] + 1
+    assert torch.isfinite(got).all()
+    want = ref.attention(q, k, v, causal=True, window=64)
+    torch.testing.assert_close(got[:, :, 192:256].float(),
+                               want[:, :, 192:256].float(),
+                               **TOL[torch.bfloat16])
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
 
 
 @pytest.mark.cuda
