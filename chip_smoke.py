@@ -16,8 +16,13 @@ Phases, each of which raises on a failed check (exit code != 0):
 3. kernels  — the ring's ``reduce_add`` (fp32+fp32->fp32, bf16+fp32->fp32,
               fp32+fp32->bf16 at lengths 1024*k, 1000 and 7, aligned and
               unaligned starts) and the arena's ``pack`` write/read
-              (2 MiB-aligned and odd offsets, fp32 into a bf16 arena)
-              against their plain versions: bitwise, and run to run;
+              (2 MiB-aligned and odd offsets, fp32 into a bf16 arena; on
+              the bulk route 1 element, below, at and one past one stage,
+              a head misaligned alike on both sides and 2^26 + 5 elements;
+              on the vector route sources not congruent mod 16 bytes and
+              casts both ways; each case's route asserted, both routes
+              launched) against their plain versions: bitwise, and run to
+              run;
 4. serve    — the port's ``launch.serve --paged`` path on llama3.2-1b at
               full width with seeded random weights, continuous and static
               policies over a mixed trace; every layer of every decode step
@@ -78,21 +83,26 @@ Phases, each of which raises on a failed check (exit code != 0):
               layers), replicated, ``ring_hier``, chunks 2, the arena on,
               seq 256, global batch 8, bf16 compute over fp32 master
               weights, 3 steps: losses finite, the arena's ``data_ptr()``
-              unchanged, pack write and read launches == segments x steps;
-              then one profiled step;
+              unchanged, pack write and read launches == segments x steps,
+              every one on the bulk route; then one profiled step;
 13. train_ring — two ranks spawned on the one card (gloo, hops staged
               through pinned host memory), full width at 4 layers, 3 steps:
               ``reduce_add`` launches == spans x channel slices x (p-1) x
-              steps, pack launches == segments x steps, recorded sends and
-              bytes == the CommPlan's; one more step through the kernels
+              steps, pack launches == segments x steps (all bulk),
+              recorded sends and bytes == the CommPlan's; one more step
+              through the kernels
               and through the plain versions from the same state and the
               same local gradients: reduced gradients and new parameters
               bitwise equal;
-14. timing  — time per call, by the same four clocks, of ``reduce_add``,
-              pack write and pack read at the main path's largest shapes,
+14. timing  — time per call, by the same four clocks, of ``reduce_add``
+              at the largest hop and of pack write and pack read at the
+              train layout's largest segment, its median segment (inputs
+              rotated past the L2) and over the whole layout (``pack_into``
+              and ``unpack`` of its 82 segments), then the vector route at
+              the largest segment (a source 4 bytes off, a cast into bf16),
               their plain versions and one PyTorch call each
-              (``torch.add``, ``copy_``, ``clone``; yardsticks only),
-              beside the memory-rate bound;
+              (``torch.add``, ``copy_``, ``clone``, ``_foreach_copy_``;
+              yardsticks only), beside the memory-rate bound;
 15. kernels_int8 — the int8 codec's ``quantize``/``dequantize`` and the
               arena's ``write_quant``/``read_dequant`` (blocks 512, 128 and
               96; 1, 7 and about 500,000 blocks; a zero block, and a
@@ -133,6 +143,8 @@ the repository, it exits with an error and prints no result.
 from __future__ import annotations
 
 import argparse
+import functools
+import itertools
 import json
 import math
 import subprocess
@@ -150,6 +162,7 @@ SERVE_ARGS = ["--arch", ARCH, "--paged", "--device", "cuda", "--seed", "0",
               "--policy", "both"]
 # the H100 SXM's published HBM3 rate and fp32 (non-tensor-core) peak
 HBM_BYTES_PER_S = 3.35e12
+L2_BYTES = 50e6                  # the H100's L2 cache
 FP32_FLOPS_PER_S = 67e12
 KERNEL_RTOL = KERNEL_ATOL = 1e-4
 # logits are bf16 of O(1) magnitude (bf16 spacing 2^-7 at 1): a few
@@ -170,7 +183,7 @@ def gpu_line() -> str:
 
 # the port's kernels as the profiler names them
 PORT_KERNELS = ("flash_decode_stats_kernel", "reduce_add_kernel",
-                "write_flat_kernel", "read_flat_kernel", "quantize_kernel",
+                "bulk_copy_kernel", "vector_copy_kernel", "quantize_kernel",
                 "write_quant_kernel", "read_dequant_kernel",
                 "flash_attn_fwd_kernel", "flash_attn_wgmma_kernel")
 
@@ -260,9 +273,20 @@ def set_attn_routes(saved: dict) -> None:
     _kernel_ops()[5].LAUNCHES_BY_ROUTE.update(saved)
 
 
+def pack_routes() -> dict:
+    """pack's launches by route: "bulk" (same type, addresses congruent mod
+    16 bytes) and "vector" (casts and the rest)."""
+    return dict(_kernel_ops()[2].LAUNCHES_BY_ROUTE)
+
+
+def set_pack_routes(saved: dict) -> None:
+    _kernel_ops()[2].LAUNCHES_BY_ROUTE.update(saved)
+
+
 def reset_launch_counters() -> None:
     set_launch_counters(dict.fromkeys(launch_counters(), 0))
     set_attn_routes(dict.fromkeys(attn_routes(), 0))
+    set_pack_routes(dict.fromkeys(pack_routes(), 0))
 
 
 def events_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -677,13 +701,53 @@ def phase_kernels_train(dev) -> dict:
                         f"{diff:.3e})")
                 n_add += 1
     page = 2 * 2**20 // 4                     # fp32 elements per 2 MiB
+    stage = pk.bulk_stage_bytes() // 4        # fp32 elements per bulk stage
     n_pack = 0
-    for arena_dt, off, n, src_dt in (
-            (f32, 0, 3 * page, f32), (f32, 2 * page, page + 1000, f32),
-            (f32, 4 * page + 13, 1000, f32), (bf16, page, 2 * page, f32),
-            (bf16, 3, 777, f32), (bf16, 2 * page, 5000, bf16)):
-        arena = torch.randn(8 * page, generator=gen, device=dev).to(arena_dt)
-        src = torch.randn(n, generator=gen, device=dev).to(src_dt)
+    start = pack_routes()
+    routes = dict(start)
+    # (arena dtype, offset, n, source dtype, source shift in elements, the
+    # write's route); every read takes the bulk route
+    for arena_dt, off, n, src_dt, shift, way in (
+            (f32, 0, 3 * page, f32, 0, "bulk"),
+            (f32, 2 * page, page + 1000, f32, 0, "bulk"),
+            (f32, 4 * page + 13, 1000, f32, 0, "vector"),
+            (bf16, page, 2 * page, f32, 0, "vector"),
+            (bf16, 3, 777, f32, 0, "vector"),
+            (bf16, 2 * page, 5000, bf16, 0, "bulk"),
+            # the bulk route around its stage: 1 element, below one stage,
+            # one stage, one stage + 1; a head misaligned alike on both
+            # sides, every block walking its ring many times to a ragged
+            # tail (256 MiB)
+            (f32, page, 1, f32, 0, "bulk"),
+            (f32, page, stage - 5, f32, 0, "bulk"),
+            (f32, page, stage, f32, 0, "bulk"),
+            (f32, page, stage + 1, f32, 0, "bulk"),
+            (f32, page + 1, 2**26 + 5, f32, 1, "bulk"),
+            (bf16, page + 3, 2**25 + 7, bf16, 3, "bulk"),
+            # the vector route: same type, addresses not congruent mod 16
+            # bytes (source elements 1, 2 and 3 past the destination's
+            # 4-element boundaries, a head shorter than that shift, bf16
+            # congruent mod 8 only); casts both ways, shifted and not;
+            # copies too short for one vector
+            (f32, page, 2**25 + 3, f32, 1, "vector"),
+            (f32, page, 2**25 + 3, f32, 3, "vector"),
+            (f32, page + 2, 2**25 + 5, f32, 0, "vector"),
+            (bf16, page + 4, 2**25 + 3, bf16, 0, "vector"),
+            (bf16, page + 2, 2**25 + 3, bf16, 1, "vector"),
+            (bf16, page + 1, 2**25 + 3, f32, 0, "vector"),
+            (f32, page + 2, 2**25 + 3, bf16, 2, "vector"),
+            (f32, page + 1, 2**25 + 3, bf16, 0, "vector"),
+            (f32, page, 9, f32, 1, "vector"),
+            (bf16, page + 1, 7, f32, 0, "vector")):
+        arena = torch.randn(max(8 * page, off + n), generator=gen,
+                            device=dev).to(arena_dt)
+        src = torch.randn(n + shift, generator=gen,
+                          device=dev).to(src_dt)[shift:]
+        if pk.route(arena[off:off + n], src) != way:
+            raise AssertionError(f"[kernels] pack write {arena_dt} <- "
+                                 f"{src_dt} at {off}+{n}, source +{shift}: "
+                                 f"route {pk.route(arena[off:off + n], src)}"
+                                 f", expected {way}")
         before = arena.clone()
         want = pk_ref.write_flat(before.clone(), src, off)
         got = pk.write_flat(arena, src, off)
@@ -698,26 +762,40 @@ def phase_kernels_train(dev) -> dict:
                                  "place")
         if not (torch.equal(got, want) and torch.equal(got, again)):
             raise AssertionError(f"[kernels] pack write {arena_dt} <- "
-                                 f"{src_dt} at {off}+{n}: not bitwise")
+                                 f"{src_dt} at {off}+{n} ({way}): not "
+                                 f"bitwise")
         if not (torch.equal(reads[0], reads[1])
                 and torch.equal(reads[0], reads[2])):
             raise AssertionError(f"[kernels] pack read at {off}+{n}: not "
                                  f"bitwise")
+        routes[way] += 2
+        routes["bulk"] += 2
         n_pack += 1
+        del arena, src, before, want, got, again, reads
+    if pack_routes() != routes or any(routes[k] == start[k]
+                                      for k in routes):
+        raise AssertionError(f"[kernels] pack launches by route "
+                             f"{pack_routes()}, expected {routes}, both "
+                             f"routes launched")
     log(f"[kernels] reduce_add: {n_add} cases (fp32+fp32->fp32, "
         f"bf16+fp32->fp32, fp32+fp32->bf16; n = 1024*k, 1000, 7; aligned "
         f"and unaligned starts) bitwise equal to the plain version and run "
         f"to run")
     log(f"[kernels] pack write/read: {n_pack} cases (2 MiB-aligned and odd "
-        f"offsets, fp32 and bf16 arenas, fp32 into bf16) bitwise equal to "
-        f"the plain versions and run to run")
+        f"offsets, fp32 and bf16 arenas, casts both ways, sources shifted "
+        f"1-3 elements off, 1 element to 2^26 + 5 around the bulk stage of "
+        f"{stage} fp32 elements) bitwise "
+        f"equal to the plain versions and run to run; launches by route "
+        f"{ {k: routes[k] - start[k] for k in routes} }")
     return {"reduce_add_cases": n_add, "pack_cases": n_pack,
+            "pack_routes": {k: routes[k] - start[k] for k in routes},
             "max_abs_err": err}
 
 
-def phase_train(dev) -> dict:
+def phase_train(dev):
     """One rank, full llama3.2-1b through the train CLI's setup: replicated,
-    ring_hier, chunks 2, the arena on, 3 steps."""
+    ring_hier, chunks 2, the arena on, 3 steps.  Returns its numbers and
+    the arena layout."""
     import gc
 
     import torch
@@ -736,6 +814,7 @@ def phase_train(dev) -> dict:
     reset_launch_counters()
     hist = trainer.run()["history"]
     counts = launch_counters()
+    routes = pack_routes()
     launches = {"write": counts["pack_write"], "read": counts["pack_read"]}
     losses = [h["loss"] for h in hist]
     if not all(math.isfinite(x) for x in losses):
@@ -748,10 +827,14 @@ def phase_train(dev) -> dict:
         raise AssertionError(f"[train] launches {counts}, expected {want} "
                              f"pack writes and reads ({layout.n_segments} "
                              f"segments x {args.steps} steps) and no other")
+    if routes != {"bulk": 2 * want, "vector": 0}:
+        raise AssertionError(f"[train] pack launches by route {routes}, "
+                             f"expected all {2 * want} on the bulk route")
     peak = torch.cuda.max_memory_allocated(dev)
     prof = step_profile(trainer, 0, 1, profiled=True)
     out = {"losses": losses, "step_s": [h["sec"] for h in hist],
-           "launches": launches, "n_segments": layout.n_segments,
+           "launches": launches, "pack_routes": routes,
+           "n_segments": layout.n_segments,
            "n_spans": layout.n_spans, "arena_bytes": layout.total_bytes,
            "arena_pages": layout.n_pages,
            "padding_fraction": layout.padding_fraction,
@@ -763,8 +846,9 @@ def phase_train(dev) -> dict:
         f"{layout.padding_fraction:.4f}), {layout.n_segments} segments: "
         f"losses {', '.join(f'{x:.4f}' for x in losses)}; step wall "
         f"{', '.join(f'{h['sec'] * 1e3:.0f}' for h in hist)} ms; pack "
-        f"launches {launches} == {layout.n_segments} x {args.steps}; arena "
-        f"data_ptr stable; peak {peak / 2**30:.1f} GiB")
+        f"launches {launches} == {layout.n_segments} x {args.steps}, by "
+        f"route {routes}; arena data_ptr stable; peak "
+        f"{peak / 2**30:.1f} GiB")
     log(f"[train] profiled step: wall {prof['step_wall_ms']:.1f} ms, device "
         f"busy {prof['step_device_ms']:.1f} ms, idle share "
         f"{prof['idle_share']:.3f}; the profiler recorded "
@@ -773,7 +857,7 @@ def phase_train(dev) -> dict:
     del run, trainer, step
     gc.collect()
     torch.cuda.empty_cache()
-    return out
+    return out, layout
 
 
 def phase_train_int8(dev, fp32_losses: list[float]) -> dict:
@@ -892,6 +976,7 @@ def _ring_worker(argv: list[str]) -> dict:
         comm.record.reset()
         hist = trainer.run()["history"]
         counts = launch_counters()
+        routes = pack_routes()
         record = comm.record.as_dict()
         steps = args.steps
         segs, spans = layout.n_segments, layout.n_spans
@@ -915,6 +1000,9 @@ def _ring_worker(argv: list[str]) -> dict:
                      else 0,
                      "pack_quant_read": (spans + segs) * steps if quant
                      else 0}
+        # every pack copy of the fp32 arena is a bulk copy
+        predicted_routes = {"bulk": 0 if quant else 2 * segs * steps,
+                            "vector": 0}
         planned = {"sends": step.plan.arena_messages_per_device * steps,
                    "send_bytes": step.plan.arena_bytes_per_device * steps}
         losses = [h["loss"] for h in hist]
@@ -972,6 +1060,7 @@ def _ring_worker(argv: list[str]) -> dict:
         out = {"backend": world.backend, "losses": losses,
                 "step_s": [h["sec"] for h in hist], "counts": counts,
                 "record": record, "predicted": predicted, "planned": planned,
+                "pack_routes": routes, "predicted_routes": predicted_routes,
                 "stable": stable, "bitwise": bitwise,
                 "max_diff": max_diff, "n_spans": spans,
                 "n_segments": segs, "arena_bytes": layout.total_bytes,
@@ -1049,6 +1138,10 @@ def phase_train_ring(argv: list[str], tag: str) -> dict:
         if counts != pred:
             raise AssertionError(f"[{tag}] rank {r} launches {counts} != "
                                  f"predicted {pred}")
+        if out["pack_routes"] != out["predicted_routes"]:
+            raise AssertionError(f"[{tag}] rank {r} pack launches by route "
+                                 f"{out['pack_routes']} != predicted "
+                                 f"{out['predicted_routes']}")
         for key in ("sends", "send_bytes"):
             if rec[key] != out["planned"][key]:
                 raise AssertionError(f"[{tag}] rank {r} recorded {key} "
@@ -1090,8 +1183,9 @@ def phase_train_ring(argv: list[str], tag: str) -> dict:
         f"staging {staging[0]:.2f} / {staging[1]:.2f} s over 3 steps; peak "
         f"{out['peak_bytes'] / 2**30:.1f} GiB")
     log(f"[{tag}] launches == predicted "
-        f"{ {k: v for k, v in out['predicted'].items() if v} }; recorded "
-        f"sends {out['record']['sends']} and bytes "
+        f"{ {k: v for k, v in out['predicted'].items() if v} }, pack by "
+        f"route {out['pack_routes']} on both ranks; recorded sends "
+        f"{out['record']['sends']} and bytes "
         f"{out['record']['send_bytes']} == plan")
     log(f"[{tag}] kernel step == plain-version step, grads and params"
         f"{' and ef' if out['ef_bytes'] else ''} bitwise on both ranks; "
@@ -1111,26 +1205,57 @@ def phase_train_ring(argv: list[str], tag: str) -> dict:
     return {"ranks": ranks, "staging_s": staging}
 
 
-def phase_timing_train(dev, hop_width: int, segment: int) -> dict:
-    """Device time per call of the new kernels at the main path's largest
-    shapes: the ring hop of the largest span (train_ring) and the largest
-    arena segment (train), beside the plain version, one PyTorch call and
-    the bound the card's memory rate sets."""
+def rotating(calls):
+    """One callable that runs the next of ``calls`` at each call, so that a
+    timed run of many calls cycles through their inputs."""
+    it = itertools.cycle(calls)
+    return lambda: next(it)()
+
+
+def phase_timing_train(dev, hop_width: int, layout) -> dict:
+    """Device time per call of the new kernels at the main path's shapes:
+    the ring hop of the largest span (train_ring); the train layout's
+    largest segment, its median segment (inputs rotated so that they do
+    not sit in the 50 MB L2) and the whole layout (one ``pack_into`` and
+    one ``unpack`` of every segment); the vector route at the largest
+    segment (a source 4 bytes off, and a cast into a bf16 arena).  Each
+    beside the plain version, one PyTorch call (``torch.add``, ``copy_``,
+    ``clone``; for the layout ``torch._foreach_copy_`` and the segments'
+    ``clone`` calls) and the bound the card's memory rate sets."""
     import torch
 
     from repro_torch.kernels.pack import ops as pk
     from repro_torch.kernels.pack import ref as pk_ref
     from repro_torch.kernels.reduce_add import ops as ra
     from repro_torch.kernels.reduce_add import ref as ra_ref
+    from repro_torch.mem.arena import CommArena
 
     gen = torch.Generator(device=dev).manual_seed(11)
     a = torch.randn(hop_width, generator=gen, device=dev)
     b = torch.randn(hop_width, generator=gen, device=dev)
     page = 2 * 2**20 // 4
+    sizes = sorted(seg.size for seg in layout.segments)
+    segment, median = sizes[-1], sizes[len(sizes) // 2]
     arena = torch.zeros(segment + 2 * page, device=dev)
     src = torch.randn(segment, generator=gen, device=dev)
     off = page
-    saved = launch_counters()
+    # the median segment: enough (source, arena slot) pairs that one pass
+    # over them moves 4x the L2; slots on 2 MiB pages, as in the arena
+    slot = -(-median // page) * page
+    k = max(2, math.ceil(4 * L2_BYTES / (8 * median)))
+    arena_m = torch.zeros(k * slot, device=dev)
+    srcs_m = [torch.randn(median, generator=gen, device=dev)
+              for _ in range(k)]
+    offs_m = [i * slot for i in range(k)]
+    # the vector route at the largest segment
+    src_off = torch.randn(segment + 1, generator=gen, device=dev)[1:]
+    arena_bf16 = torch.zeros(segment + 2 * page, dtype=torch.bfloat16,
+                             device=dev)
+    saved, saved_routes = launch_counters(), pack_routes()
+
+    def m_calls(fn):
+        return rotating([functools.partial(fn, i) for i in range(k)])
+
     table = {
         "reduce_add": (12 * hop_width, {
             "ms": lambda: ra.add_accum(a, b),
@@ -1144,11 +1269,37 @@ def phase_timing_train(dev, hop_width: int, segment: int) -> dict:
             "ms": lambda: pk.read_flat(arena, off, segment),
             "plain_ms": lambda: pk_ref.read_flat(arena, off, segment),
             "library_ms": lambda: arena[off:off + segment].clone()}),
+        "pack_write_median": (8 * median, {
+            "ms": m_calls(lambda i: pk.write_flat(arena_m, srcs_m[i],
+                                                  offs_m[i])),
+            "plain_ms": m_calls(lambda i: pk_ref.write_flat(
+                arena_m, srcs_m[i], offs_m[i])),
+            "library_ms": m_calls(lambda i: arena_m[
+                offs_m[i]:offs_m[i] + median].copy_(srcs_m[i]))}),
+        "pack_read_median": (8 * median, {
+            "ms": m_calls(lambda i: pk.read_flat(arena_m, offs_m[i],
+                                                 median)),
+            "plain_ms": m_calls(lambda i: pk_ref.read_flat(
+                arena_m, offs_m[i], median)),
+            "library_ms": m_calls(lambda i: arena_m[
+                offs_m[i]:offs_m[i] + median].clone())}),
+        "pack_write_vector": (8 * segment, {
+            "ms": lambda: pk.write_flat(arena, src_off, off),
+            "plain_ms": lambda: pk_ref.write_flat(arena, src_off, off),
+            "library_ms": lambda: arena[off:off + segment].copy_(src_off)}),
+        "pack_write_cast": (6 * segment, {
+            "ms": lambda: pk.write_flat(arena_bf16, src, off),
+            "plain_ms": lambda: pk_ref.write_flat(arena_bf16, src, off),
+            "library_ms": lambda: arena_bf16[off:off + segment].copy_(src)}),
     }
+    routes = {"pack_write": "bulk", "pack_read": "bulk",
+              "pack_write_median": "bulk", "pack_read_median": "bulk",
+              "pack_write_vector": "vector", "pack_write_cast": "vector"}
     out = {}
-    for name, (nbytes, calls) in table.items():
-        times = {k: call_times(f, 10) for k, f in calls.items()}
-        row = {k: t["graph_ms"] for k, t in times.items()}
+
+    def timed(name, nbytes, calls, iters):
+        times = {key: call_times(f, iters) for key, f in calls.items()}
+        row = {key: t["graph_ms"] for key, t in times.items()}
         row["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
         row["bound_by"] = "bytes"
         row["bytes"] = nbytes
@@ -1156,10 +1307,59 @@ def phase_timing_train(dev, hop_width: int, segment: int) -> dict:
         out[name] = row
         log(f"[timing] {name} ({nbytes} B), time per call; bound "
             f"{row['bound_ms'] * 1e3:.2f} us (bytes), i.e. "
-            f"{nbytes / row['ms'] / 1e9:.3f} TB/s achieved by the kernel:")
-        for k, t in times.items():
-            log(times_line(k.removesuffix("_ms"), t))
+            f"{nbytes / row['ms'] / 1e9:.3f} TB/s achieved by the kernel, "
+            f"{row['bound_ms'] / row['ms']:.3f} of the bound, "
+            f"{row['ms'] / row['library_ms']:.3f}x the library call:")
+        for key, t in times.items():
+            log(times_line(key.removesuffix("_ms"), t))
+
+    for name, (nbytes, calls) in table.items():
+        if name in routes:
+            before = pack_routes()
+            calls["ms"]()
+            way = {w: n - before[w] for w, n in pack_routes().items()}
+            if way != {w: int(w == routes[name]) for w in way}:
+                raise AssertionError(f"[timing] {name}: launched {way}, "
+                                     f"expected the {routes[name]} route")
+        timed(name, nbytes, calls, 10)
+    del arena_m, srcs_m, src_off, arena_bf16
+    torch.cuda.empty_cache()
+
+    # the whole layout: one pack_into and one unpack of every segment
+    kern, plain = CommArena(layout), CommArena(layout, impl="plain")
+    buf = kern.zeros(dev)
+    bufs = [None] * layout.n_segments
+    for seg in layout.segments:
+        bufs[seg.bucket] = torch.randn(seg.size, generator=gen, device=dev)
+    views = [buf[seg.offset:seg.offset + seg.size] for seg in layout.segments]
+    ordered = [bufs[seg.bucket] for seg in layout.segments]
+    used = 8 * sum(sizes)
+    before = pack_routes()
+    kern.pack_into(buf, bufs)
+    back = kern.unpack(buf)
+    torch.cuda.synchronize(dev)
+    way = {w: n - before[w] for w, n in pack_routes().items()}
+    if way != {"bulk": 2 * layout.n_segments, "vector": 0}:
+        raise AssertionError(f"[timing] layout: launched {way}, expected "
+                             f"every copy on the bulk route")
+    if not all(torch.equal(x, y) for x, y in zip(back, bufs)):
+        raise AssertionError("[timing] layout: unpack(pack_into) is not "
+                             "the buckets bit for bit")
+    del back
+    timed("pack_into_layout", used, {
+        "ms": lambda: kern.pack_into(buf, bufs),
+        "plain_ms": lambda: plain.pack_into(buf, bufs),
+        "library_ms": lambda: torch._foreach_copy_(views, ordered)}, 3)
+    timed("unpack_layout", used, {
+        "ms": lambda: kern.unpack(buf),
+        "plain_ms": lambda: plain.unpack(buf),
+        "library_ms": lambda: [v.clone() for v in views]}, 3)
+    out["layout"] = {"segments": layout.n_segments, "largest": segment,
+                     "median": median, "median_rotation": k}
     set_launch_counters(saved)         # timing launches are not the path's
+    set_pack_routes(saved_routes)
+    del buf, bufs, views, ordered
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1936,11 +2136,10 @@ def main() -> None:
     prefill = phase_prefill(dev)
     serve_contiguous = phase_serve_contiguous(dev)
     timing_attn = phase_timing_attn(dev)
-    train = phase_train(dev)
+    train, train_layout = phase_train(dev)
     train_ring = phase_train_ring(RING_ARGS, "train_ring")
     ring0 = train_ring["ranks"][0]
-    timing_train = phase_timing_train(dev, ring0["hop_width"],
-                                      train["max_segment"])
+    timing_train = phase_timing_train(dev, ring0["hop_width"], train_layout)
     kernels_int8 = phase_kernels_int8(dev)
     train_int8 = phase_train_int8(dev, train["losses"])
     train_ring_int8 = phase_train_ring(RING_ARGS + INT8_ARGS,

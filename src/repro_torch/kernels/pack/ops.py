@@ -5,8 +5,12 @@ one bucket into and out of the communication arena
 (:class:`repro_torch.mem.arena.CommArena`).  For CUDA tensors they launch
 the hand-written kernels (``csrc/pack.cu``) at any offset and size, casting
 on the write, or raise for what the kernels do not take; unlike the
-reference there is no fallback to the plain version on the device.  For
-CPU tensors they run the plain versions in ``ref.py``.
+reference there is no fallback to the plain version on the device.  Each
+copy takes one of two routes, chosen by :func:`route` before the launch:
+``"bulk"`` (Hopper's bulk-copy engine) for a same-type copy whose two
+addresses are congruent mod 16 bytes, ``"vector"`` otherwise.  A read
+allocates its output congruent to the arena segment, so every read is a
+bulk copy.  For CPU tensors they run the plain versions in ``ref.py``.
 """
 
 from __future__ import annotations
@@ -22,9 +26,13 @@ from repro_torch.kernels.pack import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "pack.cu"
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTE_CODES = {"bulk": 0, "vector": 1}
+# bulk copies move 16-byte granules between 16-byte-aligned addresses
+BULK_ALIGN = 16
 
 # kernel launches by these wrappers (CPU calls are not launches)
 LAUNCHES = {"write": 0, "read": 0}
+LAUNCHES_BY_ROUTE = {"bulk": 0, "vector": 0}
 
 
 @functools.cache
@@ -34,11 +42,50 @@ def _kernel_fns():
     write, read = lib.pack_write, lib.pack_read
     write.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                       ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-                      ctypes.c_void_p]
+                      ctypes.c_int, ctypes.c_void_p]
     read.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                     ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+                     ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+                     ctypes.c_void_p]
     write.restype = read.restype = ctypes.c_int
     return write, read
+
+
+@functools.cache
+def bulk_stage_bytes() -> int:
+    """Bytes per shared-memory stage of the bulk route (its chunk), read
+    from the built kernel."""
+    fn = _build.load(SOURCE).pack_bulk_stage_bytes
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn()
+
+
+def route(dst: torch.Tensor, src: torch.Tensor) -> str:
+    """The kernel a copy of ``src`` into ``dst`` (the arena segment's view
+    for a write, the output for a read) launches for CUDA tensors:
+    ``"bulk"`` when both have one dtype and their addresses
+    (``data_ptr()``, a view's offset included) are congruent mod 16 bytes,
+    else ``"vector"``.  It reads only dtypes and addresses, so CPU tensors
+    are routed as the same layout on the card would be; other devices, or
+    tensors on two devices, raise."""
+    devs = {dst.device, src.device}
+    if len(devs) != 1 or dst.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"route takes tensors on one cuda or cpu device, "
+                         f"got {sorted(map(str, devs))}")
+    if dst.dtype == src.dtype \
+            and (dst.data_ptr() - src.data_ptr()) % BULK_ALIGN == 0:
+        return "bulk"
+    return "vector"
+
+
+def _empty_congruent(size: int, like: torch.Tensor) -> torch.Tensor:
+    """An uninitialised contiguous ``(size,)`` tensor of ``like``'s dtype and
+    device whose address is congruent to ``like.data_ptr()`` mod 16 bytes:
+    a view into up to 16 bytes more."""
+    item = like.element_size()
+    buf = torch.empty((size + BULK_ALIGN // item - 1,), dtype=like.dtype,
+                      device=like.device)
+    shift = (like.data_ptr() - buf.data_ptr()) % BULK_ALIGN // item
+    return buf[shift:shift + size]
 
 
 def _check_arena(arena: torch.Tensor, offset: int, size: int) -> None:
@@ -58,6 +105,15 @@ def _kernel_dtype(t: torch.Tensor, name: str) -> int:
     return DTYPE_CODES[t.dtype]
 
 
+def _launched(what: str, way: str, err: int, offset: int, n: int) -> None:
+    if err:
+        raise RuntimeError(f"pack {what} kernel launch failed on the {way} "
+                           f"route: CUDA error {err} at offset {offset}, "
+                           f"n={n}")
+    LAUNCHES[what] += 1
+    LAUNCHES_BY_ROUTE[way] += 1
+
+
 def write_flat(arena: torch.Tensor, src: torch.Tensor,
                offset: int) -> torch.Tensor:
     """Writes ``src`` (cast to the arena dtype) into ``arena`` at element
@@ -72,16 +128,15 @@ def write_flat(arena: torch.Tensor, src: torch.Tensor,
     if arena.device.type != "cuda":
         raise ValueError(f"write_flat runs on cuda or cpu, got {arena.device}")
     adt, sdt = _kernel_dtype(arena, "arena"), _kernel_dtype(src, "source")
-    if src.numel() == 0:
+    n = src.numel()
+    if n == 0:
         return arena
+    way = route(arena[offset:offset + n], src)
     with torch.cuda.device(arena.device):
         stream = torch.cuda.current_stream(arena.device).cuda_stream
         err = _kernel_fns()[0](arena.data_ptr(), adt, src.data_ptr(), sdt,
-                               offset, src.numel(), stream)
-    if err:
-        raise RuntimeError(f"pack write kernel launch failed: CUDA error "
-                           f"{err} at offset {offset}, n={src.numel()}")
-    LAUNCHES["write"] += 1
+                               offset, n, ROUTE_CODES[way], stream)
+    _launched("write", way, err, offset, n)
     return arena
 
 
@@ -93,15 +148,14 @@ def read_flat(arena: torch.Tensor, offset: int, size: int) -> torch.Tensor:
     if arena.device.type != "cuda":
         raise ValueError(f"read_flat runs on cuda or cpu, got {arena.device}")
     dt = _kernel_dtype(arena, "arena")
-    out = torch.empty((size,), dtype=arena.dtype, device=arena.device)
+    segment = arena[offset:offset + size]
+    out = _empty_congruent(size, segment)
     if size == 0:
         return out
+    way = route(out, segment)
     with torch.cuda.device(arena.device):
         stream = torch.cuda.current_stream(arena.device).cuda_stream
         err = _kernel_fns()[1](arena.data_ptr(), dt, offset, size,
-                               out.data_ptr(), stream)
-    if err:
-        raise RuntimeError(f"pack read kernel launch failed: CUDA error "
-                           f"{err} at offset {offset}, n={size}")
-    LAUNCHES["read"] += 1
+                               out.data_ptr(), ROUTE_CODES[way], stream)
+    _launched("read", way, err, offset, size)
     return out

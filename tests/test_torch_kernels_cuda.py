@@ -106,24 +106,62 @@ def test_reduce_add_kernel_matches_plain_version_bitwise(cuda_device, n, start,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arena_dtype,offset,size,src_dtype", [
-    (torch.float32, 0, 3 * 2**19, torch.float32),      # 2 MiB-aligned
-    (torch.float32, 2**19 + 13, 1000, torch.float32),  # odd offset
-    (torch.bfloat16, 2**19, 5000, torch.float32),      # fp32 into bf16
-    (torch.bfloat16, 3, 777, torch.bfloat16)])
+@pytest.mark.parametrize("arena_dtype,offset,size,src_dtype,src_shift,way", [
+    (torch.float32, 0, 3 * 2**19, torch.float32, 0, "bulk"),  # 2 MiB-aligned
+    (torch.float32, 2**19 + 13, 1000, torch.float32, 0, "vector"),  # odd
+    (torch.bfloat16, 2**19, 5000, torch.float32, 0, "vector"),  # fp32 -> bf16
+    (torch.bfloat16, 3, 777, torch.bfloat16, 0, "vector"),
+    # bulk route: sizes in the bulk kernel's stages (bytes per stage / 4
+    # fp32 elements), a head misaligned alike on both sides, many stages
+    # on every block with a ragged tail
+    (torch.float32, 2**19, 1, torch.float32, 0, "bulk"),
+    (torch.float32, 2**19, (1, -5), torch.float32, 0, "bulk"),
+    (torch.float32, 2**19, (1, 0), torch.float32, 0, "bulk"),
+    (torch.float32, 2**19, (1, 1), torch.float32, 0, "bulk"),
+    (torch.float32, 2**19 + 1, 37 * 2**19 + 5, torch.float32, 1, "bulk"),
+    (torch.bfloat16, 2**19 + 3, 2**20 + 7, torch.bfloat16, 3, "bulk"),
+    # vector route: same type, addresses not congruent mod 16 (the source
+    # 1-3 elements past the destination's 4-element boundaries, a head
+    # shorter than that); casts, shifted and not; too short for a vector
+    (torch.float32, 2**19, 2**20 + 3, torch.float32, 1, "vector"),
+    (torch.float32, 2**19, 2**20 + 3, torch.float32, 3, "vector"),
+    (torch.float32, 2**19 + 2, 2**20 + 5, torch.float32, 0, "vector"),
+    (torch.bfloat16, 2**19 + 1, 2**20 + 3, torch.bfloat16, 0, "vector"),
+    (torch.bfloat16, 2**19 + 2, 2**20 + 3, torch.bfloat16, 1, "vector"),
+    (torch.bfloat16, 2**19 + 4, 2**20 + 3, torch.bfloat16, 0, "vector"),
+    (torch.float32, 2**19 + 2, 2**20 + 3, torch.bfloat16, 2, "vector"),
+    (torch.float32, 2**19 + 1, 2**20 + 3, torch.bfloat16, 0, "vector"),
+    (torch.bfloat16, 2**19 + 1, 2**20 + 3, torch.float32, 0, "vector"),
+    (torch.float32, 2**19, 9, torch.float32, 1, "vector"),
+    (torch.bfloat16, 2**19 + 1, 7, torch.float32, 0, "vector")])
 def test_pack_kernels_match_plain_versions_bitwise(cuda_device, arena_dtype,
-                                                    offset, size, src_dtype):
+                                                    offset, size, src_dtype,
+                                                    src_shift, way):
+    if isinstance(size, tuple):       # (stages, elements) of the kernel's
+        size = size[0] * pk.bulk_stage_bytes() // 4 + size[1]
     gen = torch.Generator(device=cuda_device).manual_seed(offset + size)
-    arena = torch.randn(8 * 2**19, generator=gen,
+    arena = torch.randn(max(8 * 2**19, offset + size), generator=gen,
                         device=cuda_device).to(arena_dtype)
-    src = torch.randn(size, generator=gen, device=cuda_device).to(src_dtype)
+    src = torch.randn(size + src_shift, generator=gen,
+                      device=cuda_device).to(src_dtype)[src_shift:]
+    assert pk.route(arena[offset:offset + size], src) == way
     want = pk_ref.write_flat(arena.clone(), src, offset)
+    second = arena.clone()
     before = dict(pk.LAUNCHES)
+    routes = dict(pk.LAUNCHES_BY_ROUTE)
     got = pk.write_flat(arena, src, offset)
+    pk.write_flat(second, src, offset)
     read = pk.read_flat(got, offset, size)
+    again = pk.read_flat(got, offset, size)
     torch.cuda.synchronize(cuda_device)
     assert got.data_ptr() == arena.data_ptr()          # in place
-    assert pk.LAUNCHES == {"write": before["write"] + 1,
-                           "read": before["read"] + 1}
+    assert pk.LAUNCHES == {"write": before["write"] + 2,
+                           "read": before["read"] + 2}
+    # every read is a bulk copy: its output is allocated congruent
+    routes[way] += 2
+    routes["bulk"] += 2
+    assert pk.LAUNCHES_BY_ROUTE == routes
     assert torch.equal(got, want)
+    assert torch.equal(second, want)                   # run to run
     assert torch.equal(read, pk_ref.read_flat(want, offset, size))
+    assert torch.equal(read, again)
