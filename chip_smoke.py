@@ -12,9 +12,13 @@ Phases, each of which raises on a failed check (exit code != 0):
 2. kernel   — the flash-decode kernel against its plain PyTorch version on
               card inputs at the serve shape and around it (fp32
               statistics, rtol/atol 1e-4: only the summation order
-              differs), and run-to-run bitwise;
+              differs), and run-to-run bitwise: K/V expanded and
+              unexpanded (8 and 1 kv heads for 32 q heads), L from 1 to
+              16384 (the key axis split over a cluster), key runs with no
+              valid position across the cluster's splits, rows with none;
 3. kernels  — the ring's ``reduce_add`` (fp32+fp32->fp32, bf16+fp32->fp32,
-              fp32+fp32->bf16 at lengths 1024*k, 1000 and 7, aligned and
+              fp32+fp32->bf16 at lengths 1024*k, 1000 and 7, one tile of
+              the kernel and one tile +- 1, and 2^26 + 5, aligned and
               unaligned starts) and the arena's ``pack`` write/read
               (2 MiB-aligned and odd offsets, fp32 into a bf16 arena; on
               the bulk route 1 element, below, at and one past one stage,
@@ -26,18 +30,24 @@ Phases, each of which raises on a failed check (exit code != 0):
 4. serve    — the port's ``launch.serve --paged`` path on llama3.2-1b at
               full width with seeded random weights, continuous and static
               policies over a mixed trace; every layer of every decode step
-              must launch the kernel (launches == steps x 16) and every
-              logit must be finite;
+              must launch the kernel (launches == steps x 16), hand it the
+              gathered K/V unexpanded (8 kv heads for 32 q heads), and
+              every logit must be finite;
 5. profile  — one full-batch decode step under ``torch.profiler``: host
-              wall, device busy time and the top device activities;
+              wall, device busy time, the top device activities and the
+              ``index_select`` kernels per step (the K/V expansion the
+              engine no longer makes);
 6. engines  — a kernel engine and a plain-attention engine, same weights,
               same 20 tokens: logits within bf16 tolerance;
 7. timing   — time per call of the flash-decode kernel, its plain version
-              and PyTorch's ``scaled_dot_product_attention`` (yardstick
-              only) at the serve shape, beside the bound the card's memory
-              rate sets: CUDA events around replays of a CUDA graph of many
-              calls (reported), printed beside eager CUDA events, the host
-              clock and the profiler's device activities;
+              and PyTorch's ``scaled_dot_product_attention`` (``enable_gqa``;
+              yardstick only) at the serve path's shape (8 kv heads), at
+              the expanded shape the engine passed before (32 kv heads) and
+              at long context (L = 16384, K/V past the L2), beside the
+              bound the card's memory rate sets: CUDA events around
+              replays of a CUDA graph of many calls (reported), printed
+              beside eager CUDA events, the host clock and the profiler's
+              device activities;
 8. kernels_attn — the flash-attention kernels against their plain version
               over S in {1, 7, 64, 127, 128, 129, 200, 255, 256, 257, 1000,
               4096} x (Hq, Hkv) in {(32, 8), (4, 2), (8, 1)} x D in {16, 32,
@@ -95,7 +105,8 @@ Phases, each of which raises on a failed check (exit code != 0):
               same local gradients: reduced gradients and new parameters
               bitwise equal;
 14. timing  — time per call, by the same four clocks, of ``reduce_add``
-              at the largest hop and of pack write and pack read at the
+              at the largest hop and at the median hop (inputs rotated past
+              the L2, checked bitwise) and of pack write and pack read at the
               train layout's largest segment, its median segment (inputs
               rotated past the L2) and over the whole layout (``pack_into``
               and ``unpack`` of its 82 segments), then the vector route at
@@ -422,21 +433,48 @@ def phase_kernel(dev) -> float:
 
     from repro_torch.kernels.flash_decode import ops, ref
 
-    cases = [  # name, d, kv dtype, q dtype, Hq, Hkv, L, all-invalid row
-        ("serve", 64, torch.bfloat16, torch.bfloat16, 32, 32, 208, False),
-        ("gqa", 64, torch.bfloat16, torch.bfloat16, 32, 8, 208, False),
-        ("one_tile", 64, torch.bfloat16, torch.bfloat16, 32, 32, 80, False),
-        ("fp32_cache", 64, torch.float32, torch.float32, 32, 32, 208, False),
-        ("no_valid_row", 64, torch.bfloat16, torch.bfloat16, 32, 32, 208,
-         True),
-        ("d16", 16, torch.bfloat16, torch.float32, 16, 2, 200, False),
-        ("d128", 128, torch.float32, torch.bfloat16, 8, 2, 131, False),
+    bf16, f32 = torch.bfloat16, torch.float32
+    # name, d, kv dtype, q dtype, Hq, Hkv, L, which rows have invalid runs:
+    # "row" a row with no valid key, "splits" runs across the cluster's
+    # splits (a whole split, all but one key, one boundary) and a row with
+    # no valid key
+    cases = [
+        ("serve", 64, bf16, bf16, 32, 32, 208, None),
+        ("gqa", 64, bf16, bf16, 32, 8, 208, None),
+        ("one_tile", 64, bf16, bf16, 32, 32, 80, None),
+        ("fp32_cache", 64, f32, f32, 32, 32, 208, None),
+        ("no_valid_row", 64, bf16, bf16, 32, 32, 208, "row"),
+        ("d16", 16, bf16, f32, 16, 2, 200, None),
+        ("d128", 128, f32, bf16, 8, 2, 131, None),
+        ("long_gqa", 64, bf16, bf16, 32, 8, 16384, None),
+        ("long_invalid", 64, bf16, bf16, 32, 8, 16384, "splits"),
+        ("long_one_kv", 64, bf16, bf16, 32, 1, 16384, None),
+        ("one_key", 64, bf16, bf16, 32, 8, 1, None),
+        ("one_key_one_kv", 64, bf16, bf16, 32, 1, 1, "row"),
+        ("one_kv", 64, bf16, bf16, 32, 1, 208, None),
     ]
+    sms = ops._sm_count(dev.index or 0)
     worst = 0.0
     for i, (name, d, dt, qdt, hq, hkv, length, empty) in enumerate(cases):
         q, k, v, valid = kernel_inputs(dev, i, 4, hq, hkv, length, d, dt, qdt)
-        if empty:
+        shape = ops.launch_shape(4, hq, hkv, length, d, k.element_size(),
+                                 sms)
+        if empty == "row":
             valid[2] = False
+        elif empty == "splits":
+            splits = shape[4]
+            if splits < 3:
+                raise AssertionError(f"[kernel] {name}: a cluster of "
+                                     f"{splits}, expected 3 or more")
+            tile = ops.TILE_BYTES // (d * k.element_size())
+            tiles = -(-length // tile)
+            cut = [tiles * c // splits * tile for c in range(1, splits)]
+            valid[:] = True
+            valid[0, cut[0] - 100:cut[1] + 100] = False
+            valid[1, :cut[-1] + 7] = False
+            valid[1, cut[-1] + 8:] = False
+            valid[2] = False
+            valid[3, cut[0] - 1:cut[0] + 1] = False
         got = ops.flash_decode_stats(q, k, v, valid)
         again = ops.flash_decode_stats(q, k, v, valid)
         g = hq // hkv
@@ -455,9 +493,14 @@ def phase_kernel(dev) -> float:
             err = max(err, (x - w).abs().max().item())
         if empty and not torch.all(got[1][2] == ref.NEG_INF):
             raise AssertionError("[kernel] the all-invalid row lost NEG_INF")
+        if empty == "splits" and not torch.all(got[1][:2] > ref.NEG_INF):
+            raise AssertionError(f"[kernel] {name}: an all-invalid split "
+                                 f"was not cleared")
         worst = max(worst, err)
-        log(f"[kernel] {name:12s} d={d} {str(dt)[6:]:8s} Hq={hq} Hkv={hkv} "
-            f"L={length}: max |kernel - plain| {err:.3e}, bitwise rerun ok")
+        log(f"[kernel] {name:14s} d={d} {str(dt)[6:]:8s} Hq={hq} Hkv={hkv} "
+            f"L={length} (route, heads per warp, head warps, head chunks, "
+            f"cluster) {shape}: max |kernel - plain| {err:.3e}, bitwise "
+            f"rerun ok")
     return worst
 
 
@@ -467,8 +510,21 @@ def phase_serve(dev):
     from repro_torch.kernels.flash_decode import ops
     from repro_torch.launch import serve
 
+    # the K/V head counts the engine hands the kernel: its step looks the
+    # wrapper up when it is built
+    kv_heads = set()
+    wrapper = ops.flash_decode_stats
+
+    def seen(q, k, v, valid):
+        kv_heads.add((q.shape[1], k.shape[1], v.shape[1]))
+        return wrapper(q, k, v, valid)
+
     args = serve.parser().parse_args(SERVE_ARGS)
-    run = serve.setup_paged(args)
+    ops.flash_decode_stats = seen
+    try:
+        run = serve.setup_paged(args)
+    finally:
+        ops.flash_decode_stats = wrapper
     cfg = run.model.cfg
     a = cfg.attn
     if (cfg.num_layers, cfg.d_model, a.num_heads, a.num_kv_heads, a.head_dim,
@@ -503,6 +559,10 @@ def phase_serve(dev):
     if launches != steps * cfg.num_layers:
         raise AssertionError(f"[serve] {launches} kernel launches for {steps} "
                              f"steps x {cfg.num_layers} layers")
+    if kv_heads != {(a.num_heads, a.num_kv_heads, a.num_kv_heads)}:
+        raise AssertionError(f"[serve] the kernel was handed (q, k, v) heads "
+                             f"{sorted(kv_heads)}, expected K/V unexpanded "
+                             f"at {a.num_kv_heads} kv heads")
     if not bool(finite):
         raise AssertionError("[serve] non-finite logits")
     for policy, r in results.items():
@@ -510,9 +570,11 @@ def phase_serve(dev):
             f"tokens, {r['tokens_per_s']:.1f} tok/s, arena "
             f"{plan.total_bytes} B ({plan.n_kv_pages} pages)")
     log(f"[serve] kernel launches {launches} == {steps} steps x "
-        f"{cfg.num_layers} layers")
+        f"{cfg.num_layers} layers, every one handed K/V unexpanded: (q, k, "
+        f"v) heads {sorted(kv_heads)}")
     return {"launches": launches, "steps": steps, "policies": results,
-            "arena_bytes": plan.total_bytes}, run
+            "arena_bytes": plan.total_bytes,
+            "kv_heads": sorted(kv_heads)}, run
 
 
 def phase_engines(dev, run) -> float:
@@ -545,41 +607,67 @@ def phase_engines(dev, run) -> float:
 
 
 def phase_timing(dev) -> dict:
+    """Time per call of the flash-decode kernel, its plain version and
+    PyTorch's ``scaled_dot_product_attention`` (``enable_gqa``, a boolean
+    mask; yardstick only) at the serve path's shape (K/V unexpanded, 8 kv
+    heads), at the shape the engine passed before it handed the kernel
+    unexpanded K/V (32 kv heads), and at long context (L = 16384, K/V
+    past the L2), beside the bound the card's memory rate sets.  Returns
+    the serve path's row, with the others under ``"rows"``."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_decode import ops, ref
 
-    b, hq, length, d = 4, 32, 208, 64
-    q, k, v, valid = kernel_inputs(dev, 99, b, hq, hq, length, d,
-                                   torch.bfloat16, torch.bfloat16)
-    mask = valid[:, None, None, :]
-    calls = {
-        "kernel": lambda: ops.flash_decode_stats(q, k, v, valid),
-        "plain": lambda: ref.decode_stats(q, k, v, valid),
-        "library": lambda: F.scaled_dot_product_attention(q, k, v,
-                                                          attn_mask=mask),
-    }
+    b, hq, d = 4, 32, 64
+    rows = {}
     launches = ops.LAUNCHES
-    times = {n: call_times(f, 200) for n, f in calls.items()}
+    for name, hkv, length, iters in (("serve_gqa", 8, 208, 200),
+                                     ("serve_expanded", 32, 208, 200),
+                                     ("long_gqa", 8, 16384, 20)):
+        q, k, v, valid = kernel_inputs(dev, 99, b, hq, hkv, length, d,
+                                       torch.bfloat16, torch.bfloat16)
+        if length > 208:
+            valid[:] = True            # a long cache, every position written
+        mask = valid[:, None, None, :]
+        calls = {
+            "kernel": lambda: ops.flash_decode_stats(q, k, v, valid),
+            "plain": lambda: ref.decode_stats(q, *ops._expand_gqa(q, k, v),
+                                              valid),
+            "library": lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True),
+        }
+        times = {n: call_times(f, iters) for n, f in calls.items()}
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (q, k, v, valid)) + b * hq * (d + 2) * 4
+        flops = 4 * b * hq * length * d    # q.k and p.v, multiply-add = 2
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOPS_PER_S * 1e3
+        row = {"ms": times["kernel"]["graph_ms"],
+               "plain_ms": times["plain"]["graph_ms"],
+               "library_ms": times["library"]["graph_ms"],
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": nbytes,
+               "launch_shape": ops.launch_shape(
+                   b, hq, hkv, length, d, 2, ops._sm_count(dev.index or 0)),
+               "times": times}
+        rows[name] = row
+        where = ("L2-resident" if nbytes < L2_BYTES else
+                 "K/V past the L2")
+        log(f"[timing] flash_decode {name}: B={b} Hq={hq} Hkv={hkv} "
+            f"L={length} D={d} bf16 ({nbytes} B, {where}), cluster of "
+            f"{row['launch_shape'][4]}; time per call; bound "
+            f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}), "
+            f"{row['bound_ms'] / row['ms']:.3f} of it, "
+            f"{row['ms'] / row['library_ms']:.3f}x SDPA:")
+        for n, t in times.items():
+            log(times_line(n, t))
+        del q, k, v, valid, mask
     ops.LAUNCHES = launches            # timing launches are not the path's
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, valid)) \
-        + b * hq * (d + 2) * 4         # acc, m, l written once
-    flops = 4 * b * hq * length * d    # q.k and p.v, multiply-add = 2
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
-    out = {"ms": times["kernel"]["graph_ms"],
-           "plain_ms": times["plain"]["graph_ms"],
-           "library_ms": times["library"]["graph_ms"],
-           "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "times": times}
-    log(f"[timing] flash_decode B={b} Hq=Hkv={hq} L={length} D={d} bf16 "
-        f"({nbytes} B, L2-resident), time per call; bound "
-        f"{out['bound_ms'] * 1e3:.2f} us ({out['bound_by']}):")
-    for n, t in times.items():
-        log(times_line(n, t))
-    return out
+    return {**{k: rows["serve_gqa"][k] for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        "rows": rows}
 
 
 def phase_profile(dev, run) -> dict:
@@ -603,14 +691,21 @@ def phase_profile(dev, run) -> dict:
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     seen = port_kernels_seen(counts)
+    # the K/V expansion before the kernel (PERF.md section 5): index_select
+    select = {n: ms for n, ms in by_name.items() if "indexSelect" in n}
+    n_select = sum(c for n, c in counts.items() if "indexSelect" in n) / 10
     log(f"[profile] decode step, {run.plan.max_seqs} live slots: wall "
         f"{wall:.2f} ms, device busy {busy:.3f} ms, idle share "
         f"{1 - busy / wall:.3f}; the profiler recorded {seen} of the "
         f"{launched} flash-decode launches")
     for name, ms in top:
         log(f"[profile]   {ms * 1e3:9.1f} us/step  {name[:90]}")
+    log(f"[profile] index_select kernels: {n_select:.1f} per step, "
+        f"{sum(select.values()) * 1e3:.1f} us/step")
     return {"step_wall_ms": wall, "step_device_ms": busy,
             "idle_share": 1 - busy / wall,
+            "index_select_per_step": n_select,
+            "index_select_ms_per_step": sum(select.values()),
             "port_kernels": {"launched": launched, "recorded": seen},
             "top_device_ms_per_step": dict(top)}
 
@@ -681,7 +776,10 @@ def phase_kernels_train(dev) -> dict:
     f32, bf16 = torch.float32, torch.bfloat16
     err = {"reduce_add": 0.0, "pack_write": 0.0, "pack_read": 0.0}
     n_add = 0
-    for n in (1024, 37 * 1024, 4096 * 1024, 1000, 7):
+    # the kernel's tile is 4096 elements (8192 with a bf16 operand): one
+    # tile, one tile +- 1, and many tiles with a ragged tail
+    tiles = (4095, 4096, 4097, 8191, 8192, 8193, 2**26 + 5)
+    for n in (1024, 37 * 1024, 4096 * 1024, 1000, 7) + tiles:
         for at, bt, ot in ((f32, f32, f32), (bf16, f32, f32),
                            (f32, f32, bf16)):
             a = torch.randn(n + 1, generator=gen, device=dev).to(at)
@@ -778,9 +876,10 @@ def phase_kernels_train(dev) -> dict:
                              f"{pack_routes()}, expected {routes}, both "
                              f"routes launched")
     log(f"[kernels] reduce_add: {n_add} cases (fp32+fp32->fp32, "
-        f"bf16+fp32->fp32, fp32+fp32->bf16; n = 1024*k, 1000, 7; aligned "
-        f"and unaligned starts) bitwise equal to the plain version and run "
-        f"to run")
+        f"bf16+fp32->fp32, fp32+fp32->bf16; n = 1024*k, 1000, 7, one tile "
+        f"and one tile +- 1 (4096 and 8192), 2^26 + 5; aligned and "
+        f"unaligned starts) bitwise equal to the plain version and run to "
+        f"run")
     log(f"[kernels] pack write/read: {n_pack} cases (2 MiB-aligned and odd "
         f"offsets, fp32 and bf16 arenas, casts both ways, sources shifted "
         f"1-3 elements off, 1 element to 2^26 + 5 around the bulk stage of "
@@ -1069,6 +1168,11 @@ def _ring_worker(argv: list[str]) -> dict:
                 "ef_bytes": (layout.payload_elems * 4 if quant else 0),
                 "hop_width": max(sp.size for sp in layout.spans) // p
                 // (2 * step.cfg.comm.chunks),
+                # every reduce-scatter hop's width, one step's worth
+                "hop_widths": sorted(
+                    w for sp in layout.spans
+                    for _, w, _ in _channel_slices(sp.size // p,
+                                                   comm.transport.ring_cfg)),
                 "params": run.model.param_count(),
                 "peak_bytes": torch.cuda.max_memory_allocated(world.device),
                 "profile": prof, "bucket": None}
@@ -1212,9 +1316,10 @@ def rotating(calls):
     return lambda: next(it)()
 
 
-def phase_timing_train(dev, hop_width: int, layout) -> dict:
+def phase_timing_train(dev, hop_widths: list[int], layout) -> dict:
     """Device time per call of the new kernels at the main path's shapes:
-    the ring hop of the largest span (train_ring); the train layout's
+    the ring hop of the largest span and the median hop (train_ring; inputs
+    rotated past the L2); the train layout's
     largest segment, its median segment (inputs rotated so that they do
     not sit in the 50 MB L2) and the whole layout (one ``pack_into`` and
     one ``unpack`` of every segment); the vector route at the largest
@@ -1231,8 +1336,15 @@ def phase_timing_train(dev, hop_width: int, layout) -> dict:
     from repro_torch.mem.arena import CommArena
 
     gen = torch.Generator(device=dev).manual_seed(11)
+    hop_width, hop_median = hop_widths[-1], hop_widths[len(hop_widths) // 2]
     a = torch.randn(hop_width, generator=gen, device=dev)
     b = torch.randn(hop_width, generator=gen, device=dev)
+    # the median hop: enough input pairs that one pass over them moves 4x
+    # the L2
+    k_add = max(2, math.ceil(4 * L2_BYTES / (12 * hop_median)))
+    adds = [(torch.randn(hop_median, generator=gen, device=dev),
+             torch.randn(hop_median, generator=gen, device=dev))
+            for _ in range(k_add)]
     page = 2 * 2**20 // 4
     sizes = sorted(seg.size for seg in layout.segments)
     segment, median = sizes[-1], sizes[len(sizes) // 2]
@@ -1253,14 +1365,18 @@ def phase_timing_train(dev, hop_width: int, layout) -> dict:
                              device=dev)
     saved, saved_routes = launch_counters(), pack_routes()
 
-    def m_calls(fn):
-        return rotating([functools.partial(fn, i) for i in range(k)])
+    def m_calls(fn, n=k):
+        return rotating([functools.partial(fn, i) for i in range(n)])
 
     table = {
         "reduce_add": (12 * hop_width, {
             "ms": lambda: ra.add_accum(a, b),
             "plain_ms": lambda: ra_ref.add_accum(a, b),
             "library_ms": lambda: torch.add(a, b)}),
+        "reduce_add_median": (12 * hop_median, {
+            "ms": m_calls(lambda i: ra.add_accum(*adds[i]), k_add),
+            "plain_ms": m_calls(lambda i: ra_ref.add_accum(*adds[i]), k_add),
+            "library_ms": m_calls(lambda i: torch.add(*adds[i]), k_add)}),
         "pack_write": (8 * segment, {
             "ms": lambda: pk.write_flat(arena, src, off),
             "plain_ms": lambda: pk_ref.write_flat(arena, src, off),
@@ -1322,7 +1438,12 @@ def phase_timing_train(dev, hop_width: int, layout) -> dict:
                 raise AssertionError(f"[timing] {name}: launched {way}, "
                                      f"expected the {routes[name]} route")
         timed(name, nbytes, calls, 10)
-    del arena_m, srcs_m, src_off, arena_bf16
+    for i in range(k_add):             # bitwise at the median hop too
+        if not torch.equal(ra.add_accum(*adds[i]),
+                           ra_ref.add_accum(*adds[i])):
+            raise AssertionError("[timing] reduce_add at the median hop is "
+                                 "not bitwise")
+    del arena_m, srcs_m, src_off, arena_bf16, adds
     torch.cuda.empty_cache()
 
     # the whole layout: one pack_into and one unpack of every segment
@@ -1356,6 +1477,8 @@ def phase_timing_train(dev, hop_width: int, layout) -> dict:
         "library_ms": lambda: [v.clone() for v in views]}, 3)
     out["layout"] = {"segments": layout.n_segments, "largest": segment,
                      "median": median, "median_rotation": k}
+    out["hops"] = {"largest": hop_width, "median": hop_median,
+                   "median_rotation": k_add, "per_step": len(hop_widths)}
     set_launch_counters(saved)         # timing launches are not the path's
     set_pack_routes(saved_routes)
     del buf, bufs, views, ordered
@@ -2130,7 +2253,7 @@ def main() -> None:
     engine_err = phase_engines(dev, run)
     del run
     timing = phase_timing(dev)
-    fd_times = timing.pop("times")
+    fd_times = timing.pop("rows")
     torch.cuda.empty_cache()
     kernels_attn = phase_kernels_attn(dev)
     prefill = phase_prefill(dev)
@@ -2139,7 +2262,8 @@ def main() -> None:
     train, train_layout = phase_train(dev)
     train_ring = phase_train_ring(RING_ARGS, "train_ring")
     ring0 = train_ring["ranks"][0]
-    timing_train = phase_timing_train(dev, ring0["hop_width"], train_layout)
+    timing_train = phase_timing_train(dev, ring0["hop_widths"],
+                                      train_layout)
     kernels_int8 = phase_kernels_int8(dev)
     train_int8 = phase_train_int8(dev, train["losses"])
     train_ring_int8 = phase_train_ring(RING_ARGS + INT8_ARGS,

@@ -7,6 +7,11 @@ launches the hand-written kernel (``csrc/flash_decode.cu``) or raises for a
 shape the kernel does not take; unlike the reference there is no fallback to
 the plain version on the device.  For CPU tensors it runs the plain
 version, ``ref.decode_stats``.
+
+The kernel's launch shape is chosen here, before the launch, by
+:func:`launch_shape`: its route (bf16 K/V on the tensor cores, fp32 K/V in
+SIMT), how the q heads of a GQA group spread over a CTA, and how many CTAs
+of a thread-block cluster split the key axis.
 """
 
 from __future__ import annotations
@@ -23,6 +28,15 @@ from repro_torch.kernels.flash_decode import ref
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_decode.cu"
 HEAD_DIMS = (16, 64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
+# the kernel's shape (csrc/flash_decode.cu, checked against the built
+# kernel's flash_decode_shape when it is loaded): bytes of K (and of V) in
+# one shared-memory tile, q heads a CTA of the "mma" route scores (an mma
+# tile's rows), and the portable cluster size limit; the routes' codes in
+# the C call
+TILE_BYTES = 8192
+MMA_HEADS = 16
+MAX_CLUSTER = 8
+ROUTES = {"mma": 0, "simt": 1}
 
 # kernel launches by this wrapper (CPU calls are not launches)
 LAUNCHES = 0
@@ -39,12 +53,61 @@ def _expand_gqa(q, k, v):
 @functools.cache
 def _kernel_fn():
     """The bound C entry point, built and loaded once per process (the
-    launch path then does no file-system or library lookups)."""
-    fn = _build.load(SOURCE).flash_decode_stats
+    launch path then does no file-system or library lookups).  Raises if
+    the kernel's shape is not the one :func:`launch_shape` assumes."""
+    lib = _build.load(SOURCE)
+    shape = (ctypes.c_int * 3)()
+    lib.flash_decode_shape.restype = None
+    lib.flash_decode_shape(shape)
+    if tuple(shape) != (TILE_BYTES, MMA_HEADS, MAX_CLUSTER):
+        raise RuntimeError(f"flash_decode kernel's (tile bytes, mma heads, "
+                           f"max cluster) {tuple(shape)} differ from the "
+                           f"wrapper's {(TILE_BYTES, MMA_HEADS, MAX_CLUSTER)}")
+    fn = lib.flash_decode_stats
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def launch_shape(b: int, hq: int, hkv: int, length: int, d: int,
+                 kv_itemsize: int, sms: int
+                 ) -> tuple[str, int, int, int, int]:
+    """``(route, heads_per_warp, head_warps, head_chunks, splits)`` of one
+    launch.
+
+    A CTA scores q heads of one GQA group (``Hq / Hkv`` heads) from one
+    read of each K/V row.  On the "mma" route (bf16 K/V) its 4 consumer
+    warps score all of its heads on the tensor cores, as the rows of an
+    mma tile: up to 16 (``heads_per_warp``; ``head_warps`` is 1).  On the
+    "simt" route (fp32 K/V) its 8 warps form ``head_warps`` groups of
+    ``heads_per_warp`` (1, 2 or 4) heads.  A group that does not fit one
+    CTA is cut into ``head_chunks`` CTAs, each reading the rows.
+    ``splits`` CTAs of one cluster (at most 8, and no more than the key
+    axis has tiles) share the key axis, as many as keep the grid within
+    one CTA per SM (an H100 streamed long K/V faster at one than at two,
+    PERF.md)."""
+    group = hq // hkv
+    if kv_itemsize == 2:
+        route, head_warps = "mma", 1
+        heads_per_warp = max(h for h in range(1, MMA_HEADS + 1)
+                             if group % h == 0)
+    else:
+        route = "simt"
+        heads_per_warp = next(h for h in (4, 2, 1) if group % h == 0)
+        head_warps = next(w for w in (8, 4, 2, 1)
+                          if (group // heads_per_warp) % w == 0)
+    head_chunks = group // (heads_per_warp * head_warps)
+    tiles = -(-length // (TILE_BYTES // (d * kv_itemsize)))
+    splits = max(1, min(MAX_CLUSTER, tiles,
+                        sms // (b * hkv * head_chunks)))
+    return route, heads_per_warp, head_warps, head_chunks, splits
 
 
 def _check(q, k, v, valid) -> None:
@@ -91,16 +154,21 @@ def _launch(q, k, v, valid):
     m = out[n * d:n * (d + 1)].view(b, hq, 1, 1)
     l = out[n * (d + 1):].view(b, hq, 1, 1)
     fn = _kernel_fn()
+    route, hc, hw, _, splits = launch_shape(b, hq, hkv, sk, d,
+                                            k.element_size(),
+                                            _sm_count(q.device.index))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
                  acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, hq, hkv, sk,
                  d, int(q.dtype == torch.bfloat16),
-                 int(k.dtype == torch.bfloat16), 1.0 / (d ** 0.5), stream)
+                 int(k.dtype == torch.bfloat16), 1.0 / (d ** 0.5),
+                 ROUTES[route], hc, hw, splits, stream)
     if err:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "
                            f"{err} at q {tuple(q.shape)} {q.dtype}, "
-                           f"k {tuple(k.shape)} {k.dtype}")
+                           f"k {tuple(k.shape)} {k.dtype}, {route} route, "
+                           f"cluster of {splits}")
     LAUNCHES += 1
     return acc, m, l
 

@@ -8,10 +8,13 @@ against the paged KV cache:
   is built; each step writes the new token's K/V into it in place (the
   PyTorch counterpart of the reference's donated buffer).
 * **Attention through the CUDA kernel.**  Each layer gathers the slots'
-  pages into dense K/V, expands them to one KV head per (padded) query head,
-  and scores them with :func:`repro_torch.kernels.flash_decode.
-  flash_decode_stats` (``attn_impl="kernel"``) or its plain version
-  (``"ref"``).
+  pages into dense K/V and scores them with :func:`repro_torch.kernels.
+  flash_decode.flash_decode_stats` (``attn_impl="kernel"``) or its plain
+  version (``"ref"``).  Where the model's GQA map is the kernel's uniform
+  ``h // (Hq/Hkv)`` (:func:`gqa_is_uniform`: no padded query heads), the
+  kernel takes the gathered K/V as they are, and reads each K/V row once
+  for its whole group of query heads.  Otherwise, and for ``"ref"``, K/V
+  are first expanded to one KV head per (padded) query head.
 * **One rank.**  Page-parallel decode over ``model_parallel > 1`` ranks (one
   max and one fused statistics all-reduce per layer) needs the communicator
   slice of the port; the engine refuses such a plan when it is built.
@@ -62,6 +65,19 @@ def predicted_wire_bytes_per_token(plan: KVArenaPlan, cfg: ModelConfig,
     hops = 2.0 * (r - 1) / r
     per_layer = (batch * hq + batch * hq * (plan.head_dim + 1)) * 4
     return plan.n_layers * per_layer * hops
+
+
+def gqa_is_uniform(n_hq: int, n_kv: int, true_group: int) -> bool:
+    """Whether the model's GQA map, ``clamp(h // true_group, 0, n_kv - 1)``
+    over its ``n_hq`` (padded) query heads, is the uniform
+    ``h // (n_hq / n_kv)`` a kernel folds into its addressing.  Padded
+    query heads clip to the last KV head, so a padded head count breaks
+    it."""
+    if n_hq % n_kv:
+        return False
+    h = np.arange(n_hq)
+    return bool(np.array_equal(np.clip(h // true_group, 0, n_kv - 1),
+                               h // (n_hq // n_kv)))
 
 
 # ---------------------------------------------------------------------------
@@ -152,16 +168,24 @@ def build_paged_decode_step(model, plan: KVArenaPlan, *,
     true_group = max(cfg.attn.num_heads // hkv, 1)
     stats = (fd_ops.flash_decode_stats if attn_impl == "kernel"
              else fd_ref.decode_stats)
+    # the plain version takes equal head counts; the kernel takes the
+    # gathered K/V as they are where its uniform map is the model's
+    grouped = attn_impl == "kernel" and gqa_is_uniform(
+        padded_heads(cfg.attn.num_heads), hkv, true_group)
 
     def attend(q, pages, layer, table, slot_len, slot_valid):
         k, v, tab = _gather_local_kv(pages, plan, layer, table)
-        # true-group GQA map (padded q heads clip to the last kv head):
-        # expand kv per q head so the kernel runs group-free; the uniform
-        # h//group map inside the kernel would mis-pair padded head counts.
-        kv_idx = torch.clamp(torch.arange(q.shape[1], device=q.device)
-                             // true_group, 0, hkv - 1)
-        k = k.index_select(1, kv_idx)
-        v = v.index_select(1, kv_idx)
+        if grouped:
+            # one block per slot gathers as a strided view
+            k, v = k.contiguous(), v.contiguous()
+        else:
+            # true-group GQA map (padded q heads clip to the last kv head):
+            # expand kv per q head; the uniform h//group map would mis-pair
+            # padded head counts
+            kv_idx = torch.clamp(torch.arange(q.shape[1], device=q.device)
+                                 // true_group, 0, hkv - 1)
+            k = k.index_select(1, kv_idx)
+            v = v.index_select(1, kv_idx)
         valid = _local_valid(plan, tab, slot_len, slot_valid)
         acc, m, l = stats(q, k, v, valid)
         return fd_ref.combine([(acc, m, l)]).to(q.dtype)

@@ -8,6 +8,8 @@ the wrapper must take the plain version for CPU tensors and never touch the
 kernel build.
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -166,3 +168,56 @@ def test_wrapper_rejects_bad_shapes(case):
         valid = valid[:, :32]
     with pytest.raises(ValueError):
         ops.flash_decode_stats(q, k, v, valid)
+
+
+@pytest.mark.parametrize("args,want", [
+    # (B, Hq, Hkv, L, D, K/V itemsize, SMs) -> (route, heads per warp,
+    # head warps, head chunks, cluster CTAs); an H100 has 132 SMs
+    # the serve path: 4 x 8 (b, kv head) pairs, 4 tiles of 64 bf16 rows
+    ((4, 32, 8, 208, 64, 2, 132), ("mma", 4, 1, 1, 4)),
+    # long context: 256 tiles, 132 // 32 = 4 CTAs per cluster
+    ((4, 32, 8, 16384, 64, 2, 132), ("mma", 4, 1, 1, 4)),
+    # the old expanded shape: 128 pairs fill the card, clusters of one
+    ((4, 32, 32, 208, 64, 2, 132), ("mma", 1, 1, 1, 1)),
+    # one kv head for 32 q heads: two CTAs of 16 (the mma tile's rows)
+    ((4, 32, 1, 16384, 64, 2, 132), ("mma", 16, 1, 2, 8)),
+    # one key: one tile, a cluster of one
+    ((4, 32, 8, 1, 64, 2, 132), ("mma", 4, 1, 1, 1)),
+    # groups that do not fit one CTA: 64 and 24 q heads per kv head, and a
+    # prime group of 17
+    ((2, 64, 1, 4096, 64, 2, 132), ("mma", 16, 1, 4, 8)),
+    ((2, 24, 1, 300, 128, 2, 132), ("mma", 12, 1, 2, 8)),
+    ((1, 17, 1, 100, 64, 2, 132), ("mma", 1, 1, 17, 2)),
+    # fp32 K/V: 8 warps in head groups; 12 = 4 x 3 and an odd group of 3
+    ((1, 12, 1, 4096, 128, 4, 132), ("simt", 4, 1, 3, 8)),
+    ((2, 6, 2, 100, 16, 4, 132), ("simt", 1, 1, 3, 1)),
+    ((4, 32, 1, 208, 64, 4, 132), ("simt", 4, 8, 1, 7)),   # 7 tiles of 32
+    # fp32 at D = 128: 16 rows a tile, 9 tiles
+    ((4, 8, 2, 131, 128, 4, 132), ("simt", 4, 1, 1, 8)),
+    # a card with fewer SMs than pairs: clusters of one
+    ((4, 32, 8, 16384, 64, 2, 16), ("mma", 4, 1, 1, 1)),
+    ((4, 32, 8, 16384, 64, 2, 24), ("mma", 4, 1, 1, 1))])
+def test_launch_shape_is_pinned(args, want):
+    assert ops.launch_shape(*args) == want
+
+
+def test_launch_shape_holds_every_group():
+    """Every group splits exactly over its CTAs' heads and chunks, in the
+    shapes each route takes; a cluster is 1 to 8 CTAs, no more than the
+    key axis has tiles, and its grid stays within one CTA per SM unless
+    one CTA per pair already exceeds it."""
+    for group, hkv, b, length, d, size in itertools.product(
+            range(1, 70), (1, 3, 8), (1, 4), (1, 63, 64, 65, 5000),
+            ops.HEAD_DIMS, (2, 4)):
+        route, hc, hw, chunks, splits = ops.launch_shape(
+            b, group * hkv, hkv, length, d, size, 132)
+        if size == 2:
+            assert route == "mma" and 1 <= hc <= ops.MMA_HEADS and hw == 1
+        else:
+            assert route == "simt" and hc in (1, 2, 4)
+            assert hw in (1, 2, 4, 8)
+        assert hc * hw * chunks == group
+        tiles = -(-length // (ops.TILE_BYTES // (d * size)))
+        assert 1 <= splits <= min(ops.MAX_CLUSTER, tiles)
+        pairs = b * hkv * chunks
+        assert pairs * splits <= max(132, pairs)
