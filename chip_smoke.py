@@ -103,7 +103,7 @@ Phases, each of which raises on a failed check (exit code != 0):
               through the kernels
               and through the plain versions from the same state and the
               same local gradients: reduced gradients and new parameters
-              bitwise equal;
+              bitwise equal (64-bit digests of their bytes, on the card);
 14. timing  — time per call, by the same four clocks, of ``reduce_add``
               at the largest hop and at the median hop (inputs rotated past
               the L2, checked bitwise) and of pack write and pack read at the
@@ -143,7 +143,38 @@ Phases, each of which raises on a failed check (exit code != 0):
               ``quantize``/``dequantize`` at train_ring_int8's largest hop,
               their plain versions and, for the decodes, one PyTorch call
               (``torch.mul`` of int8 by fp32 scales; no single PyTorch call
-              quantizes by block absmax), beside the memory-rate bound.
+              quantizes by block absmax), beside the memory-rate bound;
+19. train_zero1 — the train phase's run with no ``--dp-mode``, so that
+              llama3.2-1b's own default, ``zero1``, resolves (asserted):
+              one rank, 16 layers, the arena on, 3 steps: losses finite,
+              the first two the train phase's bitwise, and all within 5e-5
+              of a replicated run of the same seed and batches made in
+              this phase, both under ``torch.use_deterministic_algorithms``
+              (the index ops' backward adds with atomics), the arena's
+              ``data_ptr()`` unchanged, pack writes == segments x steps and
+              pack reads == segments x steps (``unpack_spans`` reading the
+              all-gathered delta spans), every one bulk; one step through
+              the kernels and through the plain versions from the same
+              state and local gradients: shards, parameters and gradient
+              norm bitwise; then one profiled step, with the peak;
+20. train_ring_zero1 — train_ring's checks for zero1 (two ranks, full
+              width at ``ZERO1_RING_LAYERS`` = 16 layers, the full depth;
+              it runs right after the build, while this process holds
+              nothing on the card, and every two-rank phase logs what the
+              card holds before its ranks spawn): ``reduce_add``
+              launches == the reduce-scatter hops, pack writes and reads ==
+              segments x steps, sends and bytes == the CommPlan's (the
+              reduce-scatter and the delta all-gather make one
+              all-reduce's), both ranks' parameters bitwise equal, the
+              kernel step == the plain step bitwise; then one step with
+              the arena off over the buckets;
+21. train_ring_zero1_int8 — the same at 4 layers with ``--wire-codec
+              int8``: ``quantize`` == channel slices x p x steps and
+              ``dequantize`` == channel slices x (2p - 1) x steps, the
+              delta all-gather's encode at the source and p decodes
+              included; ``write_quant`` == segments x steps and
+              ``read_dequant`` == spans x steps (no re-encode of a reduced
+              span, no int8 unpack: the delta spans are fp32 pack reads).
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` gives them, and as its last line
@@ -716,7 +747,93 @@ TRAIN_ARGS = ["--arch", ARCH, "--dp-mode", "replicated", "--transport",
 # two ranks on one 80 GB card: full width, depth cut to 4 layers
 RING_ARGS = TRAIN_ARGS + ["--layers", "4"]
 INT8_ARGS = ["--wire-codec", "int8"]
+# the same run with no --dp-mode: llama3.2-1b's own full-size default,
+# zero1, resolves.  Two zero1 ranks fit on the card at the model's full
+# depth with this phase's checks (33.4 GiB a rank at the peak on an 80 GB
+# H100); the phase runs first, while this process holds nothing there
+ZERO1_ARGS = [a for i, a in enumerate(TRAIN_ARGS)
+              if "--dp-mode" not in TRAIN_ARGS[max(i - 1, 0):i + 1]]
+ZERO1_RING_LAYERS = 16
+ZERO1_RING_ARGS = ZERO1_ARGS + ["--layers", str(ZERO1_RING_LAYERS)]
+ZERO1_INT8_ARGS = ZERO1_ARGS + ["--layers", "4"] + INT8_ARGS
 MANY_BLOCKS = 500_000      # the kernel checks' largest block count
+
+
+def params_digest(tree) -> list[int]:
+    """A 64-bit digest of each leaf's bytes, computed on the card in chunks
+    of 2^24 words: equal leaves give equal digests, and two leaves that
+    differ give equal ones with a chance of about 2^-64."""
+    import torch
+
+    from repro_torch import tree as tree_util
+
+    out = []
+    for t in tree_util.leaves(tree):
+        words = t.detach().reshape(-1).view(torch.uint8)
+        words = words.view(torch.int32) if words.numel() % 4 == 0 else words
+        h = 0
+        for lo in range(0, words.numel(), 1 << 24):
+            w = words[lo:lo + (1 << 24)].long()
+            idx = torch.arange(lo, lo + w.numel(), device=w.device)
+            h += int(torch.sum((w + 1) * (idx * 2654435761 % 2147483629
+                                          + 1)).item())
+        out.append(h)
+    return out
+
+
+def kernel_vs_plain_step(step, state, batch, device) -> dict:
+    """One step of ``step`` through the kernels and through the plain
+    versions, from the same state and the same local gradients (one
+    backward pass: autograd's scatter-add backward is not bitwise
+    reproducible from run to run on the card, which would hide what is
+    compared).  The plain step gets a copy of "ef", which a step reads and
+    updates in place; the arena it shares (a step writes every segment
+    before reading it, and neither step writes its padding).  Compares,
+    bitwise, by :func:`params_digest` on the card: what the reduction
+    returned (the reduced tree, or zero1's shards, taken before they are
+    clipped), the new parameters, the new "ef" and the gradient norm."""
+    import dataclasses
+
+    from repro_torch.runtime.train_step import TrainStep
+
+    plain = TrainStep(step.model, step.comm.mesh, dataclasses.replace(
+        step.cfg, comm=dataclasses.replace(step.cfg.comm,
+                                           local_op="plain")),
+        device=device)
+    plain_state = dict(state, **{k: state[k].clone()
+                                 for k in ("ef",) if k in state})
+    # one microbatch: each step asks for the local gradients once, and the
+    # plain step takes the last reference, so that they are freed as soon
+    # as its reduction has packed them
+    local = [step._grad_fn(state["params"],
+                           {k: v.to(device) for k, v in batch.items()})]
+    digests = {"reduced": [], "params": [], "ef": [], "grad_norm": []}
+
+    def keep_reduced(s):
+        reduce = s.comm.reduce_scheduled
+
+        def wrapped(*a, **kw):
+            loss, out = reduce(*a, **kw)
+            digests["reduced"].append(params_digest(out[0]))
+            return loss, out
+        s.comm.reduce_scheduled = wrapped
+
+    step._grad_fn = lambda params, mb: local[0]
+    plain._grad_fn = lambda params, mb: local.pop()
+    for s in (step, plain):
+        keep_reduced(s)
+    try:
+        for s, st in ((step, state), (plain, plain_state)):
+            new, metrics = s(st, batch)
+            digests["params"].append(params_digest(new["params"]))
+            digests["ef"].append(params_digest(new.get("ef", [])))
+            digests["grad_norm"].append(float(metrics["grad_norm"]))
+            del new
+    finally:
+        del step._grad_fn, step.comm.reduce_scheduled
+    differ = [k for k, (a, b) in digests.items() if a != b]
+    return {"bitwise": not differ, "differ": differ,
+            "max_diff": 0.0 if not differ else float("nan")}
 
 
 def step_profile(trainer, rank: int, world: int, profiled: bool) -> dict:
@@ -1039,20 +1156,154 @@ def phase_train_int8(dev, fp32_losses: list[float]) -> dict:
     return out
 
 
+def _train_run(argv: list[str], what: str):
+    """``launch.train``'s setup of one rank from ``argv``, at full width
+    and 16 layers."""
+    from repro_torch.launch import train as launch_train
+
+    args = launch_train.parser().parse_args(argv)
+    world = launch_train.init_distributed(args.device)
+    run = launch_train.setup(args, world)
+    _check_full_width(run.model.cfg, 16, what)
+    return args, run
+
+
+def phase_train_zero1(dev, fp32_losses: list[float]) -> dict:
+    """The train phase's run with no ``--dp-mode``: one rank, full
+    llama3.2-1b (16 layers), the arch's own default resolving to zero1,
+    the arena on, 3 steps; then the kernel step against the plain step and
+    one profiled step.
+
+    Its losses are held against a replicated run of the same seed and
+    batches made here first, both under ``torch.use_deterministic_
+    algorithms``: the backward of the index ops (the GQA gather's
+    ``index_add_``, the embedding lookup's) adds with atomics, which moved
+    the train phase's third loss by up to 7.5e-4 from one run to the next.
+    The first two losses are the train phase's bitwise (the learning rate
+    is 0 at step 0, so the weights do not move)."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.runtime.train_step import shard_batch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _, run = _train_run(TRAIN_ARGS, "train_zero1")
+        ref = run.trainer.run()["history"]
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+        args, run = _train_run(ZERO1_ARGS, "train_zero1")
+        mode = launch_train.resolve_dp_mode(args)
+        if mode != "zero1" or args.dp_mode is not None:
+            raise AssertionError(f"[train_zero1] --dp-mode {args.dp_mode}, "
+                                 f"resolved {mode!r}: expected llama3.2-1b's "
+                                 f"default, zero1")
+        trainer = run.trainer
+        step = trainer.step_fn
+        if step.cfg.dp_mode != "zero1":
+            raise AssertionError(f"[train_zero1] the step runs "
+                                 f"{step.cfg.dp_mode}")
+        layout = step.arena.layout
+        segs, spans = layout.n_segments, layout.n_spans
+        if step.shard_sizes != [sp.size for sp in layout.spans]:
+            raise AssertionError("[train_zero1] at one rank every optimizer "
+                                 "shard is a whole span")
+        ptr = trainer.state["arena"].data_ptr()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counters()
+        hist = trainer.run()["history"]
+        counts = launch_counters()
+        routes = pack_routes()
+        peak = torch.cuda.max_memory_allocated(dev)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    losses = [h["loss"] for h in hist]
+    ref_losses = [h["loss"] for h in ref]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[train_zero1] non-finite loss: {losses}")
+    dloss = [abs(a - b) for a, b in zip(losses, ref_losses)]
+    if max(dloss) > 5e-5:
+        raise AssertionError(f"[train_zero1] losses {losses} against the "
+                             f"replicated run's {ref_losses}: |difference| "
+                             f"{dloss} > 5e-5")
+    if losses[:2] != fp32_losses[:2]:
+        raise AssertionError(f"[train_zero1] first losses {losses[:2]} != "
+                             f"the train phase's {fp32_losses[:2]}")
+    dtrain = [abs(a - b) for a, b in zip(losses, fp32_losses)]
+    if trainer.state["arena"].data_ptr() != ptr:
+        raise AssertionError("[train_zero1] the arena moved between steps")
+    # per step: pack_into writes each segment; one rank makes no ring hop,
+    # so the reduce-scatter hands the spans to AdamW as they are and the
+    # all-gather hands the delta spans back; unpack_spans reads each
+    # segment out of them.  Every copy is a bulk copy.
+    want = dict.fromkeys(counts, 0)
+    want.update(pack_write=segs * args.steps, pack_read=segs * args.steps)
+    if counts != want:
+        raise AssertionError(f"[train_zero1] launches {counts}, expected "
+                             f"{want} ({segs} segments x {args.steps} steps "
+                             f"each way, the reads those of the delta "
+                             f"spans)")
+    if routes != {"bulk": 2 * segs * args.steps, "vector": 0}:
+        raise AssertionError(f"[train_zero1] pack launches by route "
+                             f"{routes}, expected all "
+                             f"{2 * segs * args.steps} bulk")
+    batch = shard_batch(trainer.data.batch_at(trainer.state["step"]), 0, 1)
+    same = kernel_vs_plain_step(step, trainer.state, batch, dev)
+    if not same["bitwise"]:
+        raise AssertionError(f"[train_zero1] kernel step and plain step "
+                             f"differ: {same['differ']}")
+    prof = step_profile(trainer, 0, 1, profiled=True)
+    opt_bytes = sum(t.numel() * t.element_size()
+                    for k in ("mu", "nu") for t in trainer.state["opt"][k])
+    out = {"dp_mode": mode, "losses": losses,
+           "replicated_losses": ref_losses, "dloss_vs_replicated": dloss,
+           "dloss_vs_train_phase": dtrain,
+           "replicated_step_s": [h["sec"] for h in ref],
+           "step_s": [h["sec"] for h in hist], "launches": counts,
+           "pack_routes": routes, "n_segments": segs, "n_spans": spans,
+           "opt_bytes": opt_bytes, "peak_bytes": peak,
+           "max_diff": same["max_diff"], "profile": prof}
+    log(f"[train_zero1] llama3.2-1b 16 layers, 1 rank, --dp-mode unset -> "
+        f"{mode}; {spans} optimizer shards ({opt_bytes} B of moments): "
+        f"losses {', '.join(f'{x:.4f}' for x in losses)}; |loss - "
+        f"replicated loss| {', '.join(f'{x:.2e}' for x in dloss)} (both "
+        f"deterministic), |loss - train phase's| "
+        f"{', '.join(f'{x:.2e}' for x in dtrain)}; step wall "
+        f"{', '.join(f'{h['sec'] * 1e3:.0f}' for h in hist)} ms (the "
+        f"deterministic replicated run: "
+        f"{', '.join(f'{h['sec'] * 1e3:.0f}' for h in ref)} ms); peak "
+        f"{peak / 2**30:.1f} GiB")
+    log(f"[train_zero1] pack launches write {counts['pack_write']} and read "
+        f"{counts['pack_read']} == {segs} x {args.steps} each (the reads "
+        f"are the delta spans'), by route {routes}; arena data_ptr stable; "
+        f"kernel step == plain-version step, shards and params bitwise")
+    log(f"[train_zero1] profiled step: wall {prof['step_wall_ms']:.1f} ms, "
+        f"device busy {prof['step_device_ms']:.1f} ms, idle share "
+        f"{prof['idle_share']:.3f}; the profiler recorded "
+        f"{prof['port_kernels']['recorded']} of the "
+        f"{prof['port_kernels']['launched']} pack launches")
+    del run, trainer, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _ring_worker(argv: list[str]) -> dict:
     """One of two ranks of the train_ring phases (a spawned process): the
-    fp32 arena, or with ``--wire-codec int8`` the int8 arena and then one
-    step with the arena off (:func:`_bucket_pass`)."""
-    import dataclasses
+    fp32 arena, or with ``--wire-codec int8`` the int8 arena, and then,
+    under the int8 wire or zero1, one step with the arena off
+    (:func:`_bucket_pass`)."""
     import gc
 
     import torch
     import torch.distributed as dist
 
-    from repro_torch import tree as tree_util
     from repro_torch.core.ring import _channel_slices
     from repro_torch.launch import train as launch_train
-    from repro_torch.runtime.train_step import TrainStep, shard_batch
+    from repro_torch.runtime.train_step import shard_batch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     args = launch_train.parser().parse_args(argv)
@@ -1064,19 +1315,23 @@ def _ring_worker(argv: list[str]) -> dict:
         trainer = run.trainer
         step = trainer.step_fn
         comm = step.comm
+        zero1 = step.cfg.dp_mode == "zero1"
         layout = step.arena.layout
         p = world.size
         slices = sum(len(_channel_slices(sp.size // p,
                                          comm.transport.ring_cfg))
                      for sp in layout.spans)
-        state = trainer.state
-        ptrs = [state[k].data_ptr() for k in ("arena", "ef") if k in state]
+        # (no name holds the first state: it would keep its parameters and
+        # moments alive through the run)
+        kept = [k for k in ("arena", "ef") if k in trainer.state]
+        ptrs = [trainer.state[k].data_ptr() for k in kept]
         reset_launch_counters()
         comm.record.reset()
         hist = trainer.run()["history"]
         counts = launch_counters()
         routes = pack_routes()
         record = comm.record.as_dict()
+        peak_run = torch.cuda.max_memory_allocated(world.device)
         steps = args.steps
         segs, spans = layout.n_segments, layout.n_spans
         # derived from the code: per step, each span's ring all-reduce runs
@@ -1087,96 +1342,61 @@ def _ring_worker(argv: list[str]) -> dict:
         # packs and unpacks each segment once; the int8 arena encodes each
         # segment (pack, with error feedback) and each reduced span
         # (re-encode) and decodes each span (before its collective) and
-        # each segment (unpack)
+        # each segment (unpack).  Zero1 runs the same reduce-scatter hops
+        # and an all-gather of the delta shards with the same launches; the
+        # shards go to AdamW as they are (no re-encode, no unpack), and
+        # the gathered fp32 delta spans are read out segment by segment
+        # (unpack_spans: pack reads, under either wire)
         predicted = {"flash_decode": 0, "flash_attn": 0,
                      "reduce_add": slices * (p - 1) * steps,
                      "pack_write": 0 if quant else segs * steps,
-                     "pack_read": 0 if quant else segs * steps,
+                     "pack_read": segs * steps if zero1 or not quant else 0,
                      "quantize": slices * p * steps if quant else 0,
                      "dequantize": slices * (2 * p - 1) * steps if quant
                      else 0,
-                     "pack_quant_write": (segs + spans) * steps if quant
-                     else 0,
-                     "pack_quant_read": (spans + segs) * steps if quant
-                     else 0}
-        # every pack copy of the fp32 arena is a bulk copy
-        predicted_routes = {"bulk": 0 if quant else 2 * segs * steps,
-                            "vector": 0}
+                     "pack_quant_write": ((segs if zero1 else segs + spans)
+                                          * steps if quant else 0),
+                     "pack_quant_read": ((spans if zero1 else spans + segs)
+                                         * steps if quant else 0)}
+        # every pack copy is a bulk copy
+        predicted_routes = {"bulk": predicted["pack_write"]
+                            + predicted["pack_read"], "vector": 0}
         planned = {"sends": step.plan.arena_messages_per_device * steps,
                    "send_bytes": step.plan.arena_bytes_per_device * steps}
         losses = [h["loss"] for h in hist]
-        stable = [trainer.state[k].data_ptr()
-                  for k in ("arena", "ef") if k in state] == ptrs
+        stable = [trainer.state[k].data_ptr() for k in kept] == ptrs
 
-        # the same step through the kernels and through the plain versions:
-        # both reduce the same local gradients, from one backward pass
-        # (autograd's scatter-add backward is not bitwise reproducible
-        # from run to run on the card, which would hide what is compared),
-        # from the same state (the int8 arena and "ef" are updated in place,
-        # so the plain step gets copies of them)
-        plain = TrainStep(run.model, comm.mesh, dataclasses.replace(
-            step.cfg, comm=dataclasses.replace(step.cfg.comm,
-                                               local_op="plain")),
-            device=world.device)
+        digest = params_digest(trainer.state["params"])
         state = trainer.state
-        plain_state = dict(state, **{k: state[k].clone()
-                                     for k in ("arena", "ef") if k in state})
         batch = shard_batch(trainer.data.batch_at(state["step"]),
                             world.rank, p)
-        local = step._grad_fn(state["params"],
-                              {k: v.to(world.device)
-                               for k, v in batch.items()})
-        reduced = []                   # each step's reduced gradient tree
-
-        def keep_reduced(c):
-            reduce = c.reduce_scheduled
-
-            def wrapped(*a, **kw):
-                loss, out = reduce(*a, **kw)
-                reduced.append(out[0])
-                return loss, out
-            c.reduce_scheduled = wrapped
-
-        for s in (step, plain):
-            s._grad_fn = lambda params, mb: local
-            keep_reduced(s.comm)
-        new_k, _ = step(state, batch)
-        kept_k = [new_k["params"]] + ([new_k["ef"]] if quant else [])
-        del new_k
-        new_p, _ = plain(plain_state, batch)
-        kept_p = [new_p["params"]] + ([new_p["ef"]] if quant else [])
-        del step._grad_fn, step.comm.reduce_scheduled, local, new_p
-        torch.cuda.synchronize(world.device)
-        pairs = list(zip(tree_util.leaves(reduced[0]),
-                         tree_util.leaves(reduced[1])))
-        for a, b in zip(kept_k, kept_p):
-            pairs += list(zip(tree_util.leaves(a), tree_util.leaves(b)))
-        bitwise = all(torch.equal(a, b) for a, b in pairs)
-        max_diff = max((a.float() - b.float()).abs().max().item()
-                       for a, b in pairs)
-        del plain, plain_state, pairs, reduced, kept_k, kept_p
+        same = kernel_vs_plain_step(step, state, batch, world.device)
+        bitwise, max_diff = same["bitwise"], same["max_diff"]
         prof = step_profile(trainer, world.rank, p, profiled=world.rank == 0)
-        out = {"backend": world.backend, "losses": losses,
-                "step_s": [h["sec"] for h in hist], "counts": counts,
-                "record": record, "predicted": predicted, "planned": planned,
-                "pack_routes": routes, "predicted_routes": predicted_routes,
-                "stable": stable, "bitwise": bitwise,
-                "max_diff": max_diff, "n_spans": spans,
-                "n_segments": segs, "arena_bytes": layout.total_bytes,
-                "arena_pages": layout.n_pages,
-                "padding_fraction": layout.padding_fraction,
-                "ef_bytes": (layout.payload_elems * 4 if quant else 0),
-                "hop_width": max(sp.size for sp in layout.spans) // p
-                // (2 * step.cfg.comm.chunks),
-                # every reduce-scatter hop's width, one step's worth
-                "hop_widths": sorted(
-                    w for sp in layout.spans
-                    for _, w, _ in _channel_slices(sp.size // p,
-                                                   comm.transport.ring_cfg)),
-                "params": run.model.param_count(),
-                "peak_bytes": torch.cuda.max_memory_allocated(world.device),
-                "profile": prof, "bucket": None}
-        if quant:
+        out = {"backend": world.backend, "dp_mode": step.cfg.dp_mode,
+               "layers": args.layers, "losses": losses, "digest": digest,
+               "step_s": [h["sec"] for h in hist], "counts": counts,
+               "record": record, "predicted": predicted, "planned": planned,
+               "pack_routes": routes, "predicted_routes": predicted_routes,
+               "stable": stable, "bitwise": bitwise,
+               "max_diff": max_diff, "differ": same["differ"],
+               "n_spans": spans,
+               "n_segments": segs, "arena_bytes": layout.total_bytes,
+               "arena_pages": layout.n_pages,
+               "padding_fraction": layout.padding_fraction,
+               "ef_bytes": (layout.payload_elems * 4 if quant else 0),
+               "hop_width": max(sp.size for sp in layout.spans) // p
+               // (2 * step.cfg.comm.chunks),
+               # every reduce-scatter hop's width, one step's worth
+               "hop_widths": sorted(
+                   w for sp in layout.spans
+                   for _, w, _ in _channel_slices(sp.size // p,
+                                                  comm.transport.ring_cfg)),
+               "params": run.model.param_count(),
+               "peak_run_bytes": peak_run,
+               "peak_bytes": torch.cuda.max_memory_allocated(world.device),
+               "profile": prof, "bucket": None}
+        if quant or zero1:
             trainer.state = state = None
             del run, trainer, step, comm, state
             gc.collect()
@@ -1188,10 +1408,11 @@ def _ring_worker(argv: list[str]) -> dict:
 
 
 def _bucket_pass(argv: list[str], world) -> dict:
-    """One step of the int8 wire with the arena off: every gradient bucket
-    is all-reduced by the ring, whose hops run the codec's kernels.
-    Returns the launches beside the count the code predicts, the record
-    beside the plan and the loss."""
+    """One step with the arena off: every gradient bucket is all-reduced
+    (zero1: reduce-scattered, and its delta shard all-gathered) by the
+    ring, whose hops run the codec's kernels under the int8 wire.  Returns
+    the launches beside the count the code predicts, the record beside the
+    plan and the loss."""
     from repro_torch.core.ring import _channel_slices
     from repro_torch.launch import train as launch_train
 
@@ -1202,14 +1423,17 @@ def _bucket_pass(argv: list[str], world) -> dict:
     comm = run.trainer.step_fn.comm
     p = world.size
     bplan = run.trainer.step_fn.plan.bucket_plan
-    # per bucket: p - 1 reduce-scatter hops, each encoding, decoding and
-    # adding every channel slice, then an all-gather that encodes each
-    # slice once and decodes each of its p payloads
+    # per bucket: p - 1 reduce-scatter hops, each adding (and under the
+    # int8 wire encoding and decoding) every channel slice, then an
+    # all-gather that encodes each slice once and decodes each of its p
+    # payloads; no pack copy
     slices = sum(len(_channel_slices(n // p, comm.transport.ring_cfg))
                  for n in bplan.bucket_sizes)
+    quant = args.wire_codec is not None
     predicted = dict.fromkeys(launch_counters(), 0)
-    predicted.update(reduce_add=slices * (p - 1), quantize=slices * p,
-                     dequantize=slices * (2 * p - 1))
+    predicted.update(reduce_add=slices * (p - 1),
+                     quantize=slices * p if quant else 0,
+                     dequantize=slices * (2 * p - 1) if quant else 0)
     reset_launch_counters()
     comm.record.reset()
     hist = run.trainer.run()["history"]
@@ -1225,10 +1449,37 @@ def _bucket_pass(argv: list[str], world) -> dict:
             "n_buckets": bplan.n_buckets}
 
 
+def card_memory() -> dict:
+    """What the card holds before two ranks spawn: MiB in use on the whole
+    card and its total (``nvidia-smi``), and the bytes this process's
+    allocator reserves, after it has given back its cached blocks (0 while
+    it has not touched CUDA; reading it then would start a context)."""
+    import gc
+
+    import torch
+
+    reserved = 0
+    if torch.cuda.is_initialized():
+        gc.collect()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(0)
+    out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used,memory.total",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True).stdout
+    used, total = (int(x) for x in out.strip().splitlines()[0].split(","))
+    return {"card_used_mib": used, "card_total_mib": total,
+            "parent_reserved_bytes": reserved}
+
+
 def phase_train_ring(argv: list[str], tag: str) -> dict:
-    """Two ranks on the one card over gloo, full width at 4 layers."""
+    """Two ranks on the one card over gloo, full width at ``--layers``."""
     from repro_torch.launch import train as launch_train
 
+    before = card_memory()
+    log(f"[{tag}] before the ranks spawn: {before['card_used_mib']} of "
+        f"{before['card_total_mib']} MiB of the card in use, this process's "
+        f"allocator reserving {before['parent_reserved_bytes']} B")
     ranks = launch_train.spawn(_ring_worker, 2, argv, timeout=900)
     for r, out in enumerate(ranks):
         if out["backend"] != "gloo":
@@ -1253,10 +1504,15 @@ def phase_train_ring(argv: list[str], tag: str) -> dict:
                                      f"{out['planned'][key]}")
         if not out["bitwise"]:
             raise AssertionError(f"[{tag}] rank {r}: kernel step and "
-                                 f"plain step differ (max |diff| "
-                                 f"{out['max_diff']:.3e})")
+                                 f"plain step differ: {out['differ']}")
     if ranks[0]["losses"] != ranks[1]["losses"]:
         raise AssertionError(f"[{tag}] the ranks disagree on the loss")
+    if ranks[0]["digest"] != ranks[1]["digest"]:
+        raise AssertionError(f"[{tag}] the ranks' parameters differ after "
+                             f"{len(ranks[0]['losses'])} steps")
+    if ranks[0]["dp_mode"] == "zero1" and any(o["bucket"] is None
+                                              for o in ranks):
+        raise AssertionError(f"[{tag}] zero1 ran no bucket pass")
     for r, out in enumerate(ranks):
         bucket = out["bucket"]
         if bucket is None:
@@ -1277,7 +1533,8 @@ def phase_train_ring(argv: list[str], tag: str) -> dict:
     out = ranks[0]
     staging = [o["record"]["staging_s"] for o in ranks]
     prof = out["profile"]
-    log(f"[{tag}] 2 ranks on one card over gloo, 4 layers "
+    log(f"[{tag}] 2 ranks on one card over gloo, {out['dp_mode']}, "
+        f"{out['layers']} layers "
         f"({out['params']} params), arena {out['arena_bytes']} B "
         f"({out['arena_pages']} pages, padding "
         f"{out['padding_fraction']:.4f}), ef {out['ef_bytes']} B, "
@@ -1285,12 +1542,15 @@ def phase_train_ring(argv: list[str], tag: str) -> dict:
         f"{', '.join(f'{x:.4f}' for x in out['losses'])}; step wall "
         f"{', '.join(f'{x * 1e3:.0f}' for x in out['step_s'])} ms; host "
         f"staging {staging[0]:.2f} / {staging[1]:.2f} s over 3 steps; peak "
-        f"{out['peak_bytes'] / 2**30:.1f} GiB")
+        f"{out['peak_run_bytes'] / 2**30:.1f} GiB a rank over the 3 steps, "
+        f"{out['peak_bytes'] / 2**30:.1f} GiB with the kernel-vs-plain "
+        f"check and the profiled step")
     log(f"[{tag}] launches == predicted "
         f"{ {k: v for k, v in out['predicted'].items() if v} }, pack by "
         f"route {out['pack_routes']} on both ranks; recorded sends "
         f"{out['record']['sends']} and bytes "
-        f"{out['record']['send_bytes']} == plan")
+        f"{out['record']['send_bytes']} == plan; both ranks' parameters "
+        f"bitwise equal after {len(out['losses'])} steps")
     log(f"[{tag}] kernel step == plain-version step, grads and params"
         f"{' and ef' if out['ef_bytes'] else ''} bitwise on both ranks; "
         f"profiled step (rank 0): wall {prof['step_wall_ms']:.1f} ms, "
@@ -1306,7 +1566,7 @@ def phase_train_ring(argv: list[str], tag: str) -> dict:
             f"{ {k: v for k, v in bucket['predicted'].items() if v} }; "
             f"recorded sends {bucket['record']['sends']} and bytes "
             f"{bucket['record']['send_bytes']} == plan")
-    return {"ranks": ranks, "staging_s": staging}
+    return {"ranks": ranks, "staging_s": staging, "card_before": before}
 
 
 def rotating(calls):
@@ -2246,6 +2506,9 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     phase_build()
+    # first, while this process holds nothing on the card: the two ranks
+    # of the deepest phase get the whole of it
+    train_ring_zero1 = phase_train_ring(ZERO1_RING_ARGS, "train_ring_zero1")
     kernel_err = phase_kernel(dev)
     kernels_train = phase_kernels_train(dev)
     serve, run = phase_serve(dev)
@@ -2280,6 +2543,11 @@ def main() -> None:
     timing_int8 = phase_timing_int8(dev, ring8["hop_width"],
                                     train_int8["max_segment"],
                                     train_int8["block"])
+    train_zero1 = phase_train_zero1(dev, train["losses"])
+    train_ring_zero1_int8 = phase_train_ring(ZERO1_INT8_ARGS,
+                                             "train_ring_zero1_int8")
+    z1, z8 = (train_ring_zero1["ranks"][0],
+              train_ring_zero1_int8["ranks"][0])
     gpu = gpu_line()
     src = "src/repro_torch/kernels"
     launches = {"reduce_add": ring0["counts"]["reduce_add"],
@@ -2295,10 +2563,22 @@ def main() -> None:
     errs = {**kernels_train["max_abs_err"], **kernels_int8["max_abs_err"]}
     errs["reduce_add"] = max(errs["reduce_add"],
                              *(o["max_diff"] for o in train_ring["ranks"]))
-    int8_step = max(o["max_diff"] for o in train_ring_int8["ranks"])
+    int8_step = max(o["max_diff"] for o in train_ring_int8["ranks"]
+                    + train_ring_zero1_int8["ranks"])
     for name in ("quantize", "dequantize", "pack_quant_write",
                  "pack_quant_read", "reduce_add"):
         errs[name] = max(errs[name], int8_step)
+    zero1_step = max(train_zero1["max_diff"],
+                     *(o["max_diff"] for o in train_ring_zero1["ranks"]))
+    for name in ("reduce_add", "pack_write", "pack_read"):
+        errs[name] = max(errs[name], zero1_step)
+    # each kernel's launches on the zero1 paths: one rank (train_zero1),
+    # two ranks (train_ring_zero1) and two ranks over the int8 wire
+    # (train_ring_zero1_int8), 3 steps each
+    zero1_launches = {name: {"train_zero1": train_zero1["launches"][name],
+                             "train_ring_zero1": z1["counts"][name],
+                             "train_ring_zero1_int8": z8["counts"][name]}
+                      for name in launches}
     rows = [{
         "name": "flash_decode", "route": "cuda",
         "source": f"{src}/flash_decode/csrc/flash_decode.cu",
@@ -2314,6 +2594,7 @@ def main() -> None:
             "source": (f"{src}/reduce_add/csrc/reduce_add.cu"
                        if name == "reduce_add" else f"{src}/pack/csrc/pack.cu"),
             "replaces": replaces, "launches": launches[name],
+            "launches_zero1": zero1_launches[name],
             "max_abs_err": errs[name],
             **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}})
@@ -2330,6 +2611,7 @@ def main() -> None:
         rows.append({
             "name": name, "route": "cuda", "source": f"{src}/{source}",
             "replaces": replaces, "launches": launches[name],
+            "launches_zero1": zero1_launches[name],
             "max_abs_err": errs[name],
             **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}})
@@ -2355,6 +2637,8 @@ def main() -> None:
              "train_ring_int8": train_ring_int8, "timing_int8": timing_int8,
              "kernels_attn": kernels_attn, "prefill": prefill,
              "serve_contiguous": serve_contiguous, "timing_attn": timing_attn,
+             "train_zero1": train_zero1, "train_ring_zero1": train_ring_zero1,
+             "train_ring_zero1_int8": train_ring_zero1_int8,
              "torch": torch.__version__, "cuda": torch.version.cuda,
              "wall_s": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -18,7 +18,9 @@ from ``(mesh, CommConfig)``, a :class:`Communicator` owns
 Under ``wire_codec="int8"`` ring hops carry int8 payloads, the arena is the
 int8 :class:`~repro_torch.mem.arena.QuantCommArena` and gradients are
 compensated with error feedback (:meth:`Communicator.reduce_scheduled`,
-:meth:`Communicator.all_reduce_tree`).  The halo exchange and all-to-all
+:meth:`Communicator.all_reduce_tree`).  ZeRO-1 reduce-scatters into
+flat shards and all-gathers them back (:meth:`Communicator.reduce_scatter_tree`,
+:meth:`Communicator.all_gather_buckets`).  The halo exchange and all-to-all
 arrive with their own slices.  Collectives are eager; they run in the
 caller's process on its rank, over the world ``torch.distributed`` was
 initialised with.
@@ -287,6 +289,21 @@ class Communicator:
             buckets, new_res = self._ef.compensate(buckets, list(ef_state))
         reduced = self._mean_buckets(self.all_reduce(buckets))
         return self.bucketer.debucketize(reduced, bplan), new_res
+
+    def reduce_scatter_tree(self, grads):
+        """Reduce-scatter(-mean) a local gradient tree into flat bucket
+        shards (the ZeRO path).  Returns ``(shards, bucket_plan)``; invert
+        with :meth:`all_gather_buckets`."""
+        buckets, bplan = self.bucketer.bucketize(grads)
+        return self._mean_buckets(self.reduce_scatter(buckets)), bplan
+
+    def all_gather_buckets(self, shards: list,
+                           bplan: BucketPlan | None = None):
+        """Inverse of :meth:`reduce_scatter_tree`: the full buckets, or the
+        debucketized tree when ``bplan`` is given."""
+        full = self.all_gather(shards)
+        return full if bplan is None else self.bucketer.debucketize(full,
+                                                                    bplan)
 
     # -- dependency-aware scheduled reduction --------------------------------
 

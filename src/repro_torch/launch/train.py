@@ -1,4 +1,4 @@
-"""Training entry point: replicated data parallelism over the port's ring.
+"""Training entry point: data parallelism over the port's ring.
 
 Port of ``repro.launch.train`` (same flags; ``--layers`` cuts depth,
 ``--nproc`` spawns that many local ranks).  Rank count and rank come from
@@ -13,9 +13,10 @@ one card), gloo on the CPU.  ::
         --reduced --steps 20 --device cpu --nproc 2 --use-arena \\
         --wire-codec int8
 
-It runs on ``cuda`` unless ``--device cpu`` is given.  ``--dp-mode zero1``
-and ``fsdp`` are not ported yet and raise, as does a defaulted mode that
-resolves to them (llama3.2-1b at full size defaults to ``zero1``).
+It runs on ``cuda`` unless ``--device cpu`` is given.  ``--dp-mode`` is
+``replicated`` or ``zero1`` (llama3.2-1b's own default at full size;
+``--reduced`` defaults to ``replicated``, as in the reference).  ``fsdp``
+is not ported yet and raises, as does a defaulted mode that resolves to it.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ from repro_torch.models import Model, build_model
 from repro_torch.optim import OptimConfig
 from repro_torch.runtime.train_loop import Trainer, TrainerConfig
 from repro_torch.runtime.train_step import (DP_MODES, TrainStepConfig,
-                                            data_mesh, require_replicated)
+                                            data_mesh, require_ported)
 
 
 @dataclass(frozen=True)
@@ -91,16 +92,16 @@ def init_distributed(device: str | torch.device = "cuda") -> World:
 
 def resolve_dp_mode(args) -> str:
     """The reference CLI's rule (``--dp-mode``, else the arch's setting at
-    full size, else ``replicated``), then the port's refusal of the modes it
-    does not have yet."""
+    full size, else ``replicated``), then the port's refusal of the mode it
+    does not have yet (``fsdp``)."""
     st = settings_for(args.arch)
     mode = args.dp_mode or (st.dp_mode if not args.reduced else "replicated")
     try:
-        require_replicated(mode)
+        require_ported(mode)
     except NotImplementedError as e:
         hint = ("" if args.dp_mode else
                 f" ({args.arch} at full size defaults to {mode!r}; pass "
-                f"--dp-mode replicated)")
+                f"--dp-mode zero1 or replicated)")
         raise NotImplementedError(f"{e}{hint}") from None
     return mode
 

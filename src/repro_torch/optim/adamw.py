@@ -1,9 +1,15 @@
-"""AdamW over parameter trees (replicated data parallelism).
+"""AdamW over parameter trees and over flat bucket shards.
 
-Port of the tree half of ``repro.optim.adamw`` (the flat-shard update of
-ZeRO arrives with the zero1 slice).  Parameters may be of any float dtype;
-moments and the update are fp32.  The update allocates new parameter and
-moment tensors, like the reference's functional one.
+Port of ``repro.optim.adamw``:
+
+* :func:`adamw_tree_update` — the replicated update over parameter trees;
+* :func:`adamw_flat_update` — the ZeRO-1 update over the fp32 shards a
+  reduce-scatter hands each rank; it returns the parameter *delta*
+  (``-lr * adam``), which the caller all-gathers and applies with the
+  decoupled weight decay on the full parameters.
+
+Parameters may be of any float dtype; moments and the update are fp32.
+Both updates allocate new tensors, like the reference's functional ones.
 """
 
 from __future__ import annotations
@@ -35,6 +41,12 @@ def init_opt_state(params) -> dict:
     return {"mu": zeros(params), "nu": zeros(params)}
 
 
+def init_opt_state_flat(shards) -> dict:
+    """Zero fp32 moments shaped like each flat shard."""
+    return {"mu": [torch.zeros_like(s, dtype=torch.float32) for s in shards],
+            "nu": [torch.zeros_like(s, dtype=torch.float32) for s in shards]}
+
+
 def global_grad_norm(grads) -> torch.Tensor:
     """Global L2 norm of a replicated gradient tree (fp32).  Without tensor
     parallelism every leaf is counted once on every rank."""
@@ -46,14 +58,28 @@ def clip_factor(gnorm: torch.Tensor, max_norm: float) -> torch.Tensor:
     return torch.clamp(max_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
 
 
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """IEEE fp32 square root.  The card's is correctly rounded; PyTorch's
+    vectorised fp32 one on the CPU is not (up to 1 ulp off).  The CPU
+    branch exists only so that the port is bitwise the reference on the
+    CPU, where the tests hold it to it: CPU tensors take the root in
+    float64 (one float64 copy of the tensor), whose rounding to fp32 is the
+    correctly rounded result.  CUDA tensors take ``torch.sqrt`` as they
+    are."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
+
+
 def _adamw_moments(g, mu, nu, step: int, cfg: OptimConfig):
     g = g.float()
     mu = cfg.b1 * mu + (1 - cfg.b1) * g
     nu = cfg.b2 * nu + (1 - cfg.b2) * g * g
-    t = float(step) + 1.0
+    # the bias corrections in fp32, as the reference computes them
+    t = torch.tensor(float(step) + 1.0, dtype=torch.float32)
     mu_hat = mu / (1 - cfg.b1 ** t)
     nu_hat = nu / (1 - cfg.b2 ** t)
-    return mu_hat / (torch.sqrt(nu_hat) + cfg.eps), mu, nu
+    return mu_hat / (_sqrt(nu_hat) + cfg.eps), mu, nu
 
 
 @torch.no_grad()
@@ -79,3 +105,19 @@ def adamw_tree_update(params, grads, opt_state: dict, step: int, lr: float,
     return unf(new_p), {"mu": unf(new_mu), "nu": unf(new_nu)}
 
 
+@torch.no_grad()
+def adamw_flat_update(grad_shards, opt_state: dict, step: int, lr: float,
+                      cfg: OptimConfig):
+    """ZeRO update on flat shards; returns ``(deltas, new_opt_state)`` with
+    ``delta = -lr * adam(grad)`` (weight decay is applied to the parameters
+    outside)."""
+    if not len(grad_shards) == len(opt_state["mu"]) == len(opt_state["nu"]):
+        raise ValueError("gradient shards and optimizer state differ in "
+                         "length")
+    deltas, mus, nus = [], [], []
+    for g, mu, nu in zip(grad_shards, opt_state["mu"], opt_state["nu"]):
+        upd, mu2, nu2 = _adamw_moments(g, mu, nu, step, cfg)
+        deltas.append(-lr * upd)
+        mus.append(mu2)
+        nus.append(nu2)
+    return deltas, {"mu": mus, "nu": nus}

@@ -1,10 +1,22 @@
-"""The replicated data-parallel train step.
+"""The data-parallel train step: ``replicated`` and ``zero1``.
 
-Port of the ``replicated`` mode of ``repro.runtime.train_step``: every rank
-holds the parameters and AdamW state, computes the gradients of its shard of
-the global batch with autograd, and the
+Port of ``repro.runtime.train_step``.  Every rank computes the gradients of
+its shard of the global batch with autograd, and the
 :class:`~repro_torch.comm.api.Communicator` reduces them (mean) with its
-transport, issuing each bucket at its :class:`CommSchedule` slot.  With
+transport, issuing each bucket at its :class:`CommSchedule` slot.
+
+* ``replicated`` — every rank holds the parameters and the AdamW state;
+  the gradients are all-reduced.  The 2017 paper's setting.
+* ``zero1`` — the gradients are *reduce-scattered* into flat shards (one
+  per bucket, or one per fused arena span); each rank keeps the AdamW
+  moments of its own shards only, updates them, and the parameter
+  **delta** is all-gathered and applied to the full parameters with the
+  decoupled weight decay.  The same wire volume as the all-reduce; the
+  optimizer memory falls by the data world size.  The global gradient
+  norm is the shards' weighted sum of squares, all-reduced once over data
+  (:func:`build_norm_weights`: the arena's page padding weighs 0).
+
+With
 ``use_arena`` the gradients pack into the page-aligned
 :class:`~repro_torch.mem.arena.CommArena` (a tensor in the train state,
 allocated once and written in place every step) and each channel's
@@ -18,40 +30,45 @@ error-feedback residual of every payload element, compensated into every
 encode so that the quantisation error telescopes instead of accumulating.
 Both are allocated once and updated in place.
 
-``zero1`` and ``fsdp`` arrive with their own slice; asking for them raises
-rather than training another mode.
+``fsdp`` (ZeRO-3) arrives with its own slice; asking for it raises rather
+than training another mode.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
+from typing import Sequence
 
 import torch
 
 from repro_torch import tree as tree_util
 from repro_torch.comm.api import CommConfig, Communicator
 from repro_torch.comm.schedule import SCHEDULE_POLICIES, CommSchedule
+from repro_torch.core.bucketing import BucketPlan
+from repro_torch.core.p2p import RingAxis
 from repro_torch.core.topology import RankMesh
 from repro_torch.mem.arena import QuantCommArena
+from repro_torch.mem.layout import ArenaLayout, QuantArenaLayout
 from repro_torch.models.model_api import Model
 from repro_torch.models.parallel import ParallelCtx
 from repro_torch.models.transformer import init_params
-from repro_torch.optim import (OptimConfig, adamw_tree_update, clip_factor,
+from repro_torch.optim import (OptimConfig, adamw_flat_update,
+                               adamw_tree_update, clip_factor,
                                global_grad_norm, init_opt_state,
-                               make_schedule)
+                               init_opt_state_flat, make_schedule)
 
 DP_MODES = ("replicated", "zero1", "fsdp")
 
 
-def require_replicated(dp_mode: str) -> None:
-    """The port trains ``replicated`` only; the other modes raise."""
+def require_ported(dp_mode: str) -> None:
+    """The port trains ``replicated`` and ``zero1``; ``fsdp`` raises."""
     if dp_mode not in DP_MODES:
         raise ValueError(f"dp_mode must be one of {DP_MODES}, got "
                          f"{dp_mode!r}")
-    if dp_mode != "replicated":
+    if dp_mode == "fsdp":
         raise NotImplementedError(
-            f"dp_mode={dp_mode!r} is not ported yet (it arrives with the "
-            f"zero1/fsdp slice); the port trains dp_mode='replicated' only")
+            "dp_mode='fsdp' is not ported yet (ZeRO-3 arrives with its own "
+            "slice); the port trains dp_mode='replicated' and 'zero1'")
 
 
 @dataclass(frozen=True)
@@ -104,16 +121,85 @@ def abstract_params(model: Model) -> dict:
     return init_params(None, model.cfg, torch.device("meta"))
 
 
+def build_norm_weights(plan: BucketPlan) -> list[torch.Tensor]:
+    """Per-bucket fp32 weight vectors of the zero1 gradient norm.  The
+    reference weighs a model-replicated field ``1/model_size`` so that its
+    sum over the model axis counts every parameter once; the port has no
+    model axis (``model_size`` 1), so every element weighs 1.0."""
+    return [torch.ones((n,), dtype=torch.float32) for n in plan.bucket_sizes]
+
+
+def build_span_norm_weights(layout: ArenaLayout | QuantArenaLayout,
+                            bucket_weights: Sequence[torch.Tensor]
+                            ) -> list[torch.Tensor]:
+    """Per-*span* norm weights of the arena's zero1 path: each span's
+    vector holds its buckets' weights at their offsets in the span and 0 on
+    the page padding, which must never count in the norm."""
+    out = []
+    for sp in layout.spans:
+        w = torch.zeros((sp.size,), dtype=torch.float32)
+        for b in sp.buckets:
+            seg = layout.segment_of(b)
+            off = seg.offset - sp.offset
+            w[off:off + seg.size] = bucket_weights[b]
+        out.append(w)
+    return out
+
+
+def _owned_range(n: int, rings: Sequence[RingAxis]) -> tuple[int, int]:
+    """This rank's reduce-scatter shard of an ``n``-element buffer as the
+    range ``[start, stop)``, in the ring's ownership layout (``rings``
+    inner axis first): rank ``r`` of an axis of ``p`` owns elements
+    ``[r*n/p, (r+1)*n/p)`` of what the axes before it left."""
+    start = 0
+    for ring in rings:
+        n //= ring.size
+        start += ring.index * n
+    return start, start + n
+
+
+def _slice_like_shard(w: torch.Tensor,
+                      rings: Sequence[RingAxis]) -> torch.Tensor:
+    """``w`` cut down to this rank's reduce-scatter shard."""
+    start, stop = _owned_range(w.shape[0], rings)
+    return w[start:stop]
+
+
+def span_norm_ranges(layout: ArenaLayout | QuantArenaLayout,
+                     rings: Sequence[RingAxis]
+                     ) -> list[list[tuple[int, int]]]:
+    """Per span, the ranges of this rank's shard (shard-local) that hold a
+    bucket's payload: where the slice of :func:`build_span_norm_weights`'
+    vector is 1.0 (the port has no model axis), the page padding left out.
+    The zero1 norm sums the squares over these ranges, so that no weight
+    vector lives beside the shards."""
+    out = []
+    for sp in layout.spans:
+        lo, hi = _owned_range(sp.size, rings)
+        ranges = []
+        for b in sp.buckets:
+            seg = layout.segment_of(b)
+            start = max(seg.offset - sp.offset, lo)
+            stop = min(seg.offset - sp.offset + seg.size, hi)
+            if start < stop:
+                ranges.append((start - lo, stop - lo))
+        out.append(ranges)
+    return out
+
+
 class TrainStep:
     """``step(state, batch) -> (state, metrics)`` for one rank.
 
     Builds its :class:`Communicator` on construction, which is collective:
-    every rank of the mesh builds its steps in the same order.
+    every rank of the mesh builds its steps in the same order.  Under
+    ``zero1`` it also holds the shard sizes of the optimizer state (one per
+    bucket, or one per arena span) and, per shard, the ranges that count in
+    the gradient norm (:func:`span_norm_ranges`).
     """
 
     def __init__(self, model: Model, mesh: RankMesh, cfg: TrainStepConfig,
                  *, device: torch.device):
-        require_replicated(cfg.dp_mode)
+        require_ported(cfg.dp_mode)
         self.model = model
         self.cfg = cfg
         self.device = device
@@ -131,6 +217,25 @@ class TrainStep:
             self.comm.arena_schedule(local, policy, cfg.microbatches)
             if cfg.use_arena
             else self.comm.schedule(local, policy, cfg.microbatches))
+        self.shard_sizes: list[int] = []
+        self.norm_ranges: list[list[tuple[int, int]]] = []
+        if cfg.dp_mode == "zero1":
+            if not self.comm.spec.supports_rs:
+                raise ValueError(
+                    f"dp_mode='zero1' needs a transport with supports_rs; "
+                    f"{self.comm.cfg.transport!r} has none (the ring "
+                    f"transports do)")
+            world = self.comm.world
+            if self.arena is not None:
+                # the shards follow the fused spans; padding weighs zero
+                lay = self.arena.layout
+                rings = tuple(reversed(self.comm.transport.rails[0].axes))
+                self.shard_sizes = [sp.size // world for sp in lay.spans]
+                self.norm_ranges = span_norm_ranges(lay, rings)
+            else:
+                self.shard_sizes = [n // world for n in
+                                    self.plan.bucket_plan.bucket_sizes]
+                self.norm_ranges = [[(0, n)] for n in self.shard_sizes]
 
     def _grad_fn(self, params, mb):
         leaves, treedef = tree_util.flatten(params)
@@ -144,36 +249,74 @@ class TrainStep:
 
     def __call__(self, state: dict, batch: dict) -> tuple[dict, dict]:
         batch = {k: v.to(self.device) for k, v in batch.items()}
-        ef = None
-        if isinstance(self.arena, QuantCommArena):
-            loss, (grads, buf, ef) = self.comm.reduce_scheduled(
-                self._grad_fn, state["params"], batch, self.schedule,
-                op="all_reduce", arena=self.arena, arena_buf=state["arena"],
-                ef_buf=state["ef"])
-        elif self.arena is not None:
-            loss, (grads, buf) = self.comm.reduce_scheduled(
-                self._grad_fn, state["params"], batch, self.schedule,
-                op="all_reduce", arena=self.arena, arena_buf=state["arena"])
-        else:
-            loss, grads = self.comm.reduce_scheduled(
-                self._grad_fn, state["params"], batch, self.schedule,
-                op="all_reduce")
-        gnorm = global_grad_norm(grads)
-        factor = clip_factor(gnorm, self.cfg.optim.clip_norm)
-        grads = tree_util.tree_map(lambda g: g * factor, grads)
+        zero1 = self.cfg.dp_mode == "zero1"
+        kw = {}
+        if self.arena is not None:
+            kw = {"arena": self.arena, "arena_buf": state["arena"]}
+            if isinstance(self.arena, QuantCommArena):
+                kw["ef_buf"] = state["ef"]
+        # zero1: the buckets (spans) reduce-scatter as their microbatch's
+        # backward finishes; the mean shards accumulate over microbatches
+        op = "reduce_scatter" if zero1 else "all_reduce"
+        loss, out = self.comm.reduce_scheduled(
+            self._grad_fn, state["params"], batch, self.schedule, op=op,
+            **kw)
+        if not zero1 and self.arena is None:
+            out = (out,)
+        n_reduced = 2 if zero1 else 1         # (shards, plan) or (tree,)
+        extra = out[n_reduced:]               # the arena (and "ef")
         lr = self.lr_fn(state["step"])
-        new_p, new_opt = adamw_tree_update(state["params"], grads,
-                                           state["opt"], state["step"], lr,
-                                           self.cfg.optim)
+        if zero1:
+            shards, bplan = out[:2]
+            del out
+            gnorm = self._shard_norm(shards)
+            factor = clip_factor(gnorm, self.cfg.optim.clip_norm)
+            for s in shards:                  # step-local: clipped in place
+                s.mul_(factor)
+            deltas, new_opt = adamw_flat_update(shards, state["opt"],
+                                                state["step"], lr,
+                                                self.cfg.optim)
+            del shards
+            # the delta tree: one more full fp32 copy of the parameters
+            if self.arena is not None:
+                spans = self.comm.all_gather(deltas)
+                del deltas
+                delta_tree = self.comm.bucketer.debucketize(
+                    self.arena.unpack_spans(spans), bplan)
+                del spans
+            else:
+                delta_tree = self.comm.all_gather_buckets(deltas, bplan)
+                del deltas
+            wd = 1 - lr * self.cfg.optim.weight_decay
+            new_p = tree_util.tree_map(
+                lambda p, d: (p.float() * wd + d.float()).to(p.dtype),
+                state["params"], delta_tree)
+        else:
+            grads = out[0]
+            del out
+            gnorm = global_grad_norm(grads)
+            factor = clip_factor(gnorm, self.cfg.optim.clip_norm)
+            grads = tree_util.tree_map(lambda g: g * factor, grads)
+            new_p, new_opt = adamw_tree_update(state["params"], grads,
+                                               state["opt"], state["step"],
+                                               lr, self.cfg.optim)
         new_state = {"params": new_p, "opt": new_opt,
                      "step": state["step"] + 1}
-        if self.arena is not None:
-            new_state["arena"] = buf
-        if ef is not None:
-            new_state["ef"] = ef
+        for key, buf in zip(("arena", "ef"), extra):
+            new_state[key] = buf
         metrics = {"loss": self.ctx.pmean_data(loss), "grad_norm": gnorm,
                    "lr": lr}
         return new_state, metrics
+
+    def _shard_norm(self, shards: list) -> torch.Tensor:
+        """The exact global norm of the reduced gradient from this rank's
+        shards: the sum of squares over :attr:`norm_ranges` (the reference's
+        weighted sum, every weight 1.0 or 0), summed over data."""
+        sq = torch.zeros((), dtype=torch.float32, device=self.device)
+        for s, ranges in zip(shards, self.norm_ranges):
+            for start, stop in ranges:
+                sq = sq + torch.sum(torch.square(s[start:stop]))
+        return torch.sqrt(self.ctx.psum(self.ctx.psum_data(sq)))
 
 
 def init_train_state(model: Model, step: TrainStep, *, params=None,
@@ -181,12 +324,18 @@ def init_train_state(model: Model, step: TrainStep, *, params=None,
     """``{"params", "opt", "step"}`` (+ ``"arena"``, and under a wire codec
     ``"ef"``, both allocated here once) on the step's device: ``params``
     when given (e.g. bridged from the reference), else fresh ones drawn
-    from ``generator``."""
+    from ``generator``.  Under ``zero1``, ``opt`` holds lists of this
+    rank's fp32 moment shards (:attr:`TrainStep.shard_sizes`)."""
     if params is None:
         if generator is None:
             raise ValueError("pass params or a generator")
         params = model.init(generator, step.device)
-    state = {"params": params, "opt": init_opt_state(params), "step": 0}
+    if step.cfg.dp_mode == "zero1":
+        opt = init_opt_state_flat([torch.empty(n, device=step.device)
+                                   for n in step.shard_sizes])
+    else:
+        opt = init_opt_state(params)
+    state = {"params": params, "opt": opt, "step": 0}
     if step.arena is not None:
         state["arena"] = step.arena.zeros(step.device)
         if isinstance(step.arena, QuantCommArena):

@@ -42,19 +42,22 @@ def _build(node, it):
     return kind(_build(c, it) for c in children)
 
 
+def _walk(t, leaves: list):
+    if isinstance(t, dict):
+        return ("dict", tuple((k, _walk(t[k], leaves)) for k in sorted(t)))
+    if isinstance(t, (list, tuple)):
+        return (type(t), tuple(_walk(v, leaves) for v in t))
+    leaves.append(t)
+    return None
+
+
 def flatten(tree) -> tuple[list, TreeDef]:
-    """Leaves in JAX order and the tree's structure."""
+    """Leaves in JAX order and the tree's structure.  The walk is a module
+    function: a recursive closure would hold ``leaves`` in a reference
+    cycle, keeping every leaf (a gradient, a delta) alive until the
+    garbage collector ran."""
     leaves: list = []
-
-    def walk(t):
-        if isinstance(t, dict):
-            return ("dict", tuple((k, walk(t[k])) for k in sorted(t)))
-        if isinstance(t, (list, tuple)):
-            return (type(t), tuple(walk(v) for v in t))
-        leaves.append(t)
-        return None
-
-    return leaves, TreeDef(walk(tree))
+    return leaves, TreeDef(_walk(tree, leaves))
 
 
 def leaves(tree) -> list:

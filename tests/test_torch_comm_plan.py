@@ -95,6 +95,29 @@ def test_leaf_order_is_jax_tree_order(trees):
     assert tree_util.leaves(back) == leaves
 
 
+def test_flatten_holds_no_leaf_past_its_caller():
+    """A flattened leaf is freed as soon as its last reference goes, with
+    the garbage collector off: flatten keeps no reference cycle to it."""
+    import gc
+    import weakref
+
+    leaf = torch.ones(3)
+    ref = weakref.ref(leaf)
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        tree = {"b": [leaf, (torch.zeros(1),)], "a": {"c": torch.zeros(2)}}
+        del leaf
+        flat, tdef = tree_util.flatten(tree)
+        assert tree_util.leaves(tdef.unflatten(flat)) == flat
+        mapped = tree_util.tree_map(lambda t: t + 1, tree)
+        del tree, flat, mapped
+        assert ref() is None
+    finally:
+        if enabled:
+            gc.enable()
+
+
 def test_transport_capabilities_match_reference():
     jspecs = jax_transport_specs()
     for name, spec in transport_specs().items():

@@ -15,7 +15,9 @@
   visible share of the learning rate (1e-2); 1e-4 is 1 % of one step.  The port's recorded
   sends per step equal the plan's messages, and with the arena its bytes
   equal the plan's arena bytes, exactly.
-* The train CLI refuses the data-parallel modes it does not have yet.
+* The train CLI resolves llama3.2-1b's full-size default to ``zero1``
+  (without training 1.24 B parameters on the CPU), runs a reduced
+  ``--dp-mode zero1`` step to its end, and still refuses ``fsdp``.
 """
 
 import os
@@ -172,9 +174,20 @@ def test_two_rank_trajectory_follows_reference(reference, use_arena):
     ["--arch", ARCH, "--device", "cpu"],                 # defaults to zero1
     ["--arch", ARCH, "--reduced", "--dp-mode", "zero1", "--device", "cpu"],
     ["--arch", ARCH, "--reduced", "--dp-mode", "fsdp", "--device", "cpu"]])
-def test_cli_refuses_unported_dp_modes(argv):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        launch_train.main(argv + ["--steps", "1"])
+def test_cli_refuses_unported_dp_modes(argv, capsys):
+    """Only ``fsdp`` is refused since zero1 was ported; the zero1 cases
+    check that the mode resolves and trains."""
+    argv = argv + ["--steps", "1"]
+    if "fsdp" in argv:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            launch_train.main(argv)
+    elif "--reduced" in argv:
+        launch_train.main(argv)                  # one step, to its end
+        out = capsys.readouterr().out
+        assert "dp_mode=zero1" in out and "[train] step     0" in out
+    else:
+        args = launch_train.parser().parse_args(argv)
+        assert launch_train.resolve_dp_mode(args) == "zero1"
 
 
 def test_launcher_spawns_ranks_and_reports_a_failing_one():
