@@ -157,7 +157,8 @@ Phases, each of which raises on a failed check (exit code != 0):
               the kernels and through the plain versions from the same
               state and local gradients: shards, parameters and gradient
               norm bitwise; then one profiled step, with the peak;
-20. train_ring_zero1 — train_ring's checks for zero1 (two ranks, full
+20. train_ring_zero1 — train_ring's checks for zero1, under deterministic
+              algorithms (two ranks, full
               width at ``ZERO1_RING_LAYERS`` = 16 layers, the full depth;
               it runs right after the build, while this process holds
               nothing on the card, and every two-rank phase logs what the
@@ -174,9 +175,45 @@ Phases, each of which raises on a failed check (exit code != 0):
               delta all-gather's encode at the source and p decodes
               included; ``write_quant`` == segments x steps and
               ``read_dequant`` == spans x steps (no re-encode of a reduced
-              span, no int8 unpack: the delta spans are fp32 pack reads).
+              span, no int8 unpack: the delta spans are fp32 pack reads);
+22. train_fsdp — the train phase's run with ``--dp-mode fsdp`` (ZeRO-3,
+              the native gather, bf16): one rank, 16 layers, the arena on,
+              3 steps under ``torch.use_deterministic_algorithms``: with
+              ``gather_dtype="float32"`` the first batch's gradients are a
+              replicated step's bitwise, leaf by leaf; with the bf16
+              gathers the first two losses are train_zero1's deterministic
+              replicated run's bitwise (the third is reported); pack
+              writes and reads == group buckets x steps (18 at 16 layers),
+              all bulk, the kernel step == the plain step bitwise; one
+              profiled step, the peak;
+23. train_ring_fsdp — two fsdp ranks at the full 16 layers over the ring
+              gather (``fsdp_gather="ring"`` on the CLI's step config),
+              deterministic, right after train_ring_zero1 (which runs
+              deterministic too): ``reduce_add`` (fp32 + bf16 -> fp32)
+              launches == the backward reduce-scatter's hops, pack writes
+              and reads == group buckets x steps, sends and bytes == the
+              forward gathers, the remat re-gathers and the reduce-scatter
+              (:func:`fsdp_expected`), the first two losses bitwise
+              train_ring_zero1's, each rank's kernel step (its own backward
+              pass) == its plain step bitwise; then one step with the arena
+              off;
+24. train_ring_fsdp_int8 — two fsdp ranks at 4 layers over the native
+              gather (``all_gather_into_tensor``/``reduce_scatter_tensor``
+              staged through pinned memory) with ``--wire-codec int8``:
+              ``write_quant`` and ``read_dequant`` == segments x steps, no
+              hop, native gathers and reduce-scatters and their bytes as
+              expected, the kernel step == the plain step bitwise;
+25. prefill_gathered — ``build_prefill(weight_mode="gathered")`` at full
+              width, 16 layers, B=1, S=4096, the weights as fsdp shards:
+              16 wgmma flash-attention launches and no other, logits within
+              the engine's bf16 tolerance of the resident prefill's;
+26. timing  — ``reduce_add`` at fsdp's mix (fp32 + bf16 -> fp32) at the
+              largest (embedding) and median (block) hop of
+              train_ring_fsdp, bitwise its plain version, beside
+              ``torch.add(fp32, bf16)`` and the bound (10 bytes an
+              element).
 
-It prints a ``{"kernels": [...]}`` line, the card's name and power limit as
+Each phase prints its seconds (``[phase]``).  It prints a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` gives them, and as its last line
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
 the repository, it exits with an error and prints no result.
@@ -781,33 +818,41 @@ def params_digest(tree) -> list[int]:
     return out
 
 
-def kernel_vs_plain_step(step, state, batch, device) -> dict:
+def kernel_vs_plain_step(step, state, batch, device, *,
+                         shared: bool = True) -> dict:
     """One step of ``step`` through the kernels and through the plain
-    versions, from the same state and the same local gradients (one
-    backward pass: autograd's scatter-add backward is not bitwise
-    reproducible from run to run on the card, which would hide what is
-    compared).  The plain step gets a copy of "ef", which a step reads and
-    updates in place; the arena it shares (a step writes every segment
-    before reading it, and neither step writes its padding).  Compares,
-    bitwise, by :func:`params_digest` on the card: what the reduction
-    returned (the reduced tree, or zero1's shards, taken before they are
-    clipped), the new parameters, the new "ef" and the gradient norm."""
+    versions, from the same state.  With ``shared``, from the same local
+    gradients too (one backward pass: autograd's scatter-add backward is
+    not bitwise reproducible from run to run on the card, which would hide
+    what is compared); fsdp's ring gather reduce-scatters inside the
+    backward pass, so there each step takes its own (``shared=False``,
+    under deterministic algorithms).  The plain step gets a copy of "ef",
+    which a step reads and updates in place; the arena it shares (a step
+    writes every segment before reading it, and neither step writes its
+    padding).  Compares, bitwise, by :func:`params_digest` on the card:
+    what the reduction returned (the reduced tree, zero1's shards taken
+    before they are clipped, or fsdp's gradient shards), the new parameters
+    (fsdp: the new shards), the new "ef" and the gradient norm."""
     import dataclasses
 
     from repro_torch.runtime.train_step import TrainStep
 
+    key = "groups" if step.fsdp is not None else "params"
     plain = TrainStep(step.model, step.comm.mesh, dataclasses.replace(
         step.cfg, comm=dataclasses.replace(step.cfg.comm,
                                            local_op="plain")),
         device=device)
     plain_state = dict(state, **{k: state[k].clone()
                                  for k in ("ef",) if k in state})
-    # one microbatch: each step asks for the local gradients once, and the
-    # plain step takes the last reference, so that they are freed as soon
-    # as its reduction has packed them
-    local = [step._grad_fn(state["params"],
-                           {k: v.to(device) for k, v in batch.items()})]
     digests = {"reduced": [], "params": [], "ef": [], "grad_norm": []}
+    if shared:
+        # one microbatch: each step asks for the local gradients once, and
+        # the plain step takes the last reference, so that they are freed
+        # as soon as its reduction has packed them
+        local = [step._grad_fn(state[key],
+                               {k: v.to(device) for k, v in batch.items()})]
+        step._grad_fn = lambda params, mb: local[0]
+        plain._grad_fn = lambda params, mb: local.pop()
 
     def keep_reduced(s):
         reduce = s.comm.reduce_scheduled
@@ -818,19 +863,18 @@ def kernel_vs_plain_step(step, state, batch, device) -> dict:
             return loss, out
         s.comm.reduce_scheduled = wrapped
 
-    step._grad_fn = lambda params, mb: local[0]
-    plain._grad_fn = lambda params, mb: local.pop()
     for s in (step, plain):
         keep_reduced(s)
     try:
         for s, st in ((step, state), (plain, plain_state)):
             new, metrics = s(st, batch)
-            digests["params"].append(params_digest(new["params"]))
+            digests["params"].append(params_digest(new[key]))
             digests["ef"].append(params_digest(new.get("ef", [])))
             digests["grad_norm"].append(float(metrics["grad_norm"]))
             del new
     finally:
-        del step._grad_fn, step.comm.reduce_scheduled
+        step.__dict__.pop("_grad_fn", None)
+        del step.comm.reduce_scheduled
     differ = [k for k, (a, b) in digests.items() if a != b]
     return {"bitwise": not differ, "differ": differ,
             "max_diff": 0.0 if not differ else float("nan")}
@@ -1156,14 +1200,15 @@ def phase_train_int8(dev, fp32_losses: list[float]) -> dict:
     return out
 
 
-def _train_run(argv: list[str], what: str):
+def _train_run(argv: list[str], what: str,
+               step_overrides: dict | None = None):
     """``launch.train``'s setup of one rank from ``argv``, at full width
     and 16 layers."""
     from repro_torch.launch import train as launch_train
 
     args = launch_train.parser().parse_args(argv)
     world = launch_train.init_distributed(args.device)
-    run = launch_train.setup(args, world)
+    run = launch_train.setup(args, world, step_overrides=step_overrides)
     _check_full_width(run.model.cfg, 16, what)
     return args, run
 
@@ -1291,6 +1336,14 @@ def phase_train_zero1(dev, fp32_losses: list[float]) -> dict:
     return out
 
 
+def _deterministic(torch) -> None:
+    """Deterministic algorithms for a two-rank worker, without their fill
+    of every ``torch.empty`` tensor: the fill writes each staging buffer in
+    pinned host memory once more, which multiplies the staging time."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+
+
 def _ring_worker(argv: list[str]) -> dict:
     """One of two ranks of the train_ring phases (a spawned process): the
     fp32 arena, or with ``--wire-codec int8`` the int8 arena, and then,
@@ -1308,6 +1361,10 @@ def _ring_worker(argv: list[str]) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     args = launch_train.parser().parse_args(argv)
     quant = args.wire_codec is not None
+    if launch_train.resolve_dp_mode(args) == "zero1":
+        # reproducible, so that train_ring_fsdp's losses can be held to
+        # these (the index ops' backward adds with atomics otherwise)
+        _deterministic(torch)
     world = launch_train.init_distributed(args.device)
     try:
         run = launch_train.setup(args, world)
@@ -1567,6 +1624,538 @@ def phase_train_ring(argv: list[str], tag: str) -> dict:
             f"recorded sends {bucket['record']['sends']} and bytes "
             f"{bucket['record']['send_bytes']} == plan")
     return {"ranks": ranks, "staging_s": staging, "card_before": before}
+
+
+# fsdp (ZeRO-3): the train phase's run with --dp-mode fsdp; two ranks at
+# the full 16 layers over the ring gather (set on the step config the CLI
+# builds: the reference's CLI has no flag for it), and over the native
+# gather with the int8 arena at 4 layers
+FSDP_ARGS = ["fsdp" if a == "replicated" else a for a in TRAIN_ARGS]
+FSDP_RING_LAYERS = 16
+FSDP_RING_ARGS = FSDP_ARGS + ["--layers", str(FSDP_RING_LAYERS)]
+FSDP_INT8_ARGS = FSDP_ARGS + ["--layers", "4"] + INT8_ARGS
+
+
+def fsdp_expected(step, steps: int, p: int) -> tuple[dict, dict]:
+    """What ``steps`` fsdp steps of ``step`` launch and put on the wire,
+    derived from its plan and the code, for one data axis of ``p`` ranks.
+
+    Per microbatch every group bucket is gathered once in the forward pass
+    and, under ``remat="layer"`` (llama3.2-1b's), a block's once more when
+    the backward pass recomputes the block; the backward reduce-scatters
+    every bucket once.  The ring gather sends each channel slice of the
+    ``n / p``-element shard ``p - 1`` times in the gather dtype (bf16); the
+    ring reduce-scatter sends the same slices in fp32 and adds each one it
+    receives (``reduce_add``, fp32 + bf16 -> fp32).  The native gather is
+    one ``all_gather_into_tensor`` of the shard and one
+    ``reduce_scatter_tensor`` of the ``n``-element cotangent, bf16.  The
+    arena (the accumulation buffer) packs each gradient shard once and
+    reads it once a step: ``pack``, or ``pack_quant`` under the int8
+    codec."""
+    import torch
+
+    from repro_torch.core.ring import _channel_slices
+
+    plan, comm = step.fsdp, step.comm
+    runs = step.schedule.microbatches * steps
+    remat = step.model.cfg.remat == "layer"
+    item = getattr(torch, step.cfg.gather_dtype).itemsize
+    counts = dict.fromkeys(launch_counters(), 0)
+    wire = dict.fromkeys(("sends", "send_bytes", "all_gathers",
+                          "all_gather_bytes", "reduce_scatters",
+                          "reduce_scatter_bytes"), 0)
+    if step.arena is not None:
+        names = (("pack_quant_write", "pack_quant_read")
+                 if comm.codec is not None else ("pack_write", "pack_read"))
+        for name in names:
+            counts[name] = plan.arena_layout.n_segments * steps
+    if p == 1:
+        return counts, wire
+    for name, bplan in plan.plans.items():
+        gathers = 2 if remat and name.startswith("blocks.") else 1
+        for n in bplan.bucket_sizes:
+            shard = n // p
+            if plan.gather_impl == "ring":
+                slices = len(_channel_slices(shard, comm.transport.ring_cfg))
+                counts["reduce_add"] += slices * (p - 1) * runs
+                wire["sends"] += (gathers + 1) * slices * (p - 1) * runs
+                wire["send_bytes"] += ((gathers * item + 4) * shard
+                                       * (p - 1) * runs)
+            else:
+                wire["all_gathers"] += gathers * runs
+                wire["all_gather_bytes"] += gathers * shard * item * runs
+                wire["reduce_scatters"] += runs
+                wire["reduce_scatter_bytes"] += n * item * runs
+    return counts, wire
+
+
+def _check_counts(tag: str, counts: dict, expected: dict) -> None:
+    if counts != expected:
+        raise AssertionError(f"[{tag}] launches {counts} != expected "
+                             f"{expected}")
+
+
+def _check_launches(tag: str, counts: dict, expected: dict,
+                    routes: dict) -> None:
+    """Launches as expected, every pack copy on the bulk route."""
+    _check_counts(tag, counts, expected)
+    bulk = expected["pack_write"] + expected["pack_read"]
+    if routes != {"bulk": bulk, "vector": 0}:
+        raise AssertionError(f"[{tag}] pack launches by route {routes}, "
+                             f"expected all {bulk} bulk")
+
+
+def _fsdp_param_tree(plan, groups: dict) -> dict:
+    """One rank's fsdp ``{group: [shards]}`` (whole buckets at world 1) as
+    the model's parameter tree."""
+    if plan.dp_world != 1:
+        raise ValueError("whole buckets need world 1")
+    tree: dict = {"blocks": []}
+    for name in plan.groups:               # the blocks in layer order
+        kind, _, key = name.partition(".")
+        group = plan.bucketer.debucketize(groups[name], plan.plans[name])
+        if kind == "blocks":
+            tree["blocks"].append(group)
+        else:
+            tree[key] = group
+    return tree
+
+
+def phase_train_fsdp(dev, replicated_losses: list[float]) -> dict:
+    """The train phase's run with ``--dp-mode fsdp``: one rank, full
+    llama3.2-1b (16 layers), the arena on, 3 steps, under
+    ``torch.use_deterministic_algorithms``; then the kernel step against
+    the plain step and one profiled step.
+
+    Held against the replicated run of the same seed and batches, both
+    deterministic: with ``gather_dtype="float32"`` the fsdp gradients of
+    the first batch (the gathers, the remat re-gathers and the
+    reduce-scatters, the identity at world 1, in the backward pass) are
+    the replicated gradients bitwise, leaf by leaf; with the bf16 gathers
+    of the main path the first two losses are the replicated run's
+    (train_zero1's) bitwise, before an update moves a weight.  The third
+    is reported, not held: the gathered norm scales are bf16 where the
+    replicated step's are fp32, and at this learning rate the third loss
+    moves visibly under last-bit changes of the parameters (another
+    summation order of the gradient norm is enough)."""
+    import gc
+
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.runtime.train_step import shard_batch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _, rep = _train_run(TRAIN_ARGS, "train_fsdp")
+        batch0 = {k: v.to(dev) for k, v in shard_batch(
+            rep.trainer.data.batch_at(0), 0, 1).items()}
+        want = rep.trainer.step_fn._grad_fn(rep.trainer.state["params"],
+                                            batch0)[1]
+        del rep
+        gc.collect()
+        torch.cuda.empty_cache()
+        _, run = _train_run(FSDP_ARGS, "train_fsdp",
+                            {"gather_dtype": "float32"})
+        step = run.trainer.step_fn
+        got = _fsdp_param_tree(step.fsdp, step._grad_fn(
+            run.trainer.state["groups"], batch0)[1])
+        pairs = list(zip(tree_util.leaves(want), tree_util.leaves(got)))
+        grads_equal = sum(int(torch.equal(a, b)) for a, b in pairs)
+        n_leaves = len(pairs)
+        del run, step, want, got, pairs
+        gc.collect()
+        torch.cuda.empty_cache()
+        args, run = _train_run(FSDP_ARGS, "train_fsdp")
+        trainer = run.trainer
+        step = trainer.step_fn
+        if (step.cfg.dp_mode, step.cfg.fsdp_gather, step.cfg.gather_dtype) \
+                != ("fsdp", "native", "bfloat16"):
+            raise AssertionError(f"[train_fsdp] the step runs {step.cfg}")
+        layout = step.arena.layout
+        ptr = trainer.state["arena"].data_ptr()
+        expected, _ = fsdp_expected(step, args.steps, 1)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counters()
+        hist = trainer.run()["history"]
+        counts = launch_counters()
+        routes = pack_routes()
+        peak = torch.cuda.max_memory_allocated(dev)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if grads_equal != n_leaves:
+        raise AssertionError(f"[train_fsdp] fp32 gathers: only "
+                             f"{grads_equal} of {n_leaves} gradient leaves "
+                             f"equal the replicated step's")
+    losses = [h["loss"] for h in hist]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[train_fsdp] non-finite loss: {losses}")
+    dloss = [abs(a - b) for a, b in zip(losses, replicated_losses)]
+    if losses[:2] != replicated_losses[:2]:
+        raise AssertionError(f"[train_fsdp] first losses {losses[:2]} != "
+                             f"the replicated run's {replicated_losses[:2]}")
+    if trainer.state["arena"].data_ptr() != ptr:
+        raise AssertionError("[train_fsdp] the arena moved between steps")
+    _check_launches("train_fsdp", counts, expected, routes)
+    batch = shard_batch(trainer.data.batch_at(trainer.state["step"]), 0, 1)
+    same = kernel_vs_plain_step(step, trainer.state, batch, dev)
+    if not same["bitwise"]:
+        raise AssertionError(f"[train_fsdp] kernel step and plain step "
+                             f"differ: {same['differ']}")
+    prof = step_profile(trainer, 0, 1, profiled=True)
+    segs = layout.n_segments
+    out = {"losses": losses, "replicated_losses": replicated_losses,
+           "dloss_vs_replicated": dloss,
+           "fp32_gather_grad_leaves_equal": [grads_equal, n_leaves],
+           "step_s": [h["sec"] for h in hist], "launches": counts,
+           "pack_routes": routes, "n_segments": segs,
+           "arena_bytes": layout.total_bytes, "peak_bytes": peak,
+           "max_diff": same["max_diff"], "profile": prof}
+    log(f"[train_fsdp] llama3.2-1b 16 layers, 1 rank, fsdp (native "
+        f"gather): with fp32 gathers the first batch's gradients == the "
+        f"replicated step's bitwise ({grads_equal} of {n_leaves} leaves); "
+        f"bf16 gathers, {segs} group buckets, arena {layout.total_bytes} "
+        f"B: losses {', '.join(f'{x:.4f}' for x in losses)}; |loss - "
+        f"replicated loss| {', '.join(f'{x:.2e}' for x in dloss)} (the "
+        f"first two bitwise; deterministic); step wall "
+        f"{', '.join(f'{h['sec'] * 1e3:.0f}' for h in hist)} ms; peak "
+        f"{peak / 2**30:.1f} GiB")
+    log(f"[train_fsdp] pack launches write {counts['pack_write']} and read "
+        f"{counts['pack_read']} == {segs} x {args.steps} each, by route "
+        f"{routes}; arena data_ptr stable; kernel step == plain-version "
+        f"step, gradient shards and shards bitwise")
+    log(f"[train_fsdp] profiled step: wall {prof['step_wall_ms']:.1f} ms, "
+        f"device busy {prof['step_device_ms']:.1f} ms, idle share "
+        f"{prof['idle_share']:.3f}; the profiler recorded "
+        f"{prof['port_kernels']['recorded']} of the "
+        f"{prof['port_kernels']['launched']} pack launches")
+    del run, trainer, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fsdp_ring_worker(argv: list[str], gather: str) -> dict:
+    """One of two ranks of the fsdp two-rank phases (a spawned process):
+    3 steps with the arena, the kernel step against the plain step, one
+    profiled step and, over the ring gather, one step with the arena off.
+    Deterministic algorithms throughout (and cuBLAS's reproducible
+    workspace): over the ring gather the reduce-scatter runs inside the
+    backward pass, so the kernel and plain steps each run their own."""
+    import os
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.ring import _channel_slices
+    from repro_torch.launch import train as launch_train
+    from repro_torch.runtime.train_step import shard_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _deterministic(torch)
+    args = launch_train.parser().parse_args(argv)
+    world = launch_train.init_distributed(args.device)
+    over = {"fsdp_gather": gather}
+    try:
+        run = launch_train.setup(args, world, step_overrides=over)
+        _check_full_width(run.model.cfg, args.layers, "train_ring_fsdp")
+        trainer = run.trainer
+        step = trainer.step_fn
+        comm = step.comm
+        p = world.size
+        plan = step.fsdp
+        layout = step.arena.layout
+        kept = [k for k in ("arena", "ef") if k in trainer.state]
+        ptrs = [trainer.state[k].data_ptr() for k in kept]
+        predicted, wire = fsdp_expected(step, args.steps, p)
+        reset_launch_counters()
+        comm.record.reset()
+        torch.cuda.reset_peak_memory_stats(world.device)
+        hist = trainer.run()["history"]
+        counts = launch_counters()
+        routes = pack_routes()
+        record = comm.record.as_dict()
+        peak_run = torch.cuda.max_memory_allocated(world.device)
+        stable = [trainer.state[k].data_ptr() for k in kept] == ptrs
+        state = trainer.state
+        batch = shard_batch(trainer.data.batch_at(state["step"]),
+                            world.rank, p)
+        same = kernel_vs_plain_step(step, state, batch, world.device,
+                                    shared=gather != "ring")
+        prof = step_profile(trainer, world.rank, p, profiled=world.rank == 0)
+        hop_widths = sorted(
+            w for bplan in plan.plans.values() for n in bplan.bucket_sizes
+            for _, w, _ in _channel_slices(n // p, comm.transport.ring_cfg))
+        out = {"backend": world.backend, "gather": gather,
+               "layers": args.layers, "losses": [h["loss"] for h in hist],
+               "step_s": [h["sec"] for h in hist], "counts": counts,
+               "predicted": predicted, "record": record, "wire": wire,
+               "pack_routes": routes, "stable": stable,
+               "bitwise": same["bitwise"], "differ": same["differ"],
+               "max_diff": same["max_diff"],
+               "n_buckets": sum(b.n_buckets for b in plan.plans.values()),
+               "n_segments": layout.n_segments,
+               "arena_bytes": layout.total_bytes,
+               "shard_bytes": 4 * sum(n for sizes in plan.shard_sizes.values()
+                                      for n in sizes),
+               "hop_widths": hop_widths, "params": run.model.param_count(),
+               "peak_run_bytes": peak_run,
+               "peak_bytes": torch.cuda.max_memory_allocated(world.device),
+               "profile": prof, "bucket": None}
+        if gather == "ring":
+            trainer.state = state = None
+            del run, trainer, step, comm, state
+            gc.collect()
+            torch.cuda.empty_cache()
+            argv = [a for a in argv if a != "--use-arena"]
+            argv[argv.index("--steps") + 1] = "1"
+            args = launch_train.parser().parse_args(argv)
+            run = launch_train.setup(args, world, step_overrides=over)
+            step = run.trainer.step_fn
+            bpred, bwire = fsdp_expected(step, 1, p)
+            reset_launch_counters()
+            step.comm.record.reset()
+            h = run.trainer.run()["history"][0]
+            out["bucket"] = {"loss": h["loss"], "step_s": h["sec"],
+                             "counts": launch_counters(),
+                             "predicted": bpred, "wire": bwire,
+                             "record": step.comm.record.as_dict()}
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def _check_wire(tag: str, record: dict, wire: dict) -> None:
+    for key, want in wire.items():
+        if record[key] != want:
+            raise AssertionError(f"[{tag}] recorded {key} {record[key]} != "
+                                 f"expected {want}")
+
+
+def phase_train_ring_fsdp(argv: list[str], tag: str, gather: str,
+                          zero1_losses: list[float] | None = None) -> dict:
+    """Two fsdp ranks on the one card over gloo (hops and native
+    collectives staged through pinned host memory), full width at
+    ``--layers``; when ``zero1_losses`` are given (train_ring_zero1's: the
+    same seed, batches and depth, both deterministic), the first two
+    losses are those bitwise (the bf16 gathers are zero1's bf16 casts
+    before the first update moves a weight; see :func:`phase_train_fsdp`
+    for the third)."""
+    from repro_torch.launch import train as launch_train
+
+    before = card_memory()
+    log(f"[{tag}] before the ranks spawn: {before['card_used_mib']} of "
+        f"{before['card_total_mib']} MiB of the card in use, this process's "
+        f"allocator reserving {before['parent_reserved_bytes']} B")
+    ranks = launch_train.spawn(_fsdp_ring_worker, 2, argv, gather,
+                               timeout=900)
+    for r, out in enumerate(ranks):
+        if out["backend"] != "gloo":
+            raise AssertionError(f"[{tag}] rank {r} backend "
+                                 f"{out['backend']}, expected gloo")
+        if not all(math.isfinite(x) for x in out["losses"]):
+            raise AssertionError(f"[{tag}] rank {r} non-finite loss")
+        if not out["stable"]:
+            raise AssertionError(f"[{tag}] rank {r}: the arena moved")
+        _check_launches(f"{tag} rank {r}", out["counts"], out["predicted"],
+                        out["pack_routes"])
+        _check_wire(f"{tag} rank {r}", out["record"], out["wire"])
+        if not out["bitwise"]:
+            raise AssertionError(f"[{tag}] rank {r}: kernel step and "
+                                 f"plain step differ: {out['differ']}")
+        bucket = out["bucket"]
+        if gather == "ring" and bucket is None:
+            raise AssertionError(f"[{tag}] rank {r} ran no bucket pass")
+        if bucket is not None:
+            if not math.isfinite(bucket["loss"]):
+                raise AssertionError(f"[{tag}] bucket pass rank {r}: "
+                                     f"non-finite loss")
+            _check_counts(f"{tag} bucket pass rank {r}", bucket["counts"],
+                          bucket["predicted"])
+            _check_wire(f"{tag} bucket pass rank {r}", bucket["record"],
+                        bucket["wire"])
+    if ranks[0]["losses"] != ranks[1]["losses"]:
+        raise AssertionError(f"[{tag}] the ranks disagree on the loss")
+    out = ranks[0]
+    dloss = None
+    if zero1_losses is not None:
+        dloss = [abs(a - b) for a, b in zip(out["losses"], zero1_losses)]
+        if out["losses"][:2] != zero1_losses[:2]:
+            raise AssertionError(f"[{tag}] first losses {out['losses'][:2]}"
+                                 f" != train_ring_zero1's "
+                                 f"{zero1_losses[:2]}")
+    staging = [o["record"]["staging_s"] for o in ranks]
+    prof = out["profile"]
+    log(f"[{tag}] 2 ranks on one card over gloo, fsdp ({gather} gather), "
+        f"{out['layers']} layers ({out['params']} params), "
+        f"{out['n_buckets']} group buckets, {out['shard_bytes']} B of fp32 "
+        f"shards a rank, arena {out['arena_bytes']} B: losses "
+        f"{', '.join(f'{x:.4f}' for x in out['losses'])}"
+        + ("" if dloss is None else
+           f" (|loss - train_ring_zero1's| "
+           f"{', '.join(f'{x:.2e}' for x in dloss)}: the first two bitwise)")
+        + f"; step wall {', '.join(f'{x * 1e3:.0f}' for x in out['step_s'])}"
+        f" ms; host staging {staging[0]:.2f} / {staging[1]:.2f} s over "
+        f"{len(out['losses'])} steps; peak "
+        f"{out['peak_run_bytes'] / 2**30:.1f} GiB a rank over the steps, "
+        f"{out['peak_bytes'] / 2**30:.1f} GiB with the kernel-vs-plain check "
+        f"and the profiled step")
+    wire = {k: v for k, v in out["wire"].items() if v}
+    log(f"[{tag}] launches == expected "
+        f"{ {k: v for k, v in out['predicted'].items() if v} }, pack by "
+        f"route {out['pack_routes']}; recorded wire == expected {wire} on "
+        f"both ranks; kernel step == plain-version step, gradient shards and "
+        f"shards bitwise on both ranks ({'each its own backward pass, '
+        'deterministic' if gather == 'ring' else 'one backward pass'})")
+    log(f"[{tag}] profiled step (rank 0): wall {prof['step_wall_ms']:.1f} "
+        f"ms, device busy {prof['step_device_ms']:.1f} ms, idle share "
+        f"{prof['idle_share']:.3f}; the profiler recorded "
+        f"{prof['port_kernels']['recorded']} of the "
+        f"{prof['port_kernels']['launched']} launches of the port's kernels")
+    bucket = out["bucket"]
+    if bucket is not None:
+        log(f"[{tag}] arena off, 1 step: loss {bucket['loss']:.4f}, step "
+            f"wall {bucket['step_s'] * 1e3:.0f} ms; launches == expected "
+            f"{ {k: v for k, v in bucket['predicted'].items() if v} }; "
+            f"recorded wire == expected "
+            f"{ {k: v for k, v in bucket['wire'].items() if v} }")
+    return {"ranks": ranks, "staging_s": staging, "card_before": before,
+            "dloss_vs_zero1": dloss}
+
+
+def phase_prefill_gathered(dev) -> dict:
+    """``build_prefill`` with ``weight_mode="gathered"`` on llama3.2-1b at
+    full width (16 layers), one rank, B=1, S=4096: the parameters as the
+    fsdp plan's flat shards, gathered in bf16 at the call.  Launches the
+    wgmma flash-attention kernel once per layer and nothing else; its
+    logits held against the resident prefill of the same weights and tokens
+    within the engine's bf16 tolerance (the gathered norm weights are bf16
+    where the resident ones are fp32)."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import build_model
+    from repro_torch.runtime.serve_step import build_prefill
+    from repro_torch.runtime.train_step import (FsdpPlan, TrainStepConfig,
+                                                data_mesh)
+
+    model = build_model(get_config(ARCH))
+    _check_full_width(model.cfg, 16, "prefill_gathered")
+    layers = model.cfg.num_layers
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    groups = FsdpPlan(model, data_mesh(1), TrainStepConfig(
+        dp_mode="fsdp")).shard_state(params)
+    shape = ShapeConfig("prefill_check", PREFILL_CHECK_SEQ, 1, "prefill")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, model.cfg.vocab_size,
+                                     (1, PREFILL_CHECK_SEQ), generator=gen,
+                                     device=dev, dtype=torch.int32)}
+    resident = build_prefill(model, shape, device=dev)
+    gathered = build_prefill(model, shape, weight_mode="gathered",
+                             device=dev)
+    want = resident(params, batch)
+    gathered({"groups": groups}, batch)              # warm
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counters()
+    t0 = time.perf_counter()
+    got = gathered({"groups": groups}, batch)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    counts, routes = launch_counters(), attn_routes()
+    peak = torch.cuda.max_memory_allocated(dev)
+    t0 = time.perf_counter()
+    resident(params, batch)
+    torch.cuda.synchronize(dev)
+    wall_resident = time.perf_counter() - t0
+    if counts != dict(dict.fromkeys(counts, 0), flash_attn=layers) or \
+            routes != dict(dict.fromkeys(routes, 0), wgmma=layers):
+        raise AssertionError(f"[prefill_gathered] launches {counts}, by "
+                             f"route {routes}: expected {layers} wgmma "
+                             f"flash_attn and no other")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("[prefill_gathered] non-finite logits")
+    diff = (got.float() - want.float()).abs()
+    outside = int((diff > ENGINE_ATOL + ENGINE_RTOL * want.float().abs())
+                  .sum())
+    err = {"max_abs_diff": diff.max().item(),
+           "rel_l2": (diff.norm() / want.float().norm()).item(),
+           "outside": outside, "bitwise": bool(torch.equal(got, want))}
+    if outside:
+        raise AssertionError(f"[prefill_gathered] {outside} logits outside "
+                             f"rtol {ENGINE_RTOL} / atol {ENGINE_ATOL} of "
+                             f"the resident prefill's")
+    log(f"[prefill_gathered] llama3.2-1b 16 layers, B=1 "
+        f"S={PREFILL_CHECK_SEQ}, weights as fsdp shards gathered in bf16: "
+        f"flash_attn launches {counts['flash_attn']} (wgmma "
+        f"{routes['wgmma']}); vs the resident prefill: max |logit diff| "
+        f"{err['max_abs_diff']:.4e}, relative L2 {err['rel_l2']:.4e}, "
+        f"{outside} outside rtol {ENGINE_RTOL} / atol {ENGINE_ATOL}, "
+        f"bitwise {err['bitwise']}; wall {wall * 1e3:.1f} ms (resident "
+        f"{wall_resident * 1e3:.1f} ms), peak {peak / 2**30:.2f} GiB")
+    del params, groups, want, got, resident, gathered, diff
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": counts["flash_attn"], "launches_by_route": routes,
+            "error": err, "wall_ms": wall * 1e3,
+            "resident_wall_ms": wall_resident * 1e3, "peak_bytes": peak}
+
+
+def phase_timing_fsdp(dev, hop_widths: list[int]) -> dict:
+    """``reduce_add`` at fsdp's ring mix, fp32 + bf16 -> fp32 (the running
+    fp32 sum and the local bf16 cotangent slice), at the largest hop (the
+    embedding's) and the median hop (a block's) of train_ring_fsdp, inputs
+    rotated past the L2 and checked bitwise, beside its plain version,
+    ``torch.add(fp32, bf16)`` and the bound the memory rate sets (10 bytes
+    an element: 4 + 2 read, 4 written)."""
+    import torch
+
+    from repro_torch.kernels.reduce_add import ops as ra
+    from repro_torch.kernels.reduce_add import ref as ra_ref
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    saved = launch_counters()
+    out = {}
+    for name, n in (("largest", hop_widths[-1]),
+                    ("median", hop_widths[len(hop_widths) // 2])):
+        k = max(2, math.ceil(4 * L2_BYTES / (10 * n)))
+        pairs = [(torch.randn(n, generator=gen, device=dev),
+                  torch.randn(n, generator=gen, device=dev).bfloat16())
+                 for _ in range(k)]
+        for a, b in pairs:
+            if not torch.equal(ra.add_accum(a, b), ra_ref.add_accum(a, b)):
+                raise AssertionError(f"[timing] reduce_add fp32 + bf16 at "
+                                     f"{n} is not bitwise its plain version")
+        calls = {"ms": rotating([functools.partial(ra.add_accum, a, b)
+                                 for a, b in pairs]),
+                 "plain_ms": rotating([functools.partial(ra_ref.add_accum,
+                                                         a, b)
+                                       for a, b in pairs]),
+                 "library_ms": rotating([functools.partial(torch.add, a, b)
+                                         for a, b in pairs])}
+        times = {key: call_times(f, 10) for key, f in calls.items()}
+        row = {key: t["graph_ms"] for key, t in times.items()}
+        nbytes = 10 * n
+        row.update(bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                   elements=n, bytes=nbytes, rotation=k, times=times)
+        out[name] = row
+        log(f"[timing] reduce_add fp32 + bf16 -> fp32 at the {name} fsdp hop "
+            f"({n} elements, {nbytes} B), time per call; bound "
+            f"{row['bound_ms'] * 1e3:.2f} us (bytes), "
+            f"{row['bound_ms'] / row['ms']:.3f} of the bound, "
+            f"{row['ms'] / row['library_ms']:.3f}x torch.add:")
+        for key, t in times.items():
+            log(times_line(key.removesuffix("_ms"), t))
+        del pairs
+        torch.cuda.empty_cache()
+    set_launch_counters(saved)         # timing launches are not the path's
+    return out
 
 
 def rotating(calls):
@@ -2505,32 +3094,49 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False      # plain version: fp32
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    phase_build()
+    phase_s: dict[str, float] = {}
+
+    def run_phase(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            phase_s[name] = time.perf_counter() - t0
+            log(f"[phase] {name}: {phase_s[name]:.1f} s")
+
+    run_phase("build", phase_build)
     # first, while this process holds nothing on the card: the two ranks
-    # of the deepest phase get the whole of it
-    train_ring_zero1 = phase_train_ring(ZERO1_RING_ARGS, "train_ring_zero1")
-    kernel_err = phase_kernel(dev)
-    kernels_train = phase_kernels_train(dev)
-    serve, run = phase_serve(dev)
-    profile = phase_profile(dev, run)
-    engine_err = phase_engines(dev, run)
+    # of the deepest phases get the whole of it
+    train_ring_zero1 = run_phase("train_ring_zero1", phase_train_ring,
+                                 ZERO1_RING_ARGS, "train_ring_zero1")
+    train_ring_fsdp = run_phase(
+        "train_ring_fsdp", phase_train_ring_fsdp, FSDP_RING_ARGS,
+        "train_ring_fsdp", "ring", train_ring_zero1["ranks"][0]["losses"])
+    kernel_err = run_phase("kernel", phase_kernel, dev)
+    kernels_train = run_phase("kernels_train", phase_kernels_train, dev)
+    serve, run = run_phase("serve", phase_serve, dev)
+    profile = run_phase("profile", phase_profile, dev, run)
+    engine_err = run_phase("engines", phase_engines, dev, run)
     del run
-    timing = phase_timing(dev)
+    timing = run_phase("timing", phase_timing, dev)
     fd_times = timing.pop("rows")
     torch.cuda.empty_cache()
-    kernels_attn = phase_kernels_attn(dev)
-    prefill = phase_prefill(dev)
-    serve_contiguous = phase_serve_contiguous(dev)
-    timing_attn = phase_timing_attn(dev)
-    train, train_layout = phase_train(dev)
-    train_ring = phase_train_ring(RING_ARGS, "train_ring")
+    kernels_attn = run_phase("kernels_attn", phase_kernels_attn, dev)
+    prefill = run_phase("prefill", phase_prefill, dev)
+    serve_contiguous = run_phase("serve_contiguous", phase_serve_contiguous,
+                                 dev)
+    timing_attn = run_phase("timing_attn", phase_timing_attn, dev)
+    train, train_layout = run_phase("train", phase_train, dev)
+    train_ring = run_phase("train_ring", phase_train_ring, RING_ARGS,
+                           "train_ring")
     ring0 = train_ring["ranks"][0]
-    timing_train = phase_timing_train(dev, ring0["hop_widths"],
-                                      train_layout)
-    kernels_int8 = phase_kernels_int8(dev)
-    train_int8 = phase_train_int8(dev, train["losses"])
-    train_ring_int8 = phase_train_ring(RING_ARGS + INT8_ARGS,
-                                       "train_ring_int8")
+    timing_train = run_phase("timing_train", phase_timing_train, dev,
+                             ring0["hop_widths"], train_layout)
+    kernels_int8 = run_phase("kernels_int8", phase_kernels_int8, dev)
+    train_int8 = run_phase("train_int8", phase_train_int8, dev,
+                           train["losses"])
+    train_ring_int8 = run_phase("train_ring_int8", phase_train_ring,
+                                RING_ARGS + INT8_ARGS, "train_ring_int8")
     ring8 = train_ring_int8["ranks"][0]
     log(f"[train_ring_int8] host staging through pinned memory over 3 "
         f"steps, rank 0 / rank 1: int8 wire "
@@ -2540,14 +3146,27 @@ def main() -> None:
         f"{train_ring['staging_s'][1]:.3f} s; step wall int8 "
         f"{', '.join(f'{x * 1e3:.0f}' for x in ring8['step_s'])} ms, fp32 "
         f"{', '.join(f'{x * 1e3:.0f}' for x in ring0['step_s'])} ms")
-    timing_int8 = phase_timing_int8(dev, ring8["hop_width"],
-                                    train_int8["max_segment"],
-                                    train_int8["block"])
-    train_zero1 = phase_train_zero1(dev, train["losses"])
-    train_ring_zero1_int8 = phase_train_ring(ZERO1_INT8_ARGS,
-                                             "train_ring_zero1_int8")
+    timing_int8 = run_phase("timing_int8", phase_timing_int8, dev,
+                            ring8["hop_width"], train_int8["max_segment"],
+                            train_int8["block"])
+    train_zero1 = run_phase("train_zero1", phase_train_zero1, dev,
+                            train["losses"])
+    train_ring_zero1_int8 = run_phase("train_ring_zero1_int8",
+                                      phase_train_ring, ZERO1_INT8_ARGS,
+                                      "train_ring_zero1_int8")
+    train_fsdp = run_phase("train_fsdp", phase_train_fsdp, dev,
+                           train_zero1["replicated_losses"])
+    train_ring_fsdp_int8 = run_phase(
+        "train_ring_fsdp_int8", phase_train_ring_fsdp, FSDP_INT8_ARGS,
+        "train_ring_fsdp_int8", "native")
+    prefill_gathered = run_phase("prefill_gathered", phase_prefill_gathered,
+                                 dev)
+    fsdp0 = train_ring_fsdp["ranks"][0]
+    timing_fsdp = run_phase("timing_fsdp", phase_timing_fsdp, dev,
+                            fsdp0["hop_widths"])
     z1, z8 = (train_ring_zero1["ranks"][0],
               train_ring_zero1_int8["ranks"][0])
+    f8 = train_ring_fsdp_int8["ranks"][0]
     gpu = gpu_line()
     src = "src/repro_torch/kernels"
     launches = {"reduce_add": ring0["counts"]["reduce_add"],
@@ -2570,8 +3189,13 @@ def main() -> None:
         errs[name] = max(errs[name], int8_step)
     zero1_step = max(train_zero1["max_diff"],
                      *(o["max_diff"] for o in train_ring_zero1["ranks"]))
+    fsdp_step = max(train_fsdp["max_diff"],
+                    *(o["max_diff"] for o in train_ring_fsdp["ranks"]))
     for name in ("reduce_add", "pack_write", "pack_read"):
-        errs[name] = max(errs[name], zero1_step)
+        errs[name] = max(errs[name], zero1_step, fsdp_step)
+    for name in ("pack_quant_write", "pack_quant_read"):
+        errs[name] = max(errs[name], *(o["max_diff"] for o in
+                                       train_ring_fsdp_int8["ranks"]))
     # each kernel's launches on the zero1 paths: one rank (train_zero1),
     # two ranks (train_ring_zero1) and two ranks over the int8 wire
     # (train_ring_zero1_int8), 3 steps each
@@ -2579,11 +3203,24 @@ def main() -> None:
                              "train_ring_zero1": z1["counts"][name],
                              "train_ring_zero1_int8": z8["counts"][name]}
                       for name in launches}
+    # and on the fsdp paths: one rank (train_fsdp), two ranks over the ring
+    # gather (train_ring_fsdp) and the native gather with the int8 arena
+    # (train_ring_fsdp_int8), 3 steps each, and the gathered prefill
+    fsdp_launches = {name: {"train_fsdp": train_fsdp["launches"][name],
+                            "train_ring_fsdp": fsdp0["counts"][name],
+                            "train_ring_fsdp_int8": f8["counts"][name],
+                            "prefill_gathered": (prefill_gathered["launches"]
+                                                 if name == "flash_attn"
+                                                 else 0)}
+                     for name in list(launches) + ["flash_attn",
+                                                   "flash_decode"]}
     rows = [{
         "name": "flash_decode", "route": "cuda",
         "source": f"{src}/flash_decode/csrc/flash_decode.cu",
         "replaces": "src/repro/kernels/flash_decode/flash_decode.py:91",
-        "launches": serve["launches"], "max_abs_err": kernel_err, **timing}]
+        "launches": serve["launches"],
+        "launches_fsdp": fsdp_launches["flash_decode"],
+        "max_abs_err": kernel_err, **timing}]
     for name, replaces in (
             ("reduce_add", "src/repro/kernels/reduce_add/reduce_add.py:46"),
             ("pack_write", "src/repro/kernels/pack/pack.py:64"),
@@ -2595,9 +3232,15 @@ def main() -> None:
                        if name == "reduce_add" else f"{src}/pack/csrc/pack.cu"),
             "replaces": replaces, "launches": launches[name],
             "launches_zero1": zero1_launches[name],
+            "launches_fsdp": fsdp_launches[name],
             "max_abs_err": errs[name],
             **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}})
+        if name == "reduce_add":       # fsdp's ring mix, fp32 + bf16
+            rows[-1]["fsdp_mix"] = {
+                hop: {k: timing_fsdp[hop][k] for k in (
+                    "elements", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")} for hop in ("largest", "median")}
     for name, source, replaces in (
             ("quantize", "quant/csrc/quant.cu",
              "src/repro/kernels/quant/quant.py:56"),
@@ -2612,6 +3255,7 @@ def main() -> None:
             "name": name, "route": "cuda", "source": f"{src}/{source}",
             "replaces": replaces, "launches": launches[name],
             "launches_zero1": zero1_launches[name],
+            "launches_fsdp": fsdp_launches[name],
             "max_abs_err": errs[name],
             **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}})
@@ -2621,6 +3265,7 @@ def main() -> None:
         "fp32_source": f"{src}/flash_attn/csrc/flash_attn.cu",
         "replaces": "src/repro/kernels/flash_attn/flash_attn.py:102",
         "launches": prefill["launches"],
+        "launches_fsdp": fsdp_launches["flash_attn"],
         "max_abs_err": max(*kernels_attn["max_abs_err"].values(),
                            timing_attn["max_abs_err"]),
         **{k: timing_attn[k] for k in ("ms", "plain_ms", "bound_ms",
@@ -2639,6 +3284,10 @@ def main() -> None:
              "serve_contiguous": serve_contiguous, "timing_attn": timing_attn,
              "train_zero1": train_zero1, "train_ring_zero1": train_ring_zero1,
              "train_ring_zero1_int8": train_ring_zero1_int8,
+             "train_fsdp": train_fsdp, "train_ring_fsdp": train_ring_fsdp,
+             "train_ring_fsdp_int8": train_ring_fsdp_int8,
+             "prefill_gathered": prefill_gathered,
+             "timing_fsdp": timing_fsdp, "phase_s": phase_s,
              "torch": torch.__version__, "cuda": torch.version.cuda,
              "wall_s": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

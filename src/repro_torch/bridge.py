@@ -7,9 +7,10 @@ reference made, converted leaf by leaf.  A tree is nested dicts and lists
 (tuples allowed) of arrays; the structure and every dtype are kept, and a
 round trip is bitwise.  :func:`state_from_numpy` and :func:`state_to_numpy`
 carry a whole train state the same way (parameters, AdamW moments, the
-int8 arena and the fp32 ``"ef"`` accumulator), so that a step can start
-from the same state on both sides; the step counter is a Python ``int`` in
-the port.
+int8 arena and the fp32 ``"ef"`` accumulator; under fsdp the ``"groups"``
+of flat shards and moments of the same shape, ``{name: [shards]}``), so
+that a step can start from the same state on both sides; the step counter
+is a Python ``int`` in the port.
 """
 
 from __future__ import annotations

@@ -20,7 +20,9 @@ int8 :class:`~repro_torch.mem.arena.QuantCommArena` and gradients are
 compensated with error feedback (:meth:`Communicator.reduce_scheduled`,
 :meth:`Communicator.all_reduce_tree`).  ZeRO-1 reduce-scatters into
 flat shards and all-gathers them back (:meth:`Communicator.reduce_scatter_tree`,
-:meth:`Communicator.all_gather_buckets`).  The halo exchange and all-to-all
+:meth:`Communicator.all_gather_buckets`).  FSDP gathers each flat weight
+shard and sums its gradient back into the shard with
+:meth:`Communicator.gather_flat`.  The halo exchange and all-to-all
 arrive with their own slices.  Collectives are eager; they run in the
 caller's process on its rank, over the world ``torch.distributed`` was
 initialised with.
@@ -76,6 +78,19 @@ class CommConfig:
 
 
 GradFn = Callable[[dict, dict], "tuple[torch.Tensor, dict]"]
+
+
+class _GatherFlat(torch.autograd.Function):
+    """:meth:`Communicator.gather_flat` with its transpose as backward."""
+
+    @staticmethod
+    def forward(ctx, shard, comm, native):
+        ctx.comm, ctx.native = comm, native
+        return comm._gather(shard, native)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.comm._scatter(grad.contiguous(), ctx.native), None, None
 
 
 class Communicator:
@@ -261,6 +276,41 @@ class Communicator:
         """Inverse of :meth:`reduce_scatter` (same ownership layout)."""
         self._require_rs("all-gather")
         return self._run_striped(self.transport.all_gather, shards)
+
+    def gather_flat(self, shard: torch.Tensor, *,
+                    native: bool = False) -> torch.Tensor:
+        """All-gather of one flat shard over the data axes (the FSDP weight
+        path), differentiable: its backward is the sum-and-shard of the
+        cotangent, as the reference's autodiff transpose of the gather.
+
+        ``native=True``: ``dist.all_gather_into_tensor`` over each data
+        axis's group, outermost first; backward ``dist.reduce_scatter_tensor``
+        innermost first, summing in the cotangent's dtype (the reference's
+        ``lax.all_gather`` and its transpose ``psum_scatter``).  Otherwise
+        the transport's ring all-gather; backward its ring reduce-scatter,
+        whose hops add in fp32 with the ``reduce_add`` kernel on CUDA
+        tensors and whose sum is rounded once to the cotangent's dtype.
+        The reference's transpose of its unrolled ring adds hop by hop in
+        the cotangent's dtype: for a bf16 gather the two are the same sum
+        at two ranks (one add, one rounding) and can differ in the last
+        bf16 place from three ranks on, where the reference rounds each
+        partial sum and the port only the last."""
+        return _GatherFlat.apply(shard, self, native)
+
+    def _gather(self, shard: torch.Tensor, native: bool) -> torch.Tensor:
+        if native:
+            for ring in self.transport.rails[0].axes:    # outermost first
+                shard = ring.all_gather(shard)
+            return shard
+        self._require_rs("all-gather")
+        return self.transport.all_gather(shard)
+
+    def _scatter(self, full: torch.Tensor, native: bool) -> torch.Tensor:
+        if native:
+            for ring in reversed(self.transport.rails[0].axes):
+                full = ring.reduce_scatter(full)
+            return full
+        return self.transport.reduce_scatter(full).to(full.dtype)
 
     def _mean_buckets(self, buckets: list) -> list:
         if not self.cfg.mean:

@@ -12,6 +12,13 @@ Every call goes through a :class:`RingAxis`, which
   and gloo moves only CPU tensors) — explicitly, and only then;
 * records every message and its bytes in a :class:`CommRecord`, the port's
   stand-in for the reference dry-run's collective counts from HLO.
+
+Besides the hops, an axis runs the vendor collectives the reference reaches
+through ``lax.psum``, ``lax.all_gather`` and ``lax.psum_scatter``:
+``dist.all_reduce``, ``dist.all_gather_into_tensor`` and
+``dist.reduce_scatter_tensor`` (FSDP's native weight gather and its
+transpose; ``all_gather_single`` and ``reduce_scatter_single`` where
+PyTorch has renamed them), staged and recorded alike.
 """
 
 from __future__ import annotations
@@ -34,15 +41,29 @@ class CommRecord:
     send_bytes: int = 0
     all_reduces: int = 0         # dist.all_reduce calls
     all_reduce_bytes: int = 0    # their payload bytes
+    all_gathers: int = 0         # dist.all_gather_into_tensor calls
+    all_gather_bytes: int = 0    # the bytes of the shards they gathered
+    reduce_scatters: int = 0     # dist.reduce_scatter_tensor calls
+    reduce_scatter_bytes: int = 0  # the bytes of the buffers they summed
     staging_s: float = 0.0       # host time copying through pinned memory
 
     def reset(self) -> None:
         self.sends = self.send_bytes = 0
         self.all_reduces = self.all_reduce_bytes = 0
+        self.all_gathers = self.all_gather_bytes = 0
+        self.reduce_scatters = self.reduce_scatter_bytes = 0
         self.staging_s = 0.0
 
     def as_dict(self) -> dict:
         return asdict(self)
+
+
+# the flat gather and sum-and-shard collectives; newer PyTorch renames them
+# (the old names still work there, with a deprecation warning)
+_all_gather_flat = getattr(dist, "all_gather_single",
+                           dist.all_gather_into_tensor)
+_reduce_scatter_flat = getattr(dist, "reduce_scatter_single",
+                               dist.reduce_scatter_tensor)
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -122,6 +143,40 @@ class RingAxis:
         self.record.all_reduces += 1
         self.record.all_reduce_bytes += _nbytes(wire)
         return self._stage_in([wire], t.device)[0] if staged else wire
+
+    def _flat(self, fn, t: torch.Tensor, out_len: int) -> torch.Tensor:
+        """``fn(out, t)`` over the axis's group into a fresh flat ``out`` of
+        ``out_len`` elements, staged through pinned memory when needed."""
+        staged = self.stage and t.is_cuda
+        src = self._stage_out([t])[0] if staged else t.contiguous()
+        out = torch.empty((out_len,), dtype=src.dtype, pin_memory=staged,
+                          device=None if staged else src.device)
+        fn(out, src.reshape(-1), group=self.group)
+        return self._stage_in([out], t.device)[0] if staged else out
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The axis's flat shards concatenated in ring order: rank ``i``'s
+        ``t`` at ``[i*n, (i+1)*n)`` (``lax.all_gather(tiled=True)``)."""
+        if self.size == 1:
+            return t
+        out = self._flat(_all_gather_flat, t, self.size * t.numel())
+        self.record.all_gathers += 1
+        self.record.all_gather_bytes += _nbytes(t)
+        return out
+
+    def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum of the flat ``t`` over the axis, this rank's ``1/size`` of it:
+        elements ``[i*n/p, (i+1)*n/p)`` at index ``i``
+        (``lax.psum_scatter(tiled=True)``), in ``t``'s dtype."""
+        if self.size == 1:
+            return t
+        if t.numel() % self.size:
+            raise ValueError(f"flat length {t.numel()} not divisible by "
+                             f"the axis's {self.size} ranks")
+        out = self._flat(_reduce_scatter_flat, t, t.numel() // self.size)
+        self.record.reduce_scatters += 1
+        self.record.reduce_scatter_bytes += _nbytes(t)
+        return out
 
 
 def axis_rings(mesh: RankMesh, rank: int, axes: Sequence[str],

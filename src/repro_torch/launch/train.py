@@ -14,9 +14,12 @@ one card), gloo on the CPU.  ::
         --wire-codec int8
 
 It runs on ``cuda`` unless ``--device cpu`` is given.  ``--dp-mode`` is
-``replicated`` or ``zero1`` (llama3.2-1b's own default at full size;
-``--reduced`` defaults to ``replicated``, as in the reference).  ``fsdp``
-is not ported yet and raises, as does a defaulted mode that resolves to it.
+``replicated``, ``zero1`` (llama3.2-1b's own default at full size) or
+``fsdp`` (the full-size default of qwen2-7b and the larger archs);
+``--reduced`` defaults to ``replicated``, as in the reference.  The fsdp
+gather (``native`` or ``ring``) and its dtype are set on
+``TrainStepConfig`` only, as in the reference, whose CLI has no flag for
+them.
 """
 
 from __future__ import annotations
@@ -91,18 +94,11 @@ def init_distributed(device: str | torch.device = "cuda") -> World:
 
 
 def resolve_dp_mode(args) -> str:
-    """The reference CLI's rule (``--dp-mode``, else the arch's setting at
-    full size, else ``replicated``), then the port's refusal of the mode it
-    does not have yet (``fsdp``)."""
+    """The reference CLI's rule: ``--dp-mode``, else the arch's setting at
+    full size, else ``replicated``."""
     st = settings_for(args.arch)
     mode = args.dp_mode or (st.dp_mode if not args.reduced else "replicated")
-    try:
-        require_ported(mode)
-    except NotImplementedError as e:
-        hint = ("" if args.dp_mode else
-                f" ({args.arch} at full size defaults to {mode!r}; pass "
-                f"--dp-mode zero1 or replicated)")
-        raise NotImplementedError(f"{e}{hint}") from None
+    require_ported(mode)
     return mode
 
 
@@ -113,9 +109,12 @@ class TrainRun:
     world: World
 
 
-def setup(args, world: World) -> TrainRun:
+def setup(args, world: World, *,
+          step_overrides: dict | None = None) -> TrainRun:
     """The model (random weights from ``--seed``), data, step config and
-    trainer of one rank."""
+    trainer of one rank.  ``step_overrides`` replaces fields of the step
+    config that the reference's CLI has no flag for either (e.g.
+    ``fsdp_gather``)."""
     dp_mode = resolve_dp_mode(args)
     st = settings_for(args.arch)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
@@ -137,6 +136,8 @@ def setup(args, world: World) -> TrainRun:
         microbatches=1 if args.reduced else st.microbatches,
         schedule=args.accum_policy or "accumulate_then_reduce",
         use_arena=args.use_arena, wire_codec=args.wire_codec)
+    if step_overrides:
+        step_cfg = dataclasses.replace(step_cfg, **step_overrides)
     data = SyntheticTokens(DataConfig(vocab_size=model.cfg.vocab_size,
                                       seq_len=args.seq,
                                       global_batch=args.batch))
@@ -149,7 +150,9 @@ def setup(args, world: World) -> TrainRun:
         f"params={model.param_count() / 1e6:.1f}M world={world.size} "
         f"device={world.device} dp_mode={dp_mode} "
         f"transport={ccfg.transport} channels={ccfg.channels} "
-        f"arena={args.use_arena} wire_codec={args.wire_codec}")
+        f"arena={args.use_arena} wire_codec={args.wire_codec}"
+        + (f" fsdp_gather={step_cfg.fsdp_gather}" if dp_mode == "fsdp"
+           else ""))
     return TrainRun(model, trainer, world)
 
 

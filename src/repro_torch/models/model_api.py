@@ -49,18 +49,22 @@ class Model:
         return transformer.init_params(generator, self.cfg, dev)
 
     def loss_fn(self, params: dict, batch: dict, *,
-                causal_skip: bool = False) -> torch.Tensor:
+                causal_skip: bool = False,
+                block_resolver=None) -> torch.Tensor:
         """Token-mean cross entropy of ``batch`` (the reference's
-        ``Model.loss_fn`` on one data-parallel rank)."""
+        ``Model.loss_fn`` on one data-parallel rank); ``block_resolver``
+        gathers FSDP blocks (:func:`transformer.forward`)."""
         return transformer.loss_fn(params, batch, self.cfg,
-                                   causal_skip=causal_skip)
+                                   causal_skip=causal_skip,
+                                   block_resolver=block_resolver)
 
     def forward(self, params: dict, batch: dict, *,
-                causal_skip: bool = False,
-                attn_impl: str = "blockwise") -> torch.Tensor:
+                causal_skip: bool = False, attn_impl: str = "blockwise",
+                block_resolver=None) -> torch.Tensor:
         return transformer.forward(params, batch["tokens"], self.cfg,
                                    causal_skip=causal_skip,
-                                   attn_impl=attn_impl)
+                                   attn_impl=attn_impl,
+                                   block_resolver=block_resolver)
 
     def init_decode_state(self, batch: int, seq_len: int, *,
                           device: str | torch.device = "cuda") -> list:
@@ -70,10 +74,11 @@ class Model:
                                              device=resolve_device(device))
 
     def decode_step(self, params: dict, token: torch.Tensor, state: list,
-                    pos: int, *, seq_len: int | None = None
-                    ) -> tuple[torch.Tensor, list]:
+                    pos: int, *, seq_len: int | None = None,
+                    block_resolver=None) -> tuple[torch.Tensor, list]:
         return transformer.decode_step(params, token, state, pos, self.cfg,
-                                       seq_len=seq_len)
+                                       seq_len=seq_len,
+                                       block_resolver=block_resolver)
 
     def param_count(self) -> int:
         """Element count of the tree, from shapes alone (nothing allocated)."""

@@ -7,6 +7,10 @@ Port of ``repro.models.transformer`` for dense stacks: the same tree
 the decode step against a per-layer KV cache.  Gradients come from
 autograd; with ``remat="layer"`` each block is recomputed in the backward
 pass (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``.
+Under FSDP ``params["blocks"][i]`` is the block's list of flat weight
+shards and ``block_resolver("blocks", i, shards)`` gathers it into the
+block's tree inside the recomputed function, so that the backward pass
+gathers again instead of keeping every gathered block alive.
 MoE, SSM and hybrid stacks arrive with their own slices of the port.
 """
 
@@ -77,24 +81,32 @@ def block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, i: int, *,
     return x + y.to(x.dtype)
 
 
+def _resolved_block_apply(raw, x: torch.Tensor, cfg: ModelConfig, i: int, *,
+                          block_resolver, **kw) -> torch.Tensor:
+    bp = block_resolver("blocks", i, raw) if block_resolver else raw
+    return block_apply(bp, x, cfg, i, **kw)
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
-            causal_skip: bool = False,
-            attn_impl: str = "blockwise") -> torch.Tensor:
+            causal_skip: bool = False, attn_impl: str = "blockwise",
+            block_resolver=None) -> torch.Tensor:
     """tokens: (B, S) -> logits (B, S, V) in the compute dtype.
     ``attn_impl="kernel"`` runs every layer's attention through the
-    ``flash_attn`` kernel (the serving prefill; no gradient)."""
+    ``flash_attn`` kernel (the serving prefill; no gradient).
+    ``block_resolver`` (FSDP) turns a block's shard list into its tree, and
+    is called inside the checkpointed function."""
     _require_dense(cfg)
     cdt = getattr(torch, cfg.dtype)
     x = embed(params["embed"], tokens.long(), cdt)
     positions = torch.arange(x.shape[1], device=x.device)
-    for i, bp in enumerate(params["blocks"]):
+    kw = dict(positions=positions, causal_skip=causal_skip,
+              attn_impl=attn_impl, block_resolver=block_resolver)
+    for i, raw in enumerate(params["blocks"]):
         if cfg.remat == "layer" and torch.is_grad_enabled():
-            x = checkpoint(block_apply, bp, x, cfg, i, positions=positions,
-                           causal_skip=causal_skip, attn_impl=attn_impl,
+            x = checkpoint(_resolved_block_apply, raw, x, cfg, i, **kw,
                            use_reentrant=False)
         else:
-            x = block_apply(bp, x, cfg, i, positions=positions,
-                            causal_skip=causal_skip, attn_impl=attn_impl)
+            x = _resolved_block_apply(raw, x, cfg, i, **kw)
     return _logits(params, x, cfg)
 
 
@@ -107,9 +119,10 @@ def _logits(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *,
-            causal_skip: bool = False) -> torch.Tensor:
+            causal_skip: bool = False, block_resolver=None) -> torch.Tensor:
     """batch: {"tokens": (B,S), "labels": (B,S), optional "mask"}."""
-    logits = forward(params, batch["tokens"], cfg, causal_skip=causal_skip)
+    logits = forward(params, batch["tokens"], cfg, causal_skip=causal_skip,
+                     block_resolver=block_resolver)
     return softmax_xent(logits, batch["labels"], batch.get("mask"))
 
 
@@ -140,14 +153,15 @@ def cache_len(cfg: ModelConfig, i: int, seq_len: int) -> int:
 
 
 def decode_step(params: dict, token: torch.Tensor, state: list, pos: int,
-                cfg: ModelConfig, *, seq_len: int | None = None
-                ) -> tuple[torch.Tensor, list]:
+                cfg: ModelConfig, *, seq_len: int | None = None,
+                block_resolver=None) -> tuple[torch.Tensor, list]:
     """token: (B,) ints at position ``pos``; returns (logits (B, V), state)
     with every layer's cache written in place."""
     _require_dense(cfg)
     cdt = getattr(torch, cfg.dtype)
     x = embed(params["embed"], token.long()[:, None], cdt)
-    for i, bp in enumerate(params["blocks"]):
+    for i, raw in enumerate(params["blocks"]):
+        bp = block_resolver("blocks", i, raw) if block_resolver else raw
         h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
         clen = cache_len(cfg, i, seq_len) if seq_len else None
         mix, state[i]["kv"] = attn_decode(

@@ -1,46 +1,122 @@
-"""Serving-step builders: prefill and single-token decode on one device.
+"""Serving-step builders: prefill and single-token decode.
 
-Port of ``repro.runtime.serve_step`` for resident weights on one rank.
-The prefill returns logits and fills no cache, and the decode step decodes
-one token against the contiguous rolling caches, as in the reference.  The
-decode step writes the caches in place, which stands for the reference's
-donation of the state.  ``weight_mode="gathered"`` (parameters stored as
-FSDP flat shards and all-gathered per layer) arrives with the fsdp slice.
+Port of ``repro.runtime.serve_step``.  The prefill returns logits and fills
+no cache, and the decode step decodes one token against the contiguous
+rolling caches, as in the reference.  The decode step writes the caches in
+place, which stands for the reference's donation of the state.
+
+``weight_mode``:
+
+* ``resident`` — every rank holds the whole parameter tree;
+* ``gathered`` — the parameters are FSDP flat shards
+  (``{"groups": {name: [shards]}}``, :meth:`FsdpPlan.shard_state` of the
+  plan the step was built with, ``TrainStepConfig(dp_mode="fsdp")``), each
+  rank holding ``1/world`` of every bucket; the root groups are gathered in
+  bf16 at every call and each block as the model reaches it.  Decoder-only
+  stacks only, as in the reference.
+
+A step built over a data mesh of several ranks (``mesh``; one rank by
+default) takes the global batch and computes this rank's rows of it, as
+the reference shards the batch over ``("pod", "data")`` when they divide
+it, else over ``data`` alone, else not at all; the decode state holds this
+rank's rows (:func:`local_batch`).  Under ``gathered`` every rank must
+call the step together: the gathers are collectives.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.core.topology import RankMesh
 from repro_torch.device import resolve_device
 from repro_torch.models.model_api import Model
+from repro_torch.runtime.train_step import (FsdpPlan, TrainStepConfig,
+                                            data_mesh)
 
 WEIGHT_MODES = ("resident", "gathered")
 
 
-def _require_resident(weight_mode: str) -> None:
-    if weight_mode == "gathered":
-        raise NotImplementedError(
-            "weight_mode='gathered' streams FSDP flat shards, which arrive "
-            "with the fsdp slice; use weight_mode='resident'")
+def _check_weight_mode(weight_mode: str) -> None:
     if weight_mode not in WEIGHT_MODES:
         raise ValueError(f"weight_mode must be one of {WEIGHT_MODES}, got "
                          f"{weight_mode!r}")
 
 
+def _require_decoder_only(cfg, what: str) -> None:
+    """Gathered serving streams the parameters through the decoder-only
+    forward and decode step; any other family (encoder-decoder, SSM and
+    hybrid state, audio or vision front ends) is refused when the step is
+    built, as the reference refuses it."""
+    if cfg.family not in ("dense", "moe") or cfg.frontend is not None:
+        raise NotImplementedError(
+            f"gathered {what} is decoder-only: family={cfg.family!r} "
+            f"frontend={cfg.frontend!r} is not supported (use "
+            f"weight_mode='resident')")
+
+
+def _batch_rows(mesh: RankMesh, global_batch: int) -> slice:
+    """This rank's rows of the global batch (the reference's
+    ``batch_spec``)."""
+    sizes = mesh.sizes()
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    coords = dict(zip(mesh.axis_names, mesh.coords(rank)))
+    axes = [a for a in ("pod", "data") if a in sizes]
+    for cand in (axes, [a for a in ("data",) if a in sizes]):
+        p = math.prod(sizes[a] for a in cand)
+        if cand and global_batch % p == 0:
+            idx = 0
+            for a in cand:
+                idx = idx * sizes[a] + coords[a]
+            n = global_batch // p
+            return slice(idx * n, (idx + 1) * n)
+    return slice(0, global_batch)
+
+
+def local_batch(shape_cfg: ShapeConfig, mesh: RankMesh | None = None) -> int:
+    """The rows of ``shape_cfg.global_batch`` a rank of ``mesh`` serves:
+    the batch of its decode state."""
+    rows = _batch_rows(mesh or data_mesh(1), shape_cfg.global_batch)
+    return rows.stop - rows.start
+
+
+def _weights(model: Model, mesh: RankMesh, weight_mode: str, what: str):
+    """A function of the step's ``params`` that returns the tree and the
+    keyword arguments the model is called with: the parameters as they are
+    (``resident``), or the gathered roots and the block resolver of an
+    :class:`FsdpPlan` (``gathered``)."""
+    _check_weight_mode(weight_mode)
+    if weight_mode == "resident":
+        return lambda params: (params, {})
+    _require_decoder_only(model.cfg, what)
+    plan = FsdpPlan(model, mesh, TrainStepConfig(dp_mode="fsdp"))
+
+    def gathered(params):
+        tree, resolver = plan.params_and_resolver(params["groups"],
+                                                  torch.bfloat16)
+        return tree, {"block_resolver": resolver}
+
+    return gathered
+
+
 def build_prefill(model: Model, shape_cfg: ShapeConfig, *,
                   weight_mode: str = "resident", causal_skip: bool = True,
                   attn_impl: str = "kernel",
-                  device: str | torch.device = "cuda"):
+                  device: str | torch.device = "cuda",
+                  mesh: RankMesh | None = None):
     """Returns ``prefill(params, batch) -> logits (B, S, V)`` for batches
-    of ``shape_cfg``'s (global_batch, seq_len) tokens.  With
-    ``attn_impl="kernel"`` every layer's attention runs the ``flash_attn``
-    kernel (its plain version for CPU tensors); ``"blockwise"`` runs the
-    reference's blockwise loop."""
-    _require_resident(weight_mode)
+    of ``shape_cfg``'s (global_batch, seq_len) tokens; ``B`` is this rank's
+    rows (all of them on one rank).  With ``attn_impl="kernel"`` every
+    layer's attention runs the ``flash_attn`` kernel (its plain version for
+    CPU tensors); ``"blockwise"`` runs the reference's blockwise loop."""
     dev = resolve_device(device)
+    mesh = mesh or data_mesh(1)
+    weights = _weights(model, mesh, weight_mode, "prefill")
     want = (shape_cfg.global_batch, shape_cfg.seq_len)
+    rows = _batch_rows(mesh, shape_cfg.global_batch)
 
     def prefill(params: dict, batch: dict) -> torch.Tensor:
         tokens = torch.as_tensor(batch["tokens"], device=dev)
@@ -48,26 +124,33 @@ def build_prefill(model: Model, shape_cfg: ShapeConfig, *,
             raise ValueError(f"prefill built for tokens {want}, got "
                              f"{tuple(tokens.shape)}")
         with torch.no_grad():
-            return model.forward(params, {"tokens": tokens},
-                                 causal_skip=causal_skip, attn_impl=attn_impl)
+            tree, kw = weights(params)
+            return model.forward(tree, {"tokens": tokens[rows]},
+                                 causal_skip=causal_skip, attn_impl=attn_impl,
+                                 **kw)
 
     return prefill
 
 
 def build_decode_step(model: Model, shape_cfg: ShapeConfig, *,
                       weight_mode: str = "resident",
-                      device: str | torch.device = "cuda"):
+                      device: str | torch.device = "cuda",
+                      mesh: RankMesh | None = None):
     """Returns ``decode(params, token, state, pos) -> (logits (B, V),
-    state)`` for ``shape_cfg.global_batch`` sequences against caches of
-    ``shape_cfg.seq_len`` positions (``Model.init_decode_state``)."""
-    _require_resident(weight_mode)
+    state)`` for the ``shape_cfg.global_batch`` tokens ``token`` against
+    caches of ``shape_cfg.seq_len`` positions (``Model.init_decode_state``
+    of this rank's :func:`local_batch` rows, which ``B`` counts)."""
     dev = resolve_device(device)
+    mesh = mesh or data_mesh(1)
+    weights = _weights(model, mesh, weight_mode, "decode")
     seq_len = shape_cfg.seq_len
+    rows = _batch_rows(mesh, shape_cfg.global_batch)
 
     def decode(params: dict, token, state: list, pos: int):
         token = torch.as_tensor(token, device=dev)
         with torch.no_grad():
-            return model.decode_step(params, token, state, int(pos),
-                                     seq_len=seq_len)
+            tree, kw = weights(params)
+            return model.decode_step(tree, token[rows], state, int(pos),
+                                     seq_len=seq_len, **kw)
 
     return decode

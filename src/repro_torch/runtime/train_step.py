@@ -1,4 +1,4 @@
-"""The data-parallel train step: ``replicated`` and ``zero1``.
+"""The data-parallel train step: ``replicated``, ``zero1`` and ``fsdp``.
 
 Port of ``repro.runtime.train_step``.  Every rank computes the gradients of
 its shard of the global batch with autograd, and the
@@ -30,8 +30,18 @@ error-feedback residual of every payload element, compensated into every
 encode so that the quantisation error telescopes instead of accumulating.
 Both are allocated once and updated in place.
 
-``fsdp`` (ZeRO-3) arrives with its own slice; asking for it raises rather
-than training another mode.
+``fsdp`` (ZeRO-3): every block, and each root entry (the embedding, the
+final norm), is a group of flat fp32 bucket shards (:class:`FsdpPlan`),
+and each rank keeps only its ``1/world`` of every bucket, with the AdamW
+moments of that shard.  The step gathers each group in ``gather_dtype``
+(bf16) as the model reaches it, the blocks inside their ``remat="layer"``
+recomputation, through :meth:`Communicator.gather_flat`, whose backward is
+the reduce-scatter: the gradients arrive as shards, and the schedule only
+shapes their accumulation over microbatches (the arena is then the
+accumulation buffer).  The shards are updated in place of the parameters.
+``fsdp_gather="native"`` gathers with ``dist.all_gather_into_tensor``,
+``"ring"`` with the transport's ring, whose reduce-scatter adds with the
+``reduce_add`` kernel; a wire codec is refused with the ring gather.
 """
 
 from __future__ import annotations
@@ -43,12 +53,14 @@ import torch
 
 from repro_torch import tree as tree_util
 from repro_torch.comm.api import CommConfig, Communicator
-from repro_torch.comm.schedule import SCHEDULE_POLICIES, CommSchedule
+from repro_torch.comm.schedule import (SCHEDULE_POLICIES, CommSchedule,
+                                       build_schedule)
 from repro_torch.core.bucketing import BucketPlan
 from repro_torch.core.p2p import RingAxis
 from repro_torch.core.topology import RankMesh
-from repro_torch.mem.arena import QuantCommArena
-from repro_torch.mem.layout import ArenaLayout, QuantArenaLayout
+from repro_torch.mem.arena import CommArena, QuantCommArena
+from repro_torch.mem.layout import (ArenaLayout, QuantArenaLayout, plan_arena,
+                                    plan_quant_arena)
 from repro_torch.models.model_api import Model
 from repro_torch.models.parallel import ParallelCtx
 from repro_torch.models.transformer import init_params
@@ -58,17 +70,14 @@ from repro_torch.optim import (OptimConfig, adamw_flat_update,
                                init_opt_state_flat, make_schedule)
 
 DP_MODES = ("replicated", "zero1", "fsdp")
+FSDP_GATHERS = ("native", "ring")
 
 
 def require_ported(dp_mode: str) -> None:
-    """The port trains ``replicated`` and ``zero1``; ``fsdp`` raises."""
+    """Every mode of :data:`DP_MODES` is ported; any other raises."""
     if dp_mode not in DP_MODES:
         raise ValueError(f"dp_mode must be one of {DP_MODES}, got "
                          f"{dp_mode!r}")
-    if dp_mode == "fsdp":
-        raise NotImplementedError(
-            "dp_mode='fsdp' is not ported yet (ZeRO-3 arrives with its own "
-            "slice); the port trains dp_mode='replicated' and 'zero1'")
 
 
 @dataclass(frozen=True)
@@ -83,11 +92,24 @@ class TrainStepConfig:
                                        # use_arena the int8 arena and the
                                        # "ef" state tensor
     causal_skip: bool = False
+    gather_dtype: str = "bfloat16"     # fsdp weight-gather wire dtype
+    fsdp_bucket_bytes: int = 512 * 2**20
+    fsdp_gather: str = "native"        # "native" (dist.all_gather_into_
+                                       # tensor) | "ring" (the transport's)
 
     def comm_config(self, data_axes: tuple[str, ...]) -> CommConfig:
         ccfg = self.comm
         if self.wire_codec is not None:
             ccfg = replace(ccfg, wire_codec=self.wire_codec)
+        if (ccfg.wire_codec is not None and self.dp_mode == "fsdp"
+                and self.fsdp_gather == "ring"):
+            # the reduction is the gather's backward, which carries no
+            # codec: the quantized wire would silently fall away
+            raise ValueError(
+                "wire_codec is incompatible with fsdp_gather='ring' "
+                "(the reduction rides the gather transpose and the "
+                "codec has no useful gradient); use fsdp_gather="
+                "'native'")
         return replace(ccfg, data_axes=data_axes)
 
     @property
@@ -187,6 +209,123 @@ def span_norm_ranges(layout: ArenaLayout | QuantArenaLayout,
     return out
 
 
+class FsdpPlan:
+    """Per-group flat-bucket layout of ``fsdp``: every block (``blocks.i``)
+    and each root entry (``root.embed``, ``root.final_norm``) is bucketed
+    on its own, so that a layer gathers and releases its weights alone.
+
+    Owns the communicator of the fsdp collectives, with buckets of
+    ``cfg.fsdp_bucket_bytes``; building it creates process groups, which is
+    collective (every rank builds its plans in the same order).  Under
+    ``use_arena`` the arena layout holds one segment per group-bucket shard,
+    in the sorted-name order in which the gradient tree flattens: fp32, or
+    the int8 layout under a wire codec.
+    """
+
+    def __init__(self, model: Model, mesh: RankMesh, cfg: TrainStepConfig,
+                 *, connect: bool = True):
+        if cfg.fsdp_gather not in FSDP_GATHERS:
+            raise ValueError(f"fsdp_gather must be one of {FSDP_GATHERS}, "
+                             f"got {cfg.fsdp_gather!r}")
+        self.model = model
+        self.mesh = mesh
+        self.gather_impl = cfg.fsdp_gather
+        self.comm = Communicator(mesh, replace(
+            cfg.comm_config(("pod", "data")),
+            bucket_bytes=cfg.fsdp_bucket_bytes), connect=connect)
+        if self.gather_impl == "ring" and not self.comm.spec.supports_rs:
+            raise ValueError(
+                f"fsdp_gather='ring' needs a transport with supports_rs; "
+                f"{self.comm.cfg.transport!r} has none — use fsdp_gather="
+                f"'native' or a ring transport")
+        self.dp_world = self.comm.world
+        self.bucketer = self.comm.bucketer
+        local = abstract_params(model)
+        self.block_keys = [k for k in ("blocks",) if k in local]
+        self.groups: dict[str, object] = {}
+        for k in sorted(local):
+            if k in self.block_keys:
+                for i, blk in enumerate(local[k]):
+                    self.groups[f"{k}.{i}"] = blk
+            else:
+                self.groups[f"root.{k}"] = local[k]
+        self.plans = {name: self.bucketer.plan(tree)
+                      for name, tree in self.groups.items()}
+        self.shard_sizes = {name: [n // self.dp_world
+                                   for n in plan.bucket_sizes]
+                            for name, plan in self.plans.items()}
+        self.arena_layout: ArenaLayout | QuantArenaLayout | None = None
+        if cfg.use_arena:
+            sizes = [n for name in sorted(self.plans)
+                     for n in self.shard_sizes[name]]
+            if self.comm.codec is not None:
+                self.arena_layout = plan_quant_arena(
+                    sizes, page_bytes=self.comm.cfg.page_bytes,
+                    block=self.comm.cfg.codec_block)
+            else:
+                self.arena_layout = plan_arena(
+                    sizes, page_bytes=self.comm.cfg.page_bytes,
+                    dtype=torch.float32)
+
+    def _group_of(self, tree, name: str):
+        kind, _, idx = name.partition(".")
+        if kind in self.block_keys:
+            return tree[kind][int(idx)]
+        return tree[idx]
+
+    def shard_group(self, tree, name: str) -> list[torch.Tensor]:
+        """A group's tree -> this rank's flat fp32 shard of each bucket."""
+        buckets, _ = self.bucketer.bucketize(tree, self.plans[name])
+        rings = tuple(reversed(self.comm.transport.rails[0].axes))
+        out = []
+        for b in buckets:
+            start, stop = _owned_range(b.shape[0], rings)
+            out.append(b[start:stop].clone())
+        return out
+
+    def shard_state(self, params) -> dict:
+        """``{group name: [shards]}`` of a full parameter tree."""
+        return {name: self.shard_group(self._group_of(params, name), name)
+                for name in self.groups}
+
+    def gather_group(self, shards, name: str,
+                     dtype: torch.dtype | None = None):
+        """A group's shards -> its tree, gathered over the data axes in
+        ``dtype`` (differentiable: the backward is the reduce-scatter)."""
+        full = [self.comm.gather_flat(s if dtype is None else s.to(dtype),
+                                      native=self.gather_impl != "ring")
+                for s in shards]
+        return self.bucketer.debucketize(full, self.plans[name],
+                                         cast_to=dtype)
+
+    def params_and_resolver(self, groups: dict, dtype: torch.dtype):
+        """The root groups gathered now; the blocks left as shard lists,
+        with the resolver the model calls inside each layer's recomputed
+        function (:func:`~repro_torch.models.transformer.forward`)."""
+        params: dict = {}
+        for name, shards in groups.items():
+            kind, _, idx = name.partition(".")
+            if kind == "root":
+                params[idx] = self.gather_group(shards, name, dtype)
+        for k in self.block_keys:
+            n = sum(1 for name in groups if name.startswith(k + "."))
+            params[k] = [groups[f"{k}.{i}"] for i in range(n)]
+
+        def resolver(kind: str, i: int, shards):
+            return self.gather_group(shards, f"{kind}.{i}", dtype)
+
+        return params, resolver
+
+
+def _fsdp_schedule(plan: FsdpPlan, microbatches: int) -> CommSchedule:
+    """fsdp reports the ``scheduled`` readiness model whatever the policy:
+    its reduction is the gather's backward, issued in readiness order."""
+    sizes = [n for name in sorted(plan.plans)
+             for n in plan.plans[name].bucket_sizes]
+    return build_schedule("scheduled", sizes, microbatches=microbatches,
+                          channels=plan.comm.cfg.channels)
+
+
 class TrainStep:
     """``step(state, batch) -> (state, metrics)`` for one rank.
 
@@ -194,7 +333,8 @@ class TrainStep:
     every rank of the mesh builds its steps in the same order.  Under
     ``zero1`` it also holds the shard sizes of the optimizer state (one per
     bucket, or one per arena span) and, per shard, the ranges that count in
-    the gradient norm (:func:`span_norm_ranges`).
+    the gradient norm (:func:`span_norm_ranges`).  Under ``fsdp`` it holds
+    the :class:`FsdpPlan` (:attr:`fsdp`), whose communicator is the step's.
     """
 
     def __init__(self, model: Model, mesh: RankMesh, cfg: TrainStepConfig,
@@ -203,22 +343,35 @@ class TrainStep:
         self.model = model
         self.cfg = cfg
         self.device = device
-        self.comm = Communicator(mesh, cfg.comm_config(("pod", "data")))
-        self.ctx = ParallelCtx(data=self.comm.transport.rails[0].joint)
         self.lr_fn = make_schedule(cfg.optim.schedule,
                                    base_lr=cfg.optim.base_lr,
                                    warmup=cfg.optim.warmup,
                                    total=cfg.optim.total_steps)
-        local = abstract_params(model)
+        self.shard_sizes: list[int] = []
+        self.norm_ranges: list[list[tuple[int, int]]] = []
+        self.fsdp: FsdpPlan | None = None
         policy = cfg.schedule_policy
+        if cfg.dp_mode == "fsdp":
+            self.fsdp = FsdpPlan(model, mesh, cfg)
+            self.comm = self.fsdp.comm
+            self.ctx = ParallelCtx(data=self.comm.transport.rails[0].joint)
+            self.plan = None
+            lay = self.fsdp.arena_layout
+            self.arena = (None if lay is None else
+                          QuantCommArena(lay, impl=cfg.comm.local_op)
+                          if isinstance(lay, QuantArenaLayout)
+                          else CommArena(lay, impl=cfg.comm.local_op))
+            self.schedule = _fsdp_schedule(self.fsdp, cfg.microbatches)
+            return
+        self.comm = Communicator(mesh, cfg.comm_config(("pod", "data")))
+        self.ctx = ParallelCtx(data=self.comm.transport.rails[0].joint)
+        local = abstract_params(model)
         self.plan = self.comm.plan(local)
         self.arena = self.comm.arena(local) if cfg.use_arena else None
         self.schedule: CommSchedule = (
             self.comm.arena_schedule(local, policy, cfg.microbatches)
             if cfg.use_arena
             else self.comm.schedule(local, policy, cfg.microbatches))
-        self.shard_sizes: list[int] = []
-        self.norm_ranges: list[list[tuple[int, int]]] = []
         if cfg.dp_mode == "zero1":
             if not self.comm.spec.supports_rs:
                 raise ValueError(
@@ -238,10 +391,18 @@ class TrainStep:
                 self.norm_ranges = [[(0, n)] for n in self.shard_sizes]
 
     def _grad_fn(self, params, mb):
+        """``(loss, grads)`` of one microbatch; under fsdp ``params`` is
+        the ``{group: [shards]}`` tree, gathered here, and the gradients
+        come back as shards (the gathers' backward reduce-scatters)."""
         leaves, treedef = tree_util.flatten(params)
         leaves = [p.detach().requires_grad_(True) for p in leaves]
-        loss = self.model.loss_fn(treedef.unflatten(leaves), mb,
-                                  causal_skip=self.cfg.causal_skip)
+        tree, kw = treedef.unflatten(leaves), {}
+        if self.fsdp is not None:
+            tree, kw["block_resolver"] = self.fsdp.params_and_resolver(
+                tree, getattr(torch, self.cfg.gather_dtype))
+        loss = self.model.loss_fn(tree, mb, causal_skip=self.cfg.causal_skip,
+                                  **kw)
+        del tree
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, leaves)]
@@ -249,6 +410,8 @@ class TrainStep:
 
     def __call__(self, state: dict, batch: dict) -> tuple[dict, dict]:
         batch = {k: v.to(self.device) for k, v in batch.items()}
+        if self.fsdp is not None:
+            return self._fsdp_step(state, batch)
         zero1 = self.cfg.dp_mode == "zero1"
         kw = {}
         if self.arena is not None:
@@ -308,6 +471,57 @@ class TrainStep:
                    "lr": lr}
         return new_state, metrics
 
+    def _fsdp_step(self, state: dict, batch: dict) -> tuple[dict, dict]:
+        """The fsdp step: the gradient shards (summed over data by the
+        gathers' backward, accumulated over microbatches in the arena when
+        it is on) are made a mean, clipped by the global norm and handed to
+        AdamW group by group; the fp32 shards take the decoupled weight
+        decay and the delta."""
+        kw = {}
+        if self.arena is not None:
+            kw = {"arena": self.arena, "arena_buf": state["arena"]}
+            if isinstance(self.arena, QuantCommArena):
+                kw["ef_buf"] = state["ef"]
+        loss, out = self.comm.reduce_scheduled(
+            self._grad_fn, state["groups"], batch, self.schedule, op="none",
+            **kw)
+        grads, extra = (out[0], out[1:]) if self.arena is not None else (
+            out, ())
+        del out
+        inv = 1.0 / self.fsdp.dp_world
+        sq = torch.zeros((), dtype=torch.float32, device=self.device)
+        for name in sorted(grads):
+            for g in grads[name]:          # step-local: scaled in place
+                g.mul_(inv)
+                # bucket padding has a zero gradient: every element weighs 1
+                sq = sq + torch.sum(torch.square(g))
+        gnorm = torch.sqrt(self.ctx.psum(self.ctx.psum_data(sq)))
+        factor = clip_factor(gnorm, self.cfg.optim.clip_norm)
+        lr = self.lr_fn(state["step"])
+        wd = 1 - lr * self.cfg.optim.weight_decay
+        new_groups, new_mu, new_nu = {}, {}, {}
+        for name in state["groups"]:
+            shards = grads.pop(name)
+            for g in shards:
+                g.mul_(factor)
+            deltas, nopt = adamw_flat_update(
+                shards, {"mu": state["opt"]["mu"][name],
+                         "nu": state["opt"]["nu"][name]},
+                state["step"], lr, self.cfg.optim)
+            del shards
+            new_groups[name] = [(p.float() * wd + d).to(p.dtype)
+                                for p, d in zip(state["groups"][name],
+                                                deltas)]
+            new_mu[name], new_nu[name] = nopt["mu"], nopt["nu"]
+        new_state = {"groups": new_groups,
+                     "opt": {"mu": new_mu, "nu": new_nu},
+                     "step": state["step"] + 1}
+        for key, buf in zip(("arena", "ef"), extra):
+            new_state[key] = buf
+        metrics = {"loss": self.ctx.pmean_data(loss), "grad_norm": gnorm,
+                   "lr": lr}
+        return new_state, metrics
+
     def _shard_norm(self, shards: list) -> torch.Tensor:
         """The exact global norm of the reduced gradient from this rank's
         shards: the sum of squares over :attr:`norm_ranges` (the reference's
@@ -325,17 +539,29 @@ def init_train_state(model: Model, step: TrainStep, *, params=None,
     ``"ef"``, both allocated here once) on the step's device: ``params``
     when given (e.g. bridged from the reference), else fresh ones drawn
     from ``generator``.  Under ``zero1``, ``opt`` holds lists of this
-    rank's fp32 moment shards (:attr:`TrainStep.shard_sizes`)."""
+    rank's fp32 moment shards (:attr:`TrainStep.shard_sizes`).  Under
+    ``fsdp`` the parameters are this rank's shards instead:
+    ``{"groups": {name: [fp32 shards]}, "opt": {"mu", "nu"} of the same
+    shape, "step"}``."""
     if params is None:
         if generator is None:
             raise ValueError("pass params or a generator")
         params = model.init(generator, step.device)
-    if step.cfg.dp_mode == "zero1":
-        opt = init_opt_state_flat([torch.empty(n, device=step.device)
-                                   for n in step.shard_sizes])
+    if step.fsdp is not None:
+        groups = step.fsdp.shard_state(params)
+        del params
+        opts = {name: init_opt_state_flat(shards)
+                for name, shards in groups.items()}
+        state = {"groups": groups, "step": 0,
+                 "opt": {k: {name: o[k] for name, o in opts.items()}
+                         for k in ("mu", "nu")}}
     else:
-        opt = init_opt_state(params)
-    state = {"params": params, "opt": opt, "step": 0}
+        if step.cfg.dp_mode == "zero1":
+            opt = init_opt_state_flat([torch.empty(n, device=step.device)
+                                       for n in step.shard_sizes])
+        else:
+            opt = init_opt_state(params)
+        state = {"params": params, "opt": opt, "step": 0}
     if step.arena is not None:
         state["arena"] = step.arena.zeros(step.device)
         if isinstance(step.arena, QuantCommArena):

@@ -70,8 +70,9 @@ def test_decode_step_matches_reference_through_a_cache_wrap():
 def test_decode_refuses_what_is_not_ported():
     model = build_model(reduced_config(ARCH))
     shape = ShapeConfig("serve", CACHE, BATCH, "decode")
-    with pytest.raises(NotImplementedError, match="fsdp slice"):
-        build_decode_step(model, shape, weight_mode="gathered", device="cpu")
+    # gathered builds since fsdp was ported (test_torch_fsdp.py runs it)
+    assert callable(build_decode_step(model, shape, weight_mode="gathered",
+                                      device="cpu"))
     params = model.init(torch.Generator().manual_seed(0), "cpu")
     short = model.init_decode_state(BATCH, CACHE // 2, device="cpu")
     with pytest.raises(NotImplementedError, match="model axis"):

@@ -172,6 +172,7 @@ def test_flash_decode_kernel_refuses_a_cluster_wider_than_its_tiles(
 @pytest.mark.parametrize("dtypes", [
     (torch.float32, torch.float32, torch.float32),
     (torch.bfloat16, torch.float32, torch.float32),
+    (torch.float32, torch.bfloat16, torch.float32),     # fsdp's ring hops
     (torch.float32, torch.float32, torch.bfloat16)])
 def test_reduce_add_kernel_matches_plain_version_bitwise(cuda_device, n, start,
                                                          dtypes):

@@ -94,8 +94,9 @@ def test_prefill_kernel_path_equals_blockwise_path(params):
 def test_prefill_refuses_what_is_not_ported(params):
     model = build_model(reduced_config(ARCH))
     shape = ShapeConfig("prefill_test", 16, BATCH, "prefill")
-    with pytest.raises(NotImplementedError, match="fsdp slice"):
-        build_prefill(model, shape, weight_mode="gathered", device="cpu")
+    # gathered builds since fsdp was ported (test_torch_fsdp.py runs it)
+    assert callable(build_prefill(model, shape, weight_mode="gathered",
+                                  device="cpu"))
     with pytest.raises(ValueError, match="weight_mode"):
         build_prefill(model, shape, weight_mode="sharded", device="cpu")
     prefill = build_prefill(model, shape, device="cpu")

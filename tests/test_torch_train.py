@@ -16,8 +16,9 @@
   sends per step equal the plan's messages, and with the arena its bytes
   equal the plan's arena bytes, exactly.
 * The train CLI resolves llama3.2-1b's full-size default to ``zero1``
-  (without training 1.24 B parameters on the CPU), runs a reduced
-  ``--dp-mode zero1`` step to its end, and still refuses ``fsdp``.
+  (without training 1.24 B parameters on the CPU), and runs a reduced
+  ``--dp-mode zero1`` step and a reduced ``--dp-mode fsdp`` step to their
+  end.
 """
 
 import os
@@ -175,16 +176,14 @@ def test_two_rank_trajectory_follows_reference(reference, use_arena):
     ["--arch", ARCH, "--reduced", "--dp-mode", "zero1", "--device", "cpu"],
     ["--arch", ARCH, "--reduced", "--dp-mode", "fsdp", "--device", "cpu"]])
 def test_cli_refuses_unported_dp_modes(argv, capsys):
-    """Only ``fsdp`` is refused since zero1 was ported; the zero1 cases
-    check that the mode resolves and trains."""
+    """No mode is refused since fsdp was ported: each case checks that its
+    mode resolves and, at reduced size, trains one step to its end."""
     argv = argv + ["--steps", "1"]
-    if "fsdp" in argv:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            launch_train.main(argv)
-    elif "--reduced" in argv:
+    if "--reduced" in argv:
+        mode = argv[argv.index("--dp-mode") + 1]
         launch_train.main(argv)                  # one step, to its end
         out = capsys.readouterr().out
-        assert "dp_mode=zero1" in out and "[train] step     0" in out
+        assert f"dp_mode={mode}" in out and "[train] step     0" in out
     else:
         args = launch_train.parser().parse_args(argv)
         assert launch_train.resolve_dp_mode(args) == "zero1"

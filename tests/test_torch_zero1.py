@@ -42,7 +42,8 @@
   and ``reduce_scatter_tree`` + ``all_gather_buckets`` equals
   ``all_reduce_tree`` bitwise.
 * Refusals: a transport without reduce-scatter (``psum``) raises
-  ``ValueError``; ``fsdp`` raises ``NotImplementedError``.
+  ``ValueError``; so do the two refusals fsdp keeps, a wire codec with the
+  ring gather and the ring gather over ``psum``.
 """
 
 import os
@@ -321,7 +322,19 @@ def test_zero1_refuses_a_transport_without_reduce_scatter():
 
 
 def test_fsdp_still_refuses():
+    """What fsdp refuses now that it is ported: a wire codec with the ring
+    gather (its reduction is the gather's backward, which carries no
+    codec), and the ring gather over a transport without reduce-scatter."""
     model = build_model(reduced_config("llama3.2-1b"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TrainStep(model, data_mesh(1), TrainStepConfig(dp_mode="fsdp"),
-                  device=torch.device("cpu"))
+    cpu = torch.device("cpu")
+    with pytest.raises(ValueError, match="fsdp_gather"):
+        TrainStep(model, data_mesh(1), TrainStepConfig(
+            dp_mode="fsdp", fsdp_gather="ring", wire_codec="int8"),
+            device=cpu)
+    with pytest.raises(ValueError, match="supports_rs"):
+        TrainStep(model, data_mesh(1), TrainStepConfig(
+            dp_mode="fsdp", fsdp_gather="ring",
+            comm=CommConfig(transport="psum")), device=cpu)
+    # the native gather over psum trains
+    TrainStep(model, data_mesh(1), TrainStepConfig(
+        dp_mode="fsdp", comm=CommConfig(transport="psum")), device=cpu)
