@@ -212,6 +212,29 @@ Phases, each of which raises on a failed check (exit code != 0):
               train_ring_fsdp, bitwise its plain version, beside
               ``torch.add(fp32, bf16)`` and the bound (10 bytes an
               element).
+27. train_ckpt — one rank, zero1 (the arch's default), the arena on,
+              seq 256, batch 8, full width at 4 layers (cut further, with
+              the reason printed, if two step directories do not fit the
+              free disk), under deterministic algorithms: an unbroken
+              4-step run; a run stopped after 2 steps, whose final save
+              writes the reference's on-disk format under ``build/``; a
+              fresh Trainer with ``--obs-dir`` that resumes at step 2: the
+              resumed losses and every leaf of the final state bitwise the
+              unbroken run's, the restored arena and moment shards bitwise
+              what was saved, the launches a step equal in the three runs,
+              ``trace.json`` holding the data, step, dispatch, wait and
+              ckpt spans (each step's dispatch and wait inside its step),
+              a span fenced on a tensor covering the device work queued
+              before it; the bytes written, the save's blocking part, its
+              async write, the restore with its sha256 verify and the free
+              disk space printed; the directories deleted;
+28. train_ring_ckpt — the same on two ranks over gloo, zero1 over the
+              int8 wire with the int8 arena (its sharded leaves gathered
+              to rank 0 as global arrays): losses and final state bitwise
+              on both ranks, each rank's restored arena, ``"ef"`` and
+              moment shards bitwise what it saved, the launches a step of
+              ``pack``, ``pack_quant``, ``quant`` and ``reduce_add`` equal
+              to the unbroken run's.
 
 Each phase prints its seconds (``[phase]``).  It prints a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` gives them, and as its last line
@@ -2158,6 +2181,511 @@ def phase_timing_fsdp(dev, hop_widths: list[int]) -> dict:
     return out
 
 
+# the checkpoint: a zero1 run stopped after CKPT_STOP of CKPT_STEPS steps
+# and resumed by a fresh Trainer, against an unbroken run, under
+# deterministic algorithms; one rank at full width and CKPT_LAYERS layers
+# (the arena on), then two ranks on the card over the int8 wire
+CKPT_LAYERS, CKPT_STEPS, CKPT_STOP = 4, 4, 2
+# bytes a step directory takes per parameter: params, mu, nu and the fp32
+# arena (one rank); params, the global mu and nu, "ef" of both ranks and
+# their int8 arenas (about 1 B a parameter each) at two ranks
+CKPT_BYTES_PER_PARAM = {1: 16, 2: 22}
+
+
+def _argv_with(argv: list[str], **flags) -> list[str]:
+    """``argv`` with ``--<flag> value`` set (replaced or appended)."""
+    out = list(argv)
+    for key, value in flags.items():
+        flag = "--" + key.replace("_", "-")
+        if flag in out:
+            out[out.index(flag) + 1] = str(value)
+        else:
+            out += [flag, str(value)]
+    return out
+
+
+def _ckpt_place(name: str, world: int, what: str) -> tuple[Path, int, dict]:
+    """A fresh directory under ``build/`` (ignored by git) for a phase's
+    checkpoints, and the depth that fits: the deepest up to CKPT_LAYERS
+    whose two step directories (the stop's and the resumed run's final
+    save, both kept) take at most 90 % of the free space there."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    root = REPO / "build" / name
+    if root.exists():
+        shutil.rmtree(root)
+    root.mkdir(parents=True)
+    free = shutil.disk_usage(root).free
+    for layers in range(CKPT_LAYERS, 0, -1):
+        params = build_model(get_config(ARCH).with_(
+            num_layers=layers)).param_count()
+        need = 2 * CKPT_BYTES_PER_PARAM[world] * params
+        if need <= 0.9 * free:
+            break
+    else:
+        raise AssertionError(f"[{what}] {free} B free under {root}: not "
+                             f"even one layer's two step directories fit")
+    disk = {"free_bytes": free, "need_bytes": need, "layers": layers}
+    log(f"[{what}] checkpoints under {root}: {free} B ({free / 2**30:.1f} "
+        f"GiB) free; two step directories at {layers} layers need about "
+        f"{need} B" + ("" if layers == CKPT_LAYERS else
+                       f" (depth cut from {CKPT_LAYERS}: "
+                       f"{CKPT_LAYERS} layers do not fit)"))
+    return root, layers, disk
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def _timed_checkpoints(trainer) -> dict:
+    """Times every ``save`` (its blocking part: the host copy, and over
+    several ranks the gather and the barrier) and ``wait`` (the joined
+    write) of ``trainer``'s checkpoint manager."""
+    times = {"save_s": [], "wait_s": []}
+    mgr = trainer.ckpt
+    save, wait = mgr.save, mgr.wait
+
+    def timed(fn, key):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                times[key].append(time.perf_counter() - t0)
+        return call
+
+    mgr.save, mgr.wait = timed(save, "save_s"), timed(wait, "wait_s")
+    return times
+
+
+def _timed_restore(setup):
+    """``setup()`` with every ``CheckpointManager.restore_latest`` timed;
+    returns its result and the seconds of each restore (the sha256 verify
+    of every file included)."""
+    from repro_torch.checkpoint import ckpt as ckpt_mod
+
+    orig = ckpt_mod.CheckpointManager.restore_latest
+    seconds = []
+
+    def timed(self, *a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return orig(self, *a, **kw)
+        finally:
+            seconds.append(time.perf_counter() - t0)
+
+    ckpt_mod.CheckpointManager.restore_latest = timed
+    try:
+        return setup(), seconds
+    finally:
+        ckpt_mod.CheckpointManager.restore_latest = orig
+
+
+def _verify_seconds(step_dir: Path) -> float:
+    """Seconds to sha256 every file of a step directory, as restore's
+    verify does (on its threads)."""
+    from repro_torch.checkpoint import ckpt as ckpt_mod
+
+    t0 = time.perf_counter()
+    ckpt_mod._sha256_all([str(f) for f in sorted(step_dir.glob("*.npy"))])
+    return time.perf_counter() - t0
+
+
+def _sharded_leaves(trainer) -> dict:
+    """``{path: tensor}`` of the state's rank-sharded leaves (the arena,
+    ``"ef"``, zero1's moment shards)."""
+    from repro_torch.checkpoint.ckpt import flatten_with_path
+
+    state = trainer.state
+    flat, _ = flatten_with_path(state)
+    rules = flatten_with_path(trainer.step_fn.state_layout(state))[0]
+    return {p: leaf for (p, leaf), (_, rule) in zip(flat, rules)
+            if rule == "sharded"}
+
+
+def _per_step(counts: dict, steps: int, what: str) -> dict:
+    bad = {k: v for k, v in counts.items() if v % steps}
+    if bad:
+        raise AssertionError(f"[{what}] launches {bad} do not split evenly "
+                             f"over {steps} steps")
+    return {k: v // steps for k, v in counts.items()}
+
+
+def _fence_covers_device(dev) -> dict:
+    """A span fenced on a tensor ends after the device work queued before
+    it: 20 fp32 matmuls of 4096 x 4096 (timed by CUDA events) in a
+    ``dispatch`` span that only queues them, then a ``wait`` span fenced
+    on the result; the stream is idle when ``wait`` closes and ``dispatch``
+    plus ``wait`` cover the device time."""
+    import torch
+
+    from repro_torch.obs import Tracer
+
+    a = torch.randn(4096, 4096, device=dev) / 64
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(dev)
+    tracer = Tracer()
+    with tracer.span("dispatch"):
+        start.record()
+        x = a
+        for _ in range(20):
+            x = x @ a
+        end.record()
+    with tracer.span("wait") as sp:
+        sp.fence({"x": [x]})
+    idle = torch.cuda.current_stream(dev).query()
+    device_s = start.elapsed_time(end) / 1e3
+    (_, _, dispatch_s, _), (_, _, wait_s, _) = tracer.events
+    if not idle or dispatch_s + wait_s < 0.95 * device_s:
+        raise AssertionError(f"[train_ckpt] the fenced span does not cover "
+                             f"the device work: stream idle {idle}, dispatch "
+                             f"{dispatch_s} s + wait {wait_s} s against "
+                             f"{device_s} s on the card")
+    return {"device_s": device_s, "dispatch_s": dispatch_s, "wait_s": wait_s}
+
+
+def _trace_spans(trace_path: str, steps: list[int]) -> dict:
+    """The trace's spans by name, each step's ``dispatch`` and ``wait``
+    within its ``step`` span."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    by_name: dict = {}
+    for e in events:
+        by_name.setdefault(e["name"], []).append(e)
+    missing = [n for n in ("data", "step", "dispatch", "wait", "ckpt")
+               if n not in by_name]
+    if missing:
+        raise AssertionError(f"[train_ckpt] trace.json lacks the spans "
+                             f"{missing}")
+    for s in steps:
+        step_e, disp, wait = (next(e for e in by_name[n]
+                                   if e["args"].get("step") == s)
+                              for n in ("step", "dispatch", "wait"))
+        lo, hi = step_e["ts"], step_e["ts"] + step_e["dur"]
+        for e in (disp, wait):
+            if not (lo <= e["ts"] and e["ts"] + e["dur"] <= hi + 1):
+                raise AssertionError(f"[train_ckpt] step {s}: {e['name']} "
+                                     f"lies outside its step span")
+    return {n: [e["dur"] / 1e6 for e in v] for n, v in by_name.items()}
+
+
+def phase_train_ckpt(dev) -> dict:
+    """One rank, zero1 (llama3.2-1b's default), the arena on, seq 256,
+    batch 8, full width at CKPT_LAYERS layers, under deterministic
+    algorithms: an unbroken CKPT_STEPS-step run, then a run stopped after
+    CKPT_STOP steps (its final save), then a fresh Trainer with ``--obs-dir``
+    that resumes at CKPT_STOP and runs to the end.  Losses of the resumed
+    steps and every leaf of the final state bitwise the unbroken run's;
+    pack launches a step equal in the three runs; the trace holds the five
+    spans, ``wait`` fenced on the device."""
+    import gc
+    import shutil
+
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.launch import train as launch_train
+
+    root, layers, disk = _ckpt_place("ckpt_smoke", 1, "train_ckpt")
+    ckpt_dir, obs_dir = root / "ckpt", root / "obs"
+    argv = _argv_with(ZERO1_ARGS, layers=layers, steps=CKPT_STEPS)
+    _deterministic(torch)
+    try:
+        def setup(extra):
+            args = launch_train.parser().parse_args(argv + extra)
+            world = launch_train.init_distributed(args.device)
+            run = launch_train.setup(args, world)
+            _check_full_width(run.model.cfg, layers, "train_ckpt")
+            return run
+
+        run = setup([])
+        if run.trainer.step_fn.cfg.dp_mode != "zero1":
+            raise AssertionError("[train_ckpt] the step is not zero1")
+        reset_launch_counters()
+        full = run.trainer.run()["history"]
+        counts_full = launch_counters()
+        routes = pack_routes()
+        final = {k: v for k, v in run.trainer.state.items() if k != "step"}
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in tree_util.leaves(final))
+        del run
+        gc.collect()
+
+        run = setup(["--ckpt-dir", str(ckpt_dir)])
+        run.trainer.tcfg.steps = CKPT_STOP            # the run dies here
+        stop_times = _timed_checkpoints(run.trainer)
+        reset_launch_counters()
+        stopped = run.trainer.run()["history"]
+        counts_stop = launch_counters()
+        saved = {p: t.clone() for p, t in
+                 _sharded_leaves(run.trainer).items()}
+        del run
+        gc.collect()
+        step_dir = ckpt_dir / f"step_{CKPT_STOP:08d}"
+        written = _dir_bytes(step_dir)
+        verify_s = _verify_seconds(step_dir)
+
+        run, restore_s = _timed_restore(lambda: setup(
+            ["--ckpt-dir", str(ckpt_dir), "--obs-dir", str(obs_dir)]))
+        trainer = run.trainer
+        if trainer.start_step != CKPT_STOP:
+            raise AssertionError(f"[train_ckpt] resumed at "
+                                 f"{trainer.start_step}, not {CKPT_STOP}")
+        restored = _sharded_leaves(trainer)
+        same_shards = (restored.keys() == saved.keys() and all(
+            torch.equal(restored[p], saved[p]) for p in saved))
+        del saved
+        res_times = _timed_checkpoints(trainer)
+        reset_launch_counters()
+        out_res = trainer.run()
+        resumed = out_res["history"]
+        counts_res = launch_counters()
+        differ = [p for p, (a, b) in enumerate(zip(
+            tree_util.leaves({k: v for k, v in trainer.state.items()
+                              if k != "step"}), tree_util.leaves(final)))
+                  if not torch.equal(a, b)]
+        n_leaves = len(tree_util.leaves(final))
+        step_ok = trainer.state["step"] == CKPT_STEPS
+        del run, trainer, final, restored
+        gc.collect()
+        torch.cuda.empty_cache()
+        fence = _fence_covers_device(dev)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = True
+    spans = _trace_spans(out_res["obs"]["trace"],
+                         list(range(CKPT_STOP, CKPT_STEPS)))
+    losses = [h["loss"] for h in full]
+    tail = [h["loss"] for h in resumed]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[train_ckpt] non-finite loss: {losses}")
+    if [h["loss"] for h in stopped] != losses[:CKPT_STOP]:
+        raise AssertionError(f"[train_ckpt] the stopped run's losses "
+                             f"{[h['loss'] for h in stopped]} != the "
+                             f"unbroken run's {losses[:CKPT_STOP]}")
+    if tail != losses[CKPT_STOP:]:
+        raise AssertionError(f"[train_ckpt] resumed losses {tail} != the "
+                             f"unbroken run's {losses[CKPT_STOP:]}")
+    if differ or not step_ok:
+        raise AssertionError(f"[train_ckpt] final state leaves {differ} of "
+                             f"{n_leaves} differ from the unbroken run's "
+                             f"(step reached: {step_ok})")
+    if not same_shards:
+        raise AssertionError("[train_ckpt] the restored arena / moment "
+                             "shards differ from what was saved")
+    per_step = {name: _per_step(c, n, "train_ckpt") for name, c, n in (
+        ("unbroken", counts_full, CKPT_STEPS), ("stopped", counts_stop,
+                                                CKPT_STOP),
+        ("resumed", counts_res, CKPT_STEPS - CKPT_STOP))}
+    if not (per_step["unbroken"] == per_step["stopped"] == per_step["resumed"]
+            and per_step["unbroken"]["pack_write"] > 0):
+        raise AssertionError(f"[train_ckpt] launches a step differ: "
+                             f"{per_step}")
+    if routes["vector"]:
+        raise AssertionError(f"[train_ckpt] pack by route {routes}")
+    out = {"layers": layers, "losses": losses, "resumed_losses": tail,
+           "step_s": [h["sec"] for h in full],
+           "resumed_step_s": [h["sec"] for h in resumed],
+           "launches": counts_full, "launches_resumed": counts_res,
+           "launches_per_step": per_step["unbroken"], "pack_routes": routes,
+           "state_bytes": state_bytes, "written_bytes": written,
+           "save_blocking_s": stop_times["save_s"][-1],
+           "async_write_s": stop_times["wait_s"][-1],
+           "resumed_save_blocking_s": res_times["save_s"][-1],
+           "resumed_async_write_s": res_times["wait_s"][-1],
+           "restore_s": restore_s[0], "verify_s": verify_s,
+           "disk": disk, "spans_s": spans, "fence": fence,
+           "n_leaves": n_leaves}
+    log(f"[train_ckpt] zero1, 1 rank, {layers} layers, arena on, "
+        f"deterministic: losses {', '.join(f'{x:.6f}' for x in losses)}; "
+        f"stopped at {CKPT_STOP}, resumed by a fresh Trainer: losses "
+        f"{', '.join(f'{x:.6f}' for x in tail)} bitwise, final state "
+        f"{n_leaves} of {n_leaves} leaves bitwise, restored arena and "
+        f"moment shards bitwise what was saved")
+    log(f"[train_ckpt] step directory {written} B ({written / 2**30:.2f} "
+        f"GiB; state {state_bytes} B): save blocking (host copy) "
+        f"{out['save_blocking_s']:.3f} s, async write {out['async_write_s']:.3f}"
+        f" s; restore {out['restore_s']:.3f} s (sha256 of every file "
+        f"{verify_s:.3f} s); the resumed run's final save "
+        f"{out['resumed_save_blocking_s']:.3f} + "
+        f"{out['resumed_async_write_s']:.3f} s; free disk "
+        f"{disk['free_bytes']} B before")
+    log(f"[train_ckpt] launches a step {per_step['unbroken']} in all three "
+        f"runs, pack by route {routes}; step wall unbroken "
+        f"{', '.join(f'{h['sec'] * 1e3:.0f}' for h in full)} ms, resumed "
+        f"{', '.join(f'{h['sec'] * 1e3:.0f}' for h in resumed)} ms")
+    log(f"[train_ckpt] trace.json spans (s): "
+        + "; ".join(f"{n} {', '.join(f'{x:.4f}' for x in v)}"
+                    for n, v in spans.items())
+        + f"; fence check: {fence['device_s'] * 1e3:.1f} ms on the card "
+        f"covered by dispatch {fence['dispatch_s'] * 1e3:.1f} + wait "
+        f"{fence['wait_s'] * 1e3:.1f} ms")
+    shutil.rmtree(root)
+    return out
+
+
+def _ckpt_ring_worker(argv: list[str], ckpt_dir: str) -> dict:
+    """One of the two ranks of train_ring_ckpt: the unbroken run, the run
+    stopped at CKPT_STOP (its sharded leaves gathered to rank 0, which
+    writes), and the resumed run, each with its launches and per-leaf
+    digests."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import train as launch_train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _deterministic(torch)
+    world = launch_train.init_distributed(
+        launch_train.parser().parse_args(argv).device)
+
+    def setup(extra):
+        args = launch_train.parser().parse_args(argv + extra)
+        run = launch_train.setup(args, world)
+        _check_full_width(run.model.cfg, args.layers, "train_ring_ckpt")
+        return run
+
+    def state_digest(trainer):
+        return params_digest({k: v for k, v in trainer.state.items()
+                              if k != "step"})
+
+    def shard_digests(trainer):
+        return {p: params_digest([t])[0]
+                for p, t in _sharded_leaves(trainer).items()}
+
+    try:
+        run = setup([])
+        reset_launch_counters()
+        full = run.trainer.run()["history"]
+        counts_full = launch_counters()
+        full_digest = state_digest(run.trainer)
+        del run
+        gc.collect()
+        run = setup(["--ckpt-dir", ckpt_dir])
+        run.trainer.tcfg.steps = CKPT_STOP
+        stop_times = _timed_checkpoints(run.trainer)
+        reset_launch_counters()
+        stopped = run.trainer.run()["history"]
+        counts_stop = launch_counters()
+        saved = shard_digests(run.trainer)
+        del run
+        gc.collect()
+        run, restore_s = _timed_restore(lambda: setup(["--ckpt-dir",
+                                                       ckpt_dir]))
+        start = run.trainer.start_step
+        restored = shard_digests(run.trainer)
+        res_times = _timed_checkpoints(run.trainer)
+        reset_launch_counters()
+        resumed = run.trainer.run()["history"]
+        counts_res = launch_counters()
+        res_digest = state_digest(run.trainer)
+        record = run.trainer.step_fn.comm.record.as_dict()
+        return {"backend": world.backend, "start": start,
+                "losses": [h["loss"] for h in full],
+                "stopped_losses": [h["loss"] for h in stopped],
+                "resumed_losses": [h["loss"] for h in resumed],
+                "step_s": [h["sec"] for h in full],
+                "resumed_step_s": [h["sec"] for h in resumed],
+                "counts": {"unbroken": counts_full, "stopped": counts_stop,
+                           "resumed": counts_res},
+                "final_same": res_digest == full_digest,
+                "n_leaves": len(full_digest),
+                "shards_same": saved == restored, "sharded": sorted(saved),
+                "save_blocking_s": stop_times["save_s"][-1],
+                "async_write_s": stop_times["wait_s"][-1],
+                "restore_s": restore_s[0],
+                "resumed_save_blocking_s": res_times["save_s"][-1],
+                "resumed_async_write_s": res_times["wait_s"][-1],
+                "staging_s": record["staging_s"]}
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_train_ring_ckpt() -> dict:
+    """Two ranks on the card over gloo, zero1 over the int8 wire with the
+    int8 arena, full width at CKPT_LAYERS layers, deterministic: the
+    stop-and-resume check of train_ckpt, bitwise, with every rank's
+    restored arena, ``"ef"`` and moment shards equal to what it saved and
+    the launches a step of ``pack``, ``pack_quant``, ``quant`` and
+    ``reduce_add`` equal to the unbroken run's."""
+    import shutil
+
+    from repro_torch.launch import train as launch_train
+
+    what = "train_ring_ckpt"
+    root, layers, disk = _ckpt_place("ckpt_ring_smoke", 2, what)
+    before = card_memory()
+    log(f"[{what}] before the ranks spawn: {before['card_used_mib']} of "
+        f"{before['card_total_mib']} MiB of the card in use")
+    argv = _argv_with(ZERO1_INT8_ARGS, layers=layers, steps=CKPT_STEPS)
+    ranks = launch_train.spawn(_ckpt_ring_worker, 2, argv, str(root),
+                               timeout=900)
+    step_dir = root / f"step_{CKPT_STOP:08d}"
+    written = _dir_bytes(step_dir)
+    verify_s = _verify_seconds(step_dir)
+    for r, o in enumerate(ranks):
+        if o["backend"] != "gloo" or o["start"] != CKPT_STOP:
+            raise AssertionError(f"[{what}] rank {r}: backend "
+                                 f"{o['backend']}, resumed at {o['start']}")
+        losses = o["losses"]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"[{what}] rank {r} non-finite loss")
+        if o["stopped_losses"] != losses[:CKPT_STOP] or \
+                o["resumed_losses"] != losses[CKPT_STOP:]:
+            raise AssertionError(f"[{what}] rank {r}: stopped "
+                                 f"{o['stopped_losses']} and resumed "
+                                 f"{o['resumed_losses']} != unbroken "
+                                 f"{losses}")
+        if not o["final_same"]:
+            raise AssertionError(f"[{what}] rank {r}: the final state differs"
+                                 f" from the unbroken run's")
+        if not o["shards_same"] or not {"['arena']", "['ef']"} <= set(
+                o["sharded"]):
+            raise AssertionError(f"[{what}] rank {r}: restored shards "
+                                 f"{o['sharded']} differ from what it saved")
+        c = o["counts"]
+        per = {name: _per_step(c[name], n, what) for name, n in (
+            ("unbroken", CKPT_STEPS), ("stopped", CKPT_STOP),
+            ("resumed", CKPT_STEPS - CKPT_STOP))}
+        if not per["unbroken"] == per["stopped"] == per["resumed"]:
+            raise AssertionError(f"[{what}] rank {r}: launches a step "
+                                 f"differ: {per}")
+        for name in ("pack_read", "pack_quant_write", "pack_quant_read",
+                     "quantize", "dequantize", "reduce_add"):
+            if not per["unbroken"][name]:
+                raise AssertionError(f"[{what}] rank {r}: no {name} launch")
+        o["launches_per_step"] = per["unbroken"]
+    if ranks[0]["losses"] != ranks[1]["losses"]:
+        raise AssertionError(f"[{what}] the ranks disagree on the loss")
+    o = ranks[0]
+    log(f"[{what}] 2 ranks on one card over gloo, zero1, int8 wire, "
+        f"{layers} layers, deterministic: losses "
+        f"{', '.join(f'{x:.6f}' for x in o['losses'])}; stopped at "
+        f"{CKPT_STOP} and resumed: losses bitwise, final state "
+        f"{o['n_leaves']} leaves bitwise (digests) on both ranks, restored "
+        f"{', '.join(o['sharded'])} bitwise what each rank saved")
+    log(f"[{what}] step directory {written} B ({written / 2**30:.2f} GiB, "
+        f"global arrays): save blocking (host copy + gather to rank 0) "
+        f"{o['save_blocking_s']:.3f} / {ranks[1]['save_blocking_s']:.3f} s, "
+        f"async write {o['async_write_s']:.3f} s (rank 0); restore "
+        f"{o['restore_s']:.3f} / {ranks[1]['restore_s']:.3f} s (sha256 of "
+        f"every file {verify_s:.3f} s); free disk {disk['free_bytes']} B")
+    log(f"[{what}] launches a step {o['launches_per_step']} in all three "
+        f"runs on both ranks; step wall unbroken "
+        f"{', '.join(f'{x * 1e3:.0f}' for x in o['step_s'])} ms, resumed "
+        f"{', '.join(f'{x * 1e3:.0f}' for x in o['resumed_step_s'])} ms")
+    shutil.rmtree(root)
+    return {"ranks": ranks, "layers": layers, "written_bytes": written,
+            "verify_s": verify_s, "disk": disk, "card_before": before}
+
+
 def rotating(calls):
     """One callable that runs the next of ``calls`` at each call, so that a
     timed run of many calls cycles through their inputs."""
@@ -3164,6 +3692,8 @@ def main() -> None:
     fsdp0 = train_ring_fsdp["ranks"][0]
     timing_fsdp = run_phase("timing_fsdp", phase_timing_fsdp, dev,
                             fsdp0["hop_widths"])
+    train_ckpt = run_phase("train_ckpt", phase_train_ckpt, dev)
+    train_ring_ckpt = run_phase("train_ring_ckpt", phase_train_ring_ckpt)
     z1, z8 = (train_ring_zero1["ranks"][0],
               train_ring_zero1_int8["ranks"][0])
     f8 = train_ring_fsdp_int8["ranks"][0]
@@ -3206,6 +3736,14 @@ def main() -> None:
     # and on the fsdp paths: one rank (train_fsdp), two ranks over the ring
     # gather (train_ring_fsdp) and the native gather with the int8 arena
     # (train_ring_fsdp_int8), 3 steps each, and the gathered prefill
+    # and on the resumed paths: each kernel's launches a step, equal in the
+    # unbroken, the stopped and the resumed run (train_ckpt: one rank,
+    # zero1; train_ring_ckpt: two ranks, zero1 over the int8 wire)
+    ckpt_launches = {name: {
+        "train_ckpt": train_ckpt["launches_per_step"][name],
+        "train_ring_ckpt": train_ring_ckpt["ranks"][0][
+            "launches_per_step"][name]}
+        for name in list(launches) + ["flash_attn", "flash_decode"]}
     fsdp_launches = {name: {"train_fsdp": train_fsdp["launches"][name],
                             "train_ring_fsdp": fsdp0["counts"][name],
                             "train_ring_fsdp_int8": f8["counts"][name],
@@ -3220,6 +3758,7 @@ def main() -> None:
         "replaces": "src/repro/kernels/flash_decode/flash_decode.py:91",
         "launches": serve["launches"],
         "launches_fsdp": fsdp_launches["flash_decode"],
+        "launches_ckpt": ckpt_launches["flash_decode"],
         "max_abs_err": kernel_err, **timing}]
     for name, replaces in (
             ("reduce_add", "src/repro/kernels/reduce_add/reduce_add.py:46"),
@@ -3233,6 +3772,7 @@ def main() -> None:
             "replaces": replaces, "launches": launches[name],
             "launches_zero1": zero1_launches[name],
             "launches_fsdp": fsdp_launches[name],
+            "launches_ckpt": ckpt_launches[name],
             "max_abs_err": errs[name],
             **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}})
@@ -3256,6 +3796,7 @@ def main() -> None:
             "replaces": replaces, "launches": launches[name],
             "launches_zero1": zero1_launches[name],
             "launches_fsdp": fsdp_launches[name],
+            "launches_ckpt": ckpt_launches[name],
             "max_abs_err": errs[name],
             **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}})
@@ -3266,6 +3807,7 @@ def main() -> None:
         "replaces": "src/repro/kernels/flash_attn/flash_attn.py:102",
         "launches": prefill["launches"],
         "launches_fsdp": fsdp_launches["flash_attn"],
+        "launches_ckpt": ckpt_launches["flash_attn"],
         "max_abs_err": max(*kernels_attn["max_abs_err"].values(),
                            timing_attn["max_abs_err"]),
         **{k: timing_attn[k] for k in ("ms", "plain_ms", "bound_ms",
@@ -3287,7 +3829,8 @@ def main() -> None:
              "train_fsdp": train_fsdp, "train_ring_fsdp": train_ring_fsdp,
              "train_ring_fsdp_int8": train_ring_fsdp_int8,
              "prefill_gathered": prefill_gathered,
-             "timing_fsdp": timing_fsdp, "phase_s": phase_s,
+             "timing_fsdp": timing_fsdp, "train_ckpt": train_ckpt,
+             "train_ring_ckpt": train_ring_ckpt, "phase_s": phase_s,
              "torch": torch.__version__, "cuda": torch.version.cuda,
              "wall_s": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

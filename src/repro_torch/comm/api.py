@@ -518,8 +518,16 @@ class Communicator:
                                 arena_buf: torch.Tensor | None):
         """Arena-mode body of :meth:`reduce_scheduled`.  Every collective
         moves one contiguous page-quantized span of the arena (padding
-        crosses the wire), reduced in place.  With several microbatches the
-        sum accumulates in a step-local buffer of the arena's size."""
+        crosses the wire), reduced in place.
+
+        The returned arena holds what the reference's does, so that a
+        checkpoint of the same state writes the same files: the reduced
+        mean after an all-reduce, the microbatch sum for ``op="none"``, and
+        the last microbatch's pack after a reduce-scatter.  With several
+        microbatches the first packs into the arena itself and each later
+        one into a step-local buffer of the arena's size that is added in
+        (the same adds, in the same order, as a sum kept beside it); a
+        reduce-scatter accumulates its packs in the step-local buffer."""
         layout = arena.layout
         if not self.axes:
             raise ValueError("arena mode needs data axes; this "
@@ -543,6 +551,25 @@ class Communicator:
             if acc is None:
                 return t.clone()
             return acc.add_(t)
+
+        in_place = op != "reduce_scatter"     # the arena is the accumulator
+        scratch = None
+
+        def target(i: int, device) -> torch.Tensor:
+            """The buffer microbatch ``i`` packs into."""
+            nonlocal buf, scratch
+            if buf is None:
+                buf = arena.zeros(device)
+            if i == 0 or not in_place:
+                return buf
+            if scratch is None:
+                scratch = arena.zeros(device)
+            return scratch
+
+        def add_into_arena(i: int, t: torch.Tensor) -> torch.Tensor:
+            if i > 0:
+                buf.add_(t)
+            return buf
 
         def reduce_spans(buf, phase):
             """All-reduce each span of ``buf`` in place."""
@@ -584,11 +611,10 @@ class Communicator:
                 flat = [(l.float() * inv if m > 1 else l).reshape(-1)
                         for l in leaves]
                 del leaves
-                if buf is None:
-                    buf = arena.zeros(flat[0].device)
-                arena.pack_into(buf, flat)
+                tgt = target(i, flat[0].device)
+                arena.pack_into(tgt, flat)
                 del flat
-                acc = accumulate(acc, buf)
+                acc = add_into_arena(i, tgt)
                 continue
             buckets, bplan = self.bucketer.bucketize(grads)
             del grads
@@ -600,14 +626,14 @@ class Communicator:
                     f"tree")
             if m > 1:
                 buckets = [b.float() * inv for b in buckets]
-            if buf is None:
-                buf = arena.zeros(buckets[0].device)
-            arena.pack_into(buf, buckets)
+            tgt = target(i, buckets[0].device)
+            arena.pack_into(tgt, buckets)
             del buckets
-            if not streamed:
+            if op == "all_reduce":
+                acc = add_into_arena(i, reduce_spans(tgt, i) if streamed
+                                     else tgt)
+            elif not streamed:
                 acc = accumulate(acc, buf)
-            elif op == "all_reduce":
-                acc = accumulate(acc, reduce_spans(buf, i))
             else:
                 out = scatter_spans(buf, i, [None] * layout.n_spans)
                 acc = out if acc is None else [a + o

@@ -16,7 +16,10 @@ generator.  Port of ``repro.launch.serve``'s two paths:
 
 It runs on ``cuda`` unless ``--device cpu`` is given, on one rank (the
 reference's ``--model-parallel`` page-parallel decode and
-``--production-mesh`` are not ported yet).
+``--production-mesh`` are not ported yet).  With ``--paged``, ``--obs-dir
+DIR`` instruments the engine and scheduler (``events.jsonl`` and
+``trace.json`` under DIR, read with ``python -m repro_torch.obs.report
+DIR``).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.launch.settings import settings_for
 from repro_torch.models import Model, build_model
+from repro_torch.obs import ObsConfig, make_obs
 from repro_torch.runtime.serve_step import build_decode_step
 from repro_torch.serve.engine import (PagedDecodeEngine,
                                       predicted_collectives_per_token,
@@ -60,8 +64,10 @@ def setup_paged(args) -> PagedServe:
     longest = args.prompt_len + max(args.long_len, args.short_len)
     plan = plan_kv_arena(model.cfg, page_tokens=args.page_tokens,
                          max_seqs=args.slots, max_seq_len=longest)
+    obs = make_obs(ObsConfig(run_dir=args.obs_dir)
+                   if args.obs_dir else None)
     engine = PagedDecodeEngine(model, plan, attn_impl=args.attn_impl,
-                               device=dev)
+                               device=dev, obs=obs)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = model.init(gen, dev)
     trace = mixed_trace(groups=args.groups, slots=args.slots,
@@ -105,7 +111,12 @@ def serve_policies(run: PagedServe, policies: list[str]) -> dict:
 def run_paged(args) -> dict:
     policies = (["continuous", "static"] if args.policy == "both"
                 else [args.policy])
-    return serve_policies(setup_paged(args), policies)
+    run = setup_paged(args)
+    results = serve_policies(run, policies)
+    paths = run.engine.obs.finish()
+    if paths.get("events"):
+        print(f"  obs: events={paths['events']} trace={paths['trace']}")
+    return results
 
 
 def run_contiguous(args) -> dict:
@@ -175,6 +186,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--long-len", type=int, default=64)
     ap.add_argument("--short-len", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=1)
+    ap.add_argument("--obs-dir", default=None, metavar="DIR",
+                    help="paged: instrument the run (JSONL events + Chrome "
+                         "trace under DIR)")
     return ap
 
 

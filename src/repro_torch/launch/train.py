@@ -20,6 +20,12 @@ It runs on ``cuda`` unless ``--device cpu`` is given.  ``--dp-mode`` is
 gather (``native`` or ``ring``) and its dtype are set on
 ``TrainStepConfig`` only, as in the reference, whose CLI has no flag for
 them.
+
+``--ckpt-dir DIR`` saves the train state every 50 steps and at the end (the
+reference's on-disk format; the sharded leaves gathered into global arrays
+on rank 0) and resumes from the newest committed step; ``--obs-dir DIR``
+instruments rank 0's run (``events.jsonl`` and ``trace.json`` under DIR,
+read with ``python -m repro_torch.obs.report DIR``).
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from repro_torch.data import DataConfig, SyntheticTokens
 from repro_torch.device import resolve_device
 from repro_torch.launch.settings import settings_for
 from repro_torch.models import Model, build_model
+from repro_torch.obs import ObsConfig
 from repro_torch.optim import OptimConfig
 from repro_torch.runtime.train_loop import Trainer, TrainerConfig
 from repro_torch.runtime.train_step import (DP_MODES, TrainStepConfig,
@@ -142,9 +149,13 @@ def setup(args, world: World, *,
                                       seq_len=args.seq,
                                       global_batch=args.batch))
     log = print if world.rank == 0 else (lambda msg: None)
+    # one run directory: rank 0 instruments the run
+    obs_cfg = (ObsConfig(run_dir=args.obs_dir)
+               if args.obs_dir and world.rank == 0 else None)
     trainer = Trainer(model, data_mesh(world.size), step_cfg, data,
-                      TrainerConfig(steps=args.steps, log_every=10,
-                                    seed=args.seed),
+                      TrainerConfig(steps=args.steps, ckpt_every=50,
+                                    ckpt_dir=args.ckpt_dir, log_every=10,
+                                    seed=args.seed, obs=obs_cfg),
                       device=world.device, rank=world.rank, log=log)
     log(f"arch={args.arch} layers={cfg.num_layers} "
         f"params={model.param_count() / 1e6:.1f}M world={world.size} "
@@ -157,10 +168,15 @@ def setup(args, world: World, *,
 
 
 def run(args) -> dict:
-    """One rank's training run; returns the trainer's history."""
+    """One rank's training run; returns the trainer's history, wall,
+    straggler events and obs paths."""
     world = init_distributed(args.device)
     try:
-        return setup(args, world).trainer.run()
+        out = setup(args, world).trainer.run()
+        if out["obs"]["events"]:
+            print(f"obs: events={out['obs']['events']} "
+                  f"trace={out['obs']['trace']}")
+        return out
     finally:
         if world.backend is not None:
             dist.destroy_process_group()
@@ -256,7 +272,12 @@ def parser() -> argparse.ArgumentParser:
                     help="quantize the gradient wire (int8 payload + "
                          "per-block scales; with --use-arena the fused "
                          "pack+quantize arena and error feedback)")
+    ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--obs-dir", default=None, metavar="DIR",
+                    help="instrument the run: JSONL event stream + Chrome "
+                         "trace under DIR (read with "
+                         "python -m repro_torch.obs.report DIR)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights")
     ap.add_argument("--device", default="cuda",

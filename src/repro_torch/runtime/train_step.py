@@ -52,6 +52,7 @@ from typing import Sequence
 import torch
 
 from repro_torch import tree as tree_util
+from repro_torch.checkpoint import REPLICATED, SHARDED, RankShards
 from repro_torch.comm.api import CommConfig, Communicator
 from repro_torch.comm.schedule import (SCHEDULE_POLICIES, CommSchedule,
                                        build_schedule)
@@ -335,6 +336,11 @@ class TrainStep:
     bucket, or one per arena span) and, per shard, the ranges that count in
     the gradient norm (:func:`span_norm_ranges`).  Under ``fsdp`` it holds
     the :class:`FsdpPlan` (:attr:`fsdp`), whose communicator is the step's.
+
+    For checkpoints it holds :attr:`ranks` (this rank's place in the global
+    arrays and, over several ranks, a gloo group of its own when the
+    default group is not gloo, created with the communicator's groups) and
+    gives each state leaf's layout (:meth:`state_layout`).
     """
 
     def __init__(self, model: Model, mesh: RankMesh, cfg: TrainStepConfig,
@@ -362,8 +368,10 @@ class TrainStep:
                           if isinstance(lay, QuantArenaLayout)
                           else CommArena(lay, impl=cfg.comm.local_op))
             self.schedule = _fsdp_schedule(self.fsdp, cfg.microbatches)
+            self.ranks = self._checkpoint_ranks()
             return
         self.comm = Communicator(mesh, cfg.comm_config(("pod", "data")))
+        self.ranks = self._checkpoint_ranks()
         self.ctx = ParallelCtx(data=self.comm.transport.rails[0].joint)
         local = abstract_params(model)
         self.plan = self.comm.plan(local)
@@ -389,6 +397,42 @@ class TrainStep:
                 self.shard_sizes = [n // world for n in
                                     self.plan.bucket_plan.bucket_sizes]
                 self.norm_ranges = [[(0, n)] for n in self.shard_sizes]
+
+    def _checkpoint_ranks(self) -> RankShards:
+        """This rank's place in the global arrays of a checkpoint: its
+        index on the data axes, which must be its ring's ownership order
+        (rank ``r`` owns elements ``[r*n/p, (r+1)*n/p)`` of every
+        reduce-scatter), and the host-side group the checkpoint gathers
+        over.  Collective over several ranks."""
+        world = self.comm.world
+        if world == 1:
+            return RankShards()
+        import torch.distributed as dist
+
+        rank = dist.get_rank()
+        rings = tuple(reversed(self.comm.transport.rails[0].axes))
+        if world != dist.get_world_size() or \
+                _owned_range(world, rings) != (rank, rank + 1):
+            raise NotImplementedError(
+                "checkpoints need a data-only mesh whose ring ownership "
+                "follows the rank order")
+        group = (None if dist.get_backend() == "gloo"
+                 else dist.new_group(backend="gloo"))
+        return RankShards(rank, world, group)
+
+    def state_layout(self, state: dict) -> dict:
+        """Per leaf of ``state``, :data:`~repro_torch.checkpoint.SHARDED`
+        where each rank holds its own 1-D shard of a global array (the
+        reference's flat ``P(('data', 'model'))`` leaves: the arena,
+        ``"ef"``, zero1's moment shards, fsdp's groups and their moments),
+        :data:`~repro_torch.checkpoint.REPLICATED` elsewhere (the
+        parameters, the replicated moments, ``step``)."""
+        sharded = {"arena", "ef"}
+        if self.cfg.dp_mode in ("zero1", "fsdp"):
+            sharded |= {"opt", "groups"}
+        return {k: tree_util.tree_map(
+            lambda _, rule=SHARDED if k in sharded else REPLICATED: rule, v)
+            for k, v in state.items()}
 
     def _grad_fn(self, params, mb):
         """``(loss, grads)`` of one microbatch; under fsdp ``params`` is

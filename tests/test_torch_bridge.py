@@ -21,6 +21,10 @@ from repro_torch.models.attention import _merge_heads, _split_heads
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)\b", re.M)
+# the checkpoint and obs packages also run where neither msgpack nor
+# ml_dtypes is installed (the card's machine)
+FORBIDDEN_HOST = re.compile(
+    r"^\s*(import|from)\s+(jax|repro|msgpack|ml_dtypes)\b", re.M)
 
 
 def test_round_trip_of_reduced_llama_params_is_bitwise():
@@ -123,7 +127,25 @@ def test_port_imports_nothing_of_jax_or_repro(path):
     assert not hits, f"{path}: {hits}"
 
 
+def _host_only_sources():
+    root = REPO / "src" / "repro_torch"
+    return sorted((root / "checkpoint").rglob("*.py")) \
+        + sorted((root / "obs").rglob("*.py"))
+
+
+@pytest.mark.parametrize("path", _host_only_sources(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_checkpoint_and_obs_import_no_msgpack_or_ml_dtypes(path):
+    hits = [m.group(0).strip()
+            for m in FORBIDDEN_HOST.finditer(path.read_text())]
+    assert not hits, f"{path}: {hits}"
+
+
 def test_import_scan_pattern():
+    assert FORBIDDEN_HOST.search("import msgpack\n")
+    assert FORBIDDEN_HOST.search("  from ml_dtypes import bfloat16\n")
+    assert not FORBIDDEN_HOST.search("from repro_torch.checkpoint import "
+                                     "_msgpack\n")
     assert FORBIDDEN.search("import jax\n")
     assert FORBIDDEN.search("    from repro.serve import x\n")
     assert not FORBIDDEN.search("from repro_torch.serve import x\n")
