@@ -234,7 +234,31 @@ Phases, each of which raises on a failed check (exit code != 0):
               on both ranks, each rank's restored arena, ``"ef"`` and
               moment shards bitwise what it saved, the launches a step of
               ``pack``, ``pack_quant``, ``quant`` and ``reduce_add`` equal
-              to the unbroken run's.
+              to the unbroken run's;
+29. halo    — the paper's first workload: two ranks on the card over
+              gloo, mesh (2, 1, 1, 1) over the axes x, y, z, t, a 32^4
+              lattice of 24 fp32 a site (a Wilson spinor) a rank: for each
+              of the four halo schedules (chunks 2, channels 2) the
+              received faces bitwise the faces a ``torch.roll`` of the
+              seeded global lattice gives, sends and bytes == the
+              HaloPlan's units on the x axis (y, z, t wrap locally), the
+              median exchange time, its GB/s and staging time (gloo
+              through pinned host memory);
+30. stencil — one rank: ``StencilOp.apply`` and ``EvenOddOp.apply`` on
+              the card bitwise the port's CPU apply of the same field,
+              one apply timed with CUDA events beside its bound (x read
+              once, y written once), the device activities an apply makes;
+31. stencil_cg — the CG family (cg, pipelined, s-step x none, even-odd;
+              s 4, tol 1e-5, overlap, chunks 2, channels 2): on one rank
+              every solve converges with a true residual below 1e-4
+              through the global ``apply_reference``; on two ranks over
+              gloo on psum and on ring_hier, each solution bitwise across
+              the transports, the four schedules and the plain local add,
+              ``reduce_add`` launches == the ring's adds an all-reduce x
+              the all-reduces, the unrolled ladder (8 iterations) 17 / 8 /
+              2 all-reduces and 2 x ``predicted_halo_exchanges`` sends;
+              iterations, ms, all-reduces, the peak and one profiled
+              solve's idle share on one and on two ranks.
 
 Each phase prints its seconds (``[phase]``).  It prints a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` gives them, and as its last line
@@ -2686,6 +2710,438 @@ def phase_train_ring_ckpt() -> dict:
             "verify_s": verify_s, "disk": disk, "card_before": before}
 
 
+# the paper's first workload: a QCD-sized local lattice, 32^4 sites of a
+# Wilson spinor (4 spins x 3 colours x complex = 24 fp32) a rank, the
+# stencil on all four dims over the mesh axes x, y, z, t, the reference
+# example's mass; the two-rank phases split x over the ranks
+STENCIL_LOCAL = (32, 32, 32, 32, 24)
+STENCIL_AXES = ("x", "y", "z", "t")
+STENCIL_MESH2 = (2, 1, 1, 1)
+STENCIL_MASS = 0.2
+STENCIL_CG = dict(s=4, tol=1e-5, maxiter=300, schedule="overlap", chunks=2,
+                  channels=2)
+HALO_SCHEDULES = ("sequential", "concurrent", "chunked", "overlap")
+HALO_REPEATS = 10
+LADDER = {"cg": 17, "pipelined": 8, "sstep": 2}   # all-reduces at 8 iters
+
+
+def stencil_op():
+    from repro_torch.core.halo import HaloSpec
+    from repro_torch.stencil import StencilOp
+
+    return StencilOp(specs=tuple(HaloSpec(a, d, 1)
+                                 for d, a in enumerate(STENCIL_AXES)),
+                     mass=STENCIL_MASS)
+
+
+def stencil_field(dev, seed: int, shape):
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=dev)
+
+
+def stencil_comm(transport: str, local_op: str = "kernel"):
+    """A communicator of the two-rank mesh (2, 1, 1, 1), channels 2."""
+    from repro_torch.comm import CommConfig, Communicator
+    from repro_torch.core.topology import RankMesh
+
+    return Communicator(RankMesh(STENCIL_AXES, STENCIL_MESH2),
+                        CommConfig(transport=transport,
+                                   data_axes=STENCIL_AXES, channels=2,
+                                   local_op=local_op))
+
+
+def _own_block(xg, rank: int):
+    n = STENCIL_LOCAL[0]
+    return xg.narrow(0, rank * n, n)
+
+
+def _halo_worker() -> dict:
+    """One of two ranks of the halo phase: every schedule's received faces
+    against a ``torch.roll`` of the seeded global lattice, bitwise; sends
+    and bytes against the HaloPlan; the median exchange time."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import train as launch_train
+
+    world = launch_train.init_distributed("cuda")
+    try:
+        dev, rank = world.device, world.rank
+        comm = stencil_comm("psum")
+        specs = stencil_op().specs
+        n = STENCIL_LOCAL[0]
+        xg = stencil_field(dev, 25, (2 * n,) + STENCIL_LOCAL[1:])
+        x = _own_block(xg, rank).contiguous()
+        want = {}
+        for s in specs:
+            w = STENCIL_LOCAL[s.dim]
+            want[(s.axis, "-")] = _own_block(
+                torch.roll(xg, 1, dims=s.dim), rank).narrow(s.dim, 0, 1)
+            want[(s.axis, "+")] = _own_block(
+                torch.roll(xg, -1, dims=s.dim), rank).narrow(s.dim, w - 1, 1)
+        out = {"backend": world.backend, "schedules": {}}
+        for sched in HALO_SCHEDULES:
+            comm.record.reset()
+            got = comm.halo_exchange(x, specs, schedule=sched)
+            torch.cuda.synchronize(dev)
+            rec = comm.record.as_dict()
+            same = all(torch.equal(got[k], v) for k, v in want.items())
+            plan = comm.halo_plan(STENCIL_LOCAL, specs, schedule=sched)
+            sizes = dict(zip(plan.axes, plan.axis_sizes))
+            wire = [b for k, b in zip(plan.unit_keys, plan.unit_bytes)
+                    if sizes[k.rstrip("+-#0123456789")] > 1]
+            times = []
+            comm.record.reset()
+            for _ in range(HALO_REPEATS):
+                dist.barrier()
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                comm.halo_exchange(x, specs, schedule=sched)
+                torch.cuda.synchronize(dev)
+                times.append(time.perf_counter() - t0)
+            out["schedules"][sched] = {
+                "bitwise": same, "sends": rec["sends"],
+                "send_bytes": rec["send_bytes"], "plan_sends": len(wire),
+                "plan_bytes": sum(wire), "plan_units": plan.n_units,
+                "median_s": statistics.median(times),
+                "staging_s": comm.record.staging_s / HALO_REPEATS}
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_halo() -> dict:
+    """Two ranks on the one card over gloo, mesh (2, 1, 1, 1), a 32^4 x 24
+    fp32 block a rank: the four halo schedules (chunks 2, channels 2)."""
+    from repro_torch.launch import train as launch_train
+
+    ranks = launch_train.spawn(_halo_worker, 2, timeout=600)
+    for r, o in enumerate(ranks):
+        if o["backend"] != "gloo":
+            raise AssertionError(f"[halo] rank {r} backend {o['backend']}")
+        for sched, s in o["schedules"].items():
+            if not s["bitwise"]:
+                raise AssertionError(f"[halo] rank {r} {sched}: a received "
+                                     f"face differs from the rolled lattice")
+            if (s["sends"], s["send_bytes"]) != (s["plan_sends"],
+                                                 s["plan_bytes"]):
+                raise AssertionError(
+                    f"[halo] rank {r} {sched}: recorded {s['sends']} sends "
+                    f"/ {s['send_bytes']} B != the plan's units on axes of "
+                    f"more than one rank, {s['plan_sends']} / "
+                    f"{s['plan_bytes']} B")
+    log(f"[halo] 2 ranks on one card over gloo (faces staged through pinned "
+        f"host memory: these times are gloo on the host, not the card's "
+        f"links), local {'x'.join(map(str, STENCIL_LOCAL))} fp32, mesh "
+        f"{STENCIL_MESH2}: every face of every schedule bitwise a "
+        f"torch.roll of the global lattice on both ranks; sends and bytes "
+        f"== the HaloPlan's units on the x axis (y, z, t wrap locally)")
+    for sched, s in ranks[0]["schedules"].items():
+        gbs = s["send_bytes"] / s["median_s"] / 1e9
+        log(f"[halo]   {sched:10s} {s['sends']} sends, {s['send_bytes']} B "
+            f"a rank: median {s['median_s'] * 1e3:.3f} ms over "
+            f"{HALO_REPEATS} (rank 1 "
+            f"{ranks[1]['schedules'][sched]['median_s'] * 1e3:.3f}), "
+            f"{gbs:.3f} GB/s a rank, staging {s['staging_s'] * 1e3:.3f} ms "
+            f"an exchange")
+    return {"ranks": ranks}
+
+
+def phase_stencil(dev) -> dict:
+    """One rank: ``StencilOp.apply`` and ``EvenOddOp.apply`` on the card
+    bitwise the port's CPU apply of the same field, and one apply timed
+    beside its bound (x read once, y written once)."""
+    import torch
+
+    from repro_torch.stencil import EvenOddOp
+
+    op = stencil_op()
+    eo = EvenOddOp(op, distributed=False)
+    x = stencil_field(dev, 26, STENCIL_LOCAL)
+    xe = x * eo.parity_mask(x.shape, True, device=dev)
+    out = {}
+    for name, fn, arg in (("apply", op.apply, x), ("schur", eo.apply, xe)):
+        got = fn(arg).cpu()
+        want = fn(arg.cpu())
+        if not torch.equal(got, want):
+            raise AssertionError(f"[stencil] {name}: the card's apply is not "
+                                 f"the CPU's bitwise (max |diff| "
+                                 f"{(got - want).abs().max().item():.3e})")
+        out[f"{name}_max_abs_err"] = 0.0
+    ref = op.apply_reference(x)
+    if not torch.equal(op.apply(x), ref):
+        raise AssertionError("[stencil] apply != apply_reference on the card")
+    nbytes = 2 * x.numel() * x.element_size()
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    ms = events_ms(lambda: op.apply(x), 20)
+    schur_ms = events_ms(lambda: eo.apply(xe), 10)
+    wall, by_name, counts = device_activity(lambda: op.apply(x), 5)
+    launches = sum(counts.values()) / 5
+    log(f"[stencil] 1 rank, {'x'.join(map(str, STENCIL_LOCAL))} fp32 "
+        f"({x.numel() * 4} B a field): StencilOp.apply and EvenOddOp.apply "
+        f"on the card bitwise the CPU's, apply bitwise apply_reference")
+    log(f"[stencil] apply {ms:.4f} ms (CUDA events, 20 eager calls) vs bound "
+        f"{bound:.4f} ms ({nbytes} B at 3.35 TB/s): {ms / bound:.1f}x the "
+        f"bound; {launches:.0f} device activities an apply (profiler); "
+        f"Schur apply {schur_ms:.4f} ms")
+    return {"ms": ms, "bound_ms": bound, "ratio": ms / bound,
+            "schur_ms": schur_ms, "activities_per_apply": launches,
+            "profiler_wall_ms": wall, "bytes": nbytes, **out}
+
+
+def _solve_timed(dev, fn):
+    import torch
+
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize(dev)
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+def _true_rel(op, x, b, comm=None) -> float:
+    """``‖b − A x‖ / ‖b‖`` with the operator itself: the global reference
+    form on one rank, the distributed apply and global sums on two."""
+    import torch
+
+    from repro_torch.stencil import global_sums
+
+    if comm is None:
+        r = b - op.apply_reference(x)
+        return float(torch.linalg.vector_norm(r) /
+                     torch.linalg.vector_norm(b))
+    r = (b - op.apply(x, comm, schedule="overlap", chunks=2,
+                      channels=2)).reshape(-1)
+    rr, bb = global_sums(comm, torch.dot(r, r),
+                         torch.dot(b.reshape(-1), b.reshape(-1)))
+    return float(torch.sqrt(rr / bb))
+
+
+def _stencil_cg_worker() -> dict:
+    """One of two ranks of stencil_cg: the six solves on psum and on
+    ring_hier (``reduce_add`` launches counted), on psum under the other
+    schedules and on ring_hier with the plain local add (bitwise), the
+    unrolled ladder, and one profiled solve on rank 0."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.ring import _channel_slices
+    from repro_torch.launch import train as launch_train
+    from repro_torch.stencil import (PRECONDS, SOLVERS,
+                                     predicted_halo_exchanges,
+                                     predicted_reduction_collectives, solve)
+
+    world = launch_train.init_distributed("cuda")
+    try:
+        dev, rank = world.device, world.rank
+        op = stencil_op()
+        comms = {t: stencil_comm(t.removesuffix("_plain"),
+                                 "plain" if t.endswith("_plain") else
+                                 "kernel")
+                 for t in ("psum", "ring_hier", "ring_hier_plain")}
+        n = STENCIL_LOCAL[0]
+        b = _own_block(stencil_field(dev, 28, (2 * n,) + STENCIL_LOCAL[1:]),
+                       rank).contiguous()
+        ring = comms["ring_hier"]
+        flat = ring.transport.flat_divisor(ring.axis_sizes)
+        adds = len(_channel_slices(flat // 2, ring.transport.ring_cfg))
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = {"backend": world.backend, "solves": {}, "ladder": {},
+               "adds_per_all_reduce": adds}
+        for solver in SOLVERS:
+            for precond in PRECONDS:
+                kw = dict(solver=solver, precond=precond, **STENCIL_CG)
+                row = {}
+                sols = {}
+                for t in ("psum", "ring_hier"):
+                    solve(op, b, comms[t], **kw)         # warm, untimed
+                    reset_launch_counters()
+                    comms[t].record.reset()
+                    res, ms = _solve_timed(
+                        dev, lambda: solve(op, b, comms[t], **kw))
+                    row[t] = {"iters": res.iters, "ms": ms,
+                              "rel": float(res.rel_residual),
+                              "launches": launch_counters(),
+                              "record": comms[t].record.as_dict()}
+                    sols[t] = res.x
+                row["true_rel"] = _true_rel(op, sols["psum"], b,
+                                            comms["psum"])
+                same = {"ring_hier": torch.equal(sols["ring_hier"],
+                                                 sols["psum"])}
+                for sched in ("sequential", "concurrent", "chunked"):
+                    res = solve(op, b, comms["psum"],
+                                **{**kw, "schedule": sched})
+                    same[sched] = torch.equal(res.x, sols["psum"])
+                res = solve(op, b, comms["ring_hier_plain"], **kw)
+                same["ring_hier_plain"] = torch.equal(res.x,
+                                                      sols["ring_hier"])
+                row["bitwise"] = same
+                row["predicted_all_reduces"] = \
+                    predicted_reduction_collectives(
+                        solver, row["ring_hier"]["iters"], s=4)
+                out["solves"][f"{solver}/{precond}"] = row
+                comm = comms["psum"]
+                comm.record.reset()
+                solve(op, b, comm, **{**kw, "tol": None, "maxiter": 8})
+                rec = comm.record.as_dict()
+                out["ladder"][f"{solver}/{precond}"] = {
+                    "all_reduces": rec["all_reduces"], "sends": rec["sends"],
+                    "predicted_sends": 2 * predicted_halo_exchanges(
+                        solver, precond, 8, s=4)}
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+
+        def one():
+            solve(op, b, comms["ring_hier"], solver="cg", precond="none",
+                  **STENCIL_CG)
+
+        if rank == 0:
+            wall, by_name, _ = device_activity(one, 1, warm=False)
+            busy = sum(by_name.values())
+            out["profile"] = {"wall_ms": wall, "busy_ms": busy,
+                              "idle_share": 1 - busy / wall}
+        else:
+            one()
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_stencil_cg(dev) -> dict:
+    """The CG family on one rank (global true residual through
+    ``apply_reference``) and on two ranks over gloo (psum and ring_hier,
+    every schedule, ``reduce_add`` launches, the ladder)."""
+    import torch
+
+    from repro_torch.kernels.reduce_add import ops as ra
+    from repro_torch.kernels.reduce_add import ref as ra_ref
+    from repro_torch.launch import train as launch_train
+    from repro_torch.stencil import (PRECONDS, SOLVERS,
+                                     predicted_reduction_collectives, solve)
+
+    op = stencil_op()
+    b = stencil_field(dev, 27, STENCIL_LOCAL)
+    one_rank = {}
+    for solver in SOLVERS:
+        for precond in PRECONDS:
+            kw = dict(solver=solver, precond=precond, **STENCIL_CG)
+            # a warm solve first: the first of a kind starts library
+            # handles (cuBLAS, cuSOLVER) and fills the allocator's cache
+            solve(op, b, None, **kw)
+            torch.cuda.reset_peak_memory_stats(dev)
+            res, ms = _solve_timed(dev, lambda: solve(op, b, None, **kw))
+            true_rel = _true_rel(op, res.x, b)
+            rel = float(res.rel_residual)
+            if not (rel <= 1e-5 and res.iters < STENCIL_CG["maxiter"]
+                    and true_rel < 1e-4):
+                raise AssertionError(f"[stencil_cg] 1 rank {solver}/{precond}"
+                                     f": iters {res.iters}, rel {rel:.3e}, "
+                                     f"true {true_rel:.3e}")
+            one_rank[f"{solver}/{precond}"] = {
+                "iters": res.iters, "ms": ms, "rel": rel,
+                "true_rel": true_rel,
+                "reductions": predicted_reduction_collectives(
+                    solver, res.iters, s=4),
+                "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    wall, by_name, _ = device_activity(
+        lambda: solve(op, b, None, solver="cg", precond="none", **STENCIL_CG),
+        1, warm=False)
+    busy = sum(by_name.values())
+    prof1 = {"wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall}
+    del b
+    # reduce_add at the CG path's hop: a 64-element slice of the padded
+    # 512-element buffer of partial dots (not the main path's launches)
+    saved = launch_counters()
+    gen = torch.Generator(device=dev).manual_seed(29)
+    x, y = (torch.randn(64, generator=gen, device=dev) for _ in range(2))
+    got = ra.add_accum(x, y)
+    err = (got - ra_ref.add_accum(x, y)).abs().max().item()
+    if not torch.equal(got, ra_ref.add_accum(x, y)):
+        raise AssertionError(f"[stencil_cg] reduce_add at the CG hop: not "
+                             f"bitwise (max |diff| {err:.3e})")
+    set_launch_counters(saved)
+    torch.cuda.empty_cache()
+
+    ranks = launch_train.spawn(_stencil_cg_worker, 2, timeout=900)
+    launched = 0
+    for r, o in enumerate(ranks):
+        if o["backend"] != "gloo":
+            raise AssertionError(f"[stencil_cg] rank {r} backend "
+                                 f"{o['backend']}")
+        for key, row in o["solves"].items():
+            for t in ("psum", "ring_hier"):
+                if not (row[t]["rel"] <= 1e-5
+                        and row[t]["iters"] < STENCIL_CG["maxiter"]):
+                    raise AssertionError(f"[stencil_cg] rank {r} {key} {t}: "
+                                         f"{row[t]}")
+            if row["true_rel"] >= 1e-4:
+                raise AssertionError(f"[stencil_cg] rank {r} {key}: true "
+                                     f"residual {row['true_rel']:.3e}")
+            if not all(row["bitwise"].values()):
+                raise AssertionError(f"[stencil_cg] rank {r} {key}: not "
+                                     f"bitwise {row['bitwise']}")
+            want = {name: 0 for name in row["ring_hier"]["launches"]}
+            want["reduce_add"] = (o["adds_per_all_reduce"]
+                                  * row["predicted_all_reduces"])
+            if row["ring_hier"]["launches"] != want:
+                raise AssertionError(f"[stencil_cg] rank {r} {key}: launches "
+                                     f"{row['ring_hier']['launches']} != "
+                                     f"{want}")
+            if row["psum"]["record"]["all_reduces"] != \
+                    predicted_reduction_collectives(
+                        key.split("/")[0], row["psum"]["iters"], s=4):
+                raise AssertionError(f"[stencil_cg] rank {r} {key}: psum "
+                                     f"all-reduces {row['psum']['record']}")
+            if r == 0:
+                launched += want["reduce_add"]
+        for key, lad in o["ladder"].items():
+            if lad["all_reduces"] != LADDER[key.split("/")[0]] or \
+                    lad["sends"] != lad["predicted_sends"]:
+                raise AssertionError(f"[stencil_cg] rank {r} ladder {key}: "
+                                     f"{lad}")
+    if launched == 0:
+        raise AssertionError("[stencil_cg] the ring made no reduce_add "
+                             "launch")
+    log(f"[stencil_cg] 1 rank, {'x'.join(map(str, STENCIL_LOCAL))} fp32, "
+        f"mass {STENCIL_MASS}, overlap, s 4, tol 1e-5: every solve "
+        f"converged, true ‖b - Ax‖/‖b‖ < 1e-4 through apply_reference")
+    for key, row in one_rank.items():
+        log(f"[stencil_cg]   {key:14s} iters {row['iters']:3d}, reductions "
+            f"{row['reductions']:3d}, {row['ms']:8.1f} ms, rel "
+            f"{row['rel']:.2e}, true {row['true_rel']:.2e}, peak "
+            f"{row['peak_bytes'] / 2**30:.2f} GiB")
+    log(f"[stencil_cg] 1 rank, profiled cg/none: wall "
+        f"{prof1['wall_ms']:.1f} ms, device busy {prof1['busy_ms']:.1f} ms, "
+        f"idle share {prof1['idle_share']:.3f}")
+    o = ranks[0]
+    log(f"[stencil_cg] 2 ranks over gloo, mesh {STENCIL_MESH2}: each "
+        f"solution bitwise across psum and ring_hier, across the four "
+        f"schedules and with the plain local add, on both ranks; "
+        f"reduce_add launches == {o['adds_per_all_reduce']} a ring "
+        f"all-reduce x the all-reduces; psum all-reduces == "
+        f"predicted; ladder at 8 iterations "
+        f"{ {k: v['all_reduces'] for k, v in o['ladder'].items()} }, halo "
+        f"sends == 2 x predicted_halo_exchanges")
+    for key, row in o["solves"].items():
+        log(f"[stencil_cg]   {key:14s} iters {row['psum']['iters']:3d}, "
+            f"all-reduces {row['psum']['record']['all_reduces']:3d}: psum "
+            f"{row['psum']['ms']:8.1f} ms, ring_hier "
+            f"{row['ring_hier']['ms']:8.1f} ms "
+            f"({row['ring_hier']['launches']['reduce_add']} reduce_add), "
+            f"true {row['true_rel']:.2e}")
+    log(f"[stencil_cg] 2 ranks, profiled cg/none on ring_hier (rank 0): wall "
+        f"{o['profile']['wall_ms']:.1f} ms, device busy "
+        f"{o['profile']['busy_ms']:.1f} ms, idle share "
+        f"{o['profile']['idle_share']:.3f}; peak "
+        f"{o['peak_bytes'] / 2**30:.2f} / "
+        f"{ranks[1]['peak_bytes'] / 2**30:.2f} GiB a rank")
+    return {"one_rank": one_rank, "profile_one_rank": prof1, "ranks": ranks,
+            "reduce_add_launches": launched, "reduce_add_max_abs_err": err}
+
+
 def rotating(calls):
     """One callable that runs the next of ``calls`` at each call, so that a
     timed run of many calls cycles through their inputs."""
@@ -3694,6 +4150,10 @@ def main() -> None:
                             fsdp0["hop_widths"])
     train_ckpt = run_phase("train_ckpt", phase_train_ckpt, dev)
     train_ring_ckpt = run_phase("train_ring_ckpt", phase_train_ring_ckpt)
+    torch.cuda.empty_cache()
+    halo = run_phase("halo", phase_halo)
+    stencil = run_phase("stencil", phase_stencil, dev)
+    stencil_cg = run_phase("stencil_cg", phase_stencil_cg, dev)
     z1, z8 = (train_ring_zero1["ranks"][0],
               train_ring_zero1_int8["ranks"][0])
     f8 = train_ring_fsdp_int8["ranks"][0]
@@ -3723,6 +4183,8 @@ def main() -> None:
                     *(o["max_diff"] for o in train_ring_fsdp["ranks"]))
     for name in ("reduce_add", "pack_write", "pack_read"):
         errs[name] = max(errs[name], zero1_step, fsdp_step)
+    errs["reduce_add"] = max(errs["reduce_add"],
+                             stencil_cg["reduce_add_max_abs_err"])
     for name in ("pack_quant_write", "pack_quant_read"):
         errs[name] = max(errs[name], *(o["max_diff"] for o in
                                        train_ring_fsdp_int8["ranks"]))
@@ -3777,6 +4239,10 @@ def main() -> None:
             **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}})
         if name == "reduce_add":       # fsdp's ring mix, fp32 + bf16
+            # and the CG family's inner products on the ring (stencil_cg:
+            # rank 0's launches over the six two-rank ring_hier solves)
+            rows[-1]["launches_stencil_cg"] = stencil_cg[
+                "reduce_add_launches"]
             rows[-1]["fsdp_mix"] = {
                 hop: {k: timing_fsdp[hop][k] for k in (
                     "elements", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3830,7 +4296,9 @@ def main() -> None:
              "train_ring_fsdp_int8": train_ring_fsdp_int8,
              "prefill_gathered": prefill_gathered,
              "timing_fsdp": timing_fsdp, "train_ckpt": train_ckpt,
-             "train_ring_ckpt": train_ring_ckpt, "phase_s": phase_s,
+             "train_ring_ckpt": train_ring_ckpt, "halo": halo,
+             "stencil": stencil, "stencil_cg": stencil_cg,
+             "phase_s": phase_s,
              "torch": torch.__version__, "cuda": torch.version.cuda,
              "wall_s": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

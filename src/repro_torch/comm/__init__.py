@@ -3,25 +3,31 @@
 A :class:`Communicator` built from ``(RankMesh, CommConfig)`` reduces
 gradient buckets over named transports (:mod:`repro_torch.comm.registry`)
 with channel striping, bucket and arena plans (:mod:`.plan`) and issue
-schedules (:mod:`.schedule`).
+schedules (:mod:`.schedule`), and runs the Cartesian halo exchange on the
+same rails (:class:`HaloPlan`, :func:`build_halo_schedule`).
 """
 
 from repro_torch.comm.api import CommConfig, Communicator
 from repro_torch.comm.plan import (ALPHA_S, HBM_BANDWIDTH, ChannelAssignment,
-                                   CommPlan, LatencyModel, assign_channels)
+                                   CommPlan, HaloChannel, HaloPlan,
+                                   LatencyModel, assign_channels)
 from repro_torch.comm.registry import (Transport, TransportSpec,
                                        get_transport, list_transports,
                                        register_transport, transport_specs)
-from repro_torch.comm.schedule import (SCHEDULE_POLICIES, CommSchedule,
-                                       IssueSlot, build_schedule)
+from repro_torch.comm.schedule import (HALO_SCHEDULES, SCHEDULE_POLICIES,
+                                       CommSchedule, IssueSlot,
+                                       build_halo_schedule, build_schedule,
+                                       halo_interior_fraction, halo_units)
 from repro_torch.comm.wire_codec import (ErrorFeedback, IdentityCodec,
                                          Int8BlockCodec, make_codec)
 
 __all__ = [
     "ALPHA_S", "ChannelAssignment", "CommConfig", "CommPlan",
-    "CommSchedule", "Communicator", "ErrorFeedback", "HBM_BANDWIDTH",
-    "IdentityCodec", "Int8BlockCodec", "IssueSlot", "LatencyModel",
-    "SCHEDULE_POLICIES", "Transport", "TransportSpec", "assign_channels",
-    "build_schedule", "get_transport", "list_transports", "make_codec",
-    "register_transport", "transport_specs",
+    "CommSchedule", "Communicator", "ErrorFeedback", "HALO_SCHEDULES",
+    "HBM_BANDWIDTH", "HaloChannel", "HaloPlan", "IdentityCodec",
+    "Int8BlockCodec", "IssueSlot", "LatencyModel", "SCHEDULE_POLICIES",
+    "Transport", "TransportSpec", "assign_channels", "build_halo_schedule",
+    "build_schedule", "get_transport", "halo_interior_fraction",
+    "halo_units", "list_transports", "make_codec", "register_transport",
+    "transport_specs",
 ]

@@ -22,10 +22,11 @@ compensated with error feedback (:meth:`Communicator.reduce_scheduled`,
 flat shards and all-gathers them back (:meth:`Communicator.reduce_scatter_tree`,
 :meth:`Communicator.all_gather_buckets`).  FSDP gathers each flat weight
 shard and sums its gradient back into the shard with
-:meth:`Communicator.gather_flat`.  The halo exchange and all-to-all
-arrive with their own slices.  Collectives are eager; they run in the
-caller's process on its rank, over the world ``torch.distributed`` was
-initialised with.
+:meth:`Communicator.gather_flat`.  The Cartesian halo exchange shares the
+rails (:meth:`Communicator.halo_exchange`, :meth:`halo_plan`,
+:meth:`halo_schedule`).  The all-to-all arrives with its slice.
+Collectives are eager; they run in the caller's process on its rank, over
+the world ``torch.distributed`` was initialised with.
 """
 
 from __future__ import annotations
@@ -38,11 +39,15 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import tree as tree_util
-from repro_torch.comm.plan import ChannelAssignment, CommPlan, assign_channels
+from repro_torch.comm.plan import (ChannelAssignment, CommPlan, HaloChannel,
+                                   HaloPlan, assign_channels)
 from repro_torch.comm.registry import Rail, Transport, get_transport
-from repro_torch.comm.schedule import CommSchedule, build_schedule
+from repro_torch.comm.schedule import (CommSchedule, build_halo_schedule,
+                                       build_schedule, halo_units)
 from repro_torch.comm.wire_codec import ErrorFeedback
 from repro_torch.core.bucketing import BucketPlan, GradientBucketer
+from repro_torch.core.halo import HaloSpec
+from repro_torch.core.halo import halo_exchange as _halo_exchange
 from repro_torch.core.p2p import CommRecord, axis_rings, joint_ring
 from repro_torch.core.ring import LOCAL_OPS, RingConfig
 from repro_torch.core.topology import RankMesh, reduce_axes_of
@@ -138,15 +143,23 @@ class Communicator:
         self._ring_cfg = cfg.ring_config(
             codec=codec if spec.supports_codec else None)
         self.record = CommRecord()
-        rails: tuple[Rail, ...] = ()
+        # this process's rank in the world (its place in ``mesh``)
+        self.rank = dist.get_rank() if dist.is_initialized() else 0
+        rails: list[Rail] = []
         if connect:
-            rank = dist.get_rank() if dist.is_initialized() else 0
-            rails = tuple(
-                Rail(axes=tuple(axis_rings(mesh, rank, self.axes,
-                                           self.record)),
-                     joint=joint_ring(mesh, rank, self.axes, self.record))
-                for _ in range(max(cfg.channels, 1)))
-        self.transport: Transport = cls(self.axes, self._ring_cfg, rails)
+            rank = self.rank
+            others = [a for a in mesh.axis_names if a not in self.axes]
+            # groups are made in one fixed order on every rank: rail by
+            # rail, the data axes, their joint group, then the other axes
+            for _ in range(max(cfg.channels, 1)):
+                axes = tuple(axis_rings(mesh, rank, self.axes, self.record))
+                joint = joint_ring(mesh, rank, self.axes, self.record)
+                halo = dict(zip(self.axes, axes))
+                halo.update(zip(others, axis_rings(mesh, rank, others,
+                                                   self.record)))
+                rails.append(Rail(axes=axes, joint=joint, halo=halo))
+        self.transport: Transport = cls(self.axes, self._ring_cfg,
+                                        tuple(rails))
         pad = self.transport.flat_divisor(self.axis_sizes)
         if codec is not None:
             # quantized segments hold whole codec blocks even when the
@@ -354,6 +367,77 @@ class Communicator:
         full = self.all_gather(shards)
         return full if bplan is None else self.bucketer.debucketize(full,
                                                                     bplan)
+
+    # -- Cartesian halo exchange ---------------------------------------------
+
+    @property
+    def halo_chunks(self) -> int:
+        """Pieces each face splits into under the ``chunked`` schedule:
+        the channel knob when set, else 4 (the paper's threaded default)."""
+        return self.cfg.channels if self.cfg.channels >= 1 else 4
+
+    def _halo_schedule_name(self, schedule: str | None) -> str:
+        return schedule if schedule is not None else (
+            "chunked" if self.cfg.channels >= 2 else "concurrent")
+
+    def halo_rings(self) -> tuple:
+        """Each rail's rings along every mesh axis, ``rings[c][axis]``: what
+        :func:`repro_torch.core.halo.halo_exchange` runs on."""
+        if not self.transport.rails:
+            raise RuntimeError("this communicator only plans: it was built "
+                               "without process groups (connect=False)")
+        return tuple(rail.halo for rail in self.transport.rails)
+
+    def halo_exchange(self, x: torch.Tensor, specs: Sequence[HaloSpec], *,
+                      schedule: str | None = None) -> dict:
+        """Cartesian halo exchange sharing the communicator's channel knob:
+        under ``chunked`` every face splits into :attr:`halo_chunks` pieces;
+        under ``overlap`` whole faces stripe over the ``channels`` rails,
+        FIFO on each (the rule of :meth:`reduce_scheduled`).  Sends and
+        bytes go into :attr:`record`."""
+        return _halo_exchange(x, specs, self.halo_rings(),
+                              schedule=self._halo_schedule_name(schedule),
+                              chunks=self.halo_chunks,
+                              channels=self.cfg.channels)
+
+    def halo_schedule(self, x_shape: Sequence[int], specs: Sequence[HaloSpec],
+                      *, schedule: str | None = None,
+                      itemsize: int = 4) -> CommSchedule:
+        """The issue slots :meth:`halo_exchange` executes for one local
+        shard of ``x_shape``."""
+        return build_halo_schedule(specs, x_shape,
+                                   schedule=self._halo_schedule_name(schedule),
+                                   channels=self.cfg.channels,
+                                   chunks=self.halo_chunks,
+                                   itemsize=itemsize,
+                                   axis_sizes=self.mesh.sizes())
+
+    def halo_plan(self, x_shape: Sequence[int], specs: Sequence[HaloSpec], *,
+                  schedule: str | None = None, itemsize: int = 4) -> HaloPlan:
+        """Halo bytes per direction x channel for one exchange."""
+        sched = self.halo_schedule(x_shape, specs, schedule=schedule,
+                                   itemsize=itemsize)
+        sizes = self.mesh.sizes()
+        keys, _ = halo_units(specs, x_shape, schedule=sched.policy,
+                             chunks=self.halo_chunks,
+                             itemsize=itemsize, axis_sizes=sizes)
+        by_channel: dict[int, list[int]] = {}
+        for slot in sched.slots:
+            by_channel.setdefault(slot.channel, []).extend(slot.bucket_ids)
+        chans = tuple(HaloChannel(c, tuple(sorted(u)), sum(
+            sched.bucket_sizes[i] for i in u)) for c, u in
+            sorted(by_channel.items()))
+        return HaloPlan(
+            schedule=sched.policy,
+            axes=tuple(s.axis for s in specs),
+            axis_sizes=tuple(sizes.get(s.axis, 1) for s in specs),
+            local_shape=tuple(int(n) for n in x_shape),
+            halos=tuple(s.halo for s in specs),
+            unit_keys=tuple(keys),
+            unit_bytes=sched.bucket_sizes,
+            channels=chans,
+            overlap_fraction=sched.overlap_fraction,
+        )
 
     # -- dependency-aware scheduled reduction --------------------------------
 

@@ -7,8 +7,8 @@ messages per device, for the bucket path and for the page-aligned arena,
 and under the int8 wire codec the compressed bytes and their price
 (:meth:`CommPlan.codec_tradeoff`).  The recording wrapper of
 :mod:`repro_torch.core.p2p` counts the same two quantities on the wire, so a
-run can be held against its plan.  ``HaloPlan`` and ``A2APlan`` arrive with
-their slices.
+run can be held against its plan.  :class:`HaloPlan` is the same view of
+one Cartesian halo exchange.  ``A2APlan`` arrives with its slice.
 """
 
 from __future__ import annotations
@@ -205,3 +205,84 @@ class CommPlan:
             out["codec_block"] = self.codec_block
             out["codec"] = self.codec_tradeoff()
         return out
+
+
+@dataclass(frozen=True)
+class HaloChannel:
+    """Units carried by one halo rail, with their payload *bytes* (unlike
+    :class:`ChannelAssignment`, whose loads are element counts)."""
+
+    channel: int
+    units: tuple[int, ...]     # indices into the unit list, ascending
+    bytes: int
+
+
+@dataclass(frozen=True)
+class HaloPlan:
+    """The halo-exchange analogue of :class:`CommPlan`: bytes per direction
+    x channel for one Cartesian exchange, plus the predicted wire bytes.
+
+    ``units`` are the exchange's payloads (one per direction, times the
+    chunk split under ``chunked``), labelled ``"<axis><dir>[#chunk]"``.
+    Each crosses the wire once, so ``bytes_per_device`` is the payload
+    total.  Like the reference's, the plan counts the units of an axis of
+    one rank too, which the port wraps locally without a message: a
+    :class:`~repro_torch.core.p2p.CommRecord` holds the units on axes of
+    more than one rank.
+    """
+
+    schedule: str
+    axes: tuple[str, ...]          # mesh axis per exchanged direction spec
+    axis_sizes: tuple[int, ...]
+    local_shape: tuple[int, ...]
+    halos: tuple[int, ...]         # face width per spec
+    unit_keys: tuple[str, ...]
+    unit_bytes: tuple[int, ...]
+    channels: tuple[HaloChannel, ...]
+    overlap_fraction: float
+
+    @property
+    def n_units(self) -> int:
+        return len(self.unit_bytes)
+
+    @property
+    def bytes_per_device(self) -> float:
+        """Predicted wire bytes per device per exchange (one hop per unit)."""
+        return float(sum(self.unit_bytes))
+
+    @property
+    def messages_per_device(self) -> float:
+        """Each unit is one discrete send per device per exchange."""
+        return float(self.n_units)
+
+    def predicted_collective_seconds(self, model: LatencyModel = LatencyModel()
+                                     ) -> float:
+        """alpha * messages + bytes / bw for one halo exchange."""
+        return model.collective_seconds(self.messages_per_device,
+                                        self.bytes_per_device)
+
+    @property
+    def channel_imbalance(self) -> float:
+        """max/mean channel load (1.0 = perfectly striped)."""
+        loads = [a.bytes for a in self.channels]
+        mean = sum(loads) / max(len(loads), 1)
+        return max(loads) / mean if mean else 1.0
+
+    def describe(self) -> dict:
+        """JSON-friendly summary."""
+        return {
+            "schedule": self.schedule,
+            "axes": list(self.axes),
+            "axis_sizes": list(self.axis_sizes),
+            "local_shape": list(self.local_shape),
+            "halos": list(self.halos),
+            "n_units": self.n_units,
+            "units": [{"key": k, "bytes": b}
+                      for k, b in zip(self.unit_keys, self.unit_bytes)],
+            "channels": [{"channel": a.channel, "units": list(a.units),
+                          "bytes": a.bytes} for a in self.channels],
+            "bytes_per_device": self.bytes_per_device,
+            "messages_per_device": self.messages_per_device,
+            "channel_imbalance": self.channel_imbalance,
+            "overlap_fraction": self.overlap_fraction,
+        }

@@ -13,14 +13,15 @@ fails when the :class:`~repro_torch.comm.api.Communicator` is built.
 ========================  ====================================================
 
 A transport runs on one rail at a time: ``rails[c]`` holds the rings of
-rail ``c``'s process groups (:class:`Rail`).  The ``a2a`` transport and
+rail ``c``'s process groups (:class:`Rail`), and the rings the halo
+exchange runs on along every mesh axis.  The ``a2a`` transport and
 every ``all_to_all`` arrive with the MoE slice.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Sequence, Type
+from typing import Callable, Mapping, Sequence, Type
 
 import torch
 
@@ -94,11 +95,14 @@ def transport_specs() -> dict[str, TransportSpec]:
 
 @dataclass(frozen=True)
 class Rail:
-    """One rail's process groups: a ring per data axis (mesh order) and the
-    joint group over all of them."""
+    """One rail's process groups: a ring per data axis (mesh order), the
+    joint group over all of them, and the halo exchange's ring along every
+    mesh axis (the data axes' own rings, and rings of their own for the
+    other axes)."""
 
     axes: tuple[RingAxis, ...]
     joint: RingAxis
+    halo: Mapping[str, RingAxis]
 
 
 class Transport:

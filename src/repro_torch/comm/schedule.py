@@ -12,18 +12,25 @@ layer's gradients are ready first).  Policies (``SCHEDULE_POLICIES``):
 * ``scheduled`` — like ``stream``, in readiness order within a phase.
 
 ``overlap_fraction = sum_slots (w_slot / W) * (1 - ready_slot)`` is the
-share of collective traffic that could hide under remaining compute.  The
-halo and MoE schedules arrive with their slices.
+share of collective traffic that could hide under remaining compute.
+:func:`build_halo_schedule` gives one Cartesian halo exchange's issue slots
+(``HALO_SCHEDULES``, executed by :func:`repro_torch.core.halo.halo_exchange`)
+as a schedule of the same kind.  The MoE schedule arrives with its slice.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Sequence
 
 from repro_torch.comm.plan import assign_channels
 
 SCHEDULE_POLICIES = ("accumulate_then_reduce", "stream", "scheduled")
+
+# halo-exchange issue orders (the paper's Seq / Concurrent / Threaded columns
+# plus the interior-compute overlap schedule)
+HALO_SCHEDULES = ("sequential", "concurrent", "chunked", "overlap")
 
 
 @dataclass(frozen=True)
@@ -87,6 +94,25 @@ class CommSchedule:
             w = sum(self.bucket_sizes[b] for b in s.bucket_ids)
             acc += w * (1.0 - s.exposed)
         return acc / w_total
+
+    def describe(self, max_slots: int = 128) -> dict:
+        """JSON-friendly summary; slot-by-slot detail is elided past
+        ``max_slots``."""
+        out = {
+            "policy": self.policy,
+            "microbatches": self.microbatches,
+            "n_buckets": self.n_buckets,
+            "channels": self.channels,
+            "n_collectives": self.n_collectives,
+            "overlap_fraction": self.overlap_fraction,
+        }
+        if len(self.slots) <= max_slots:
+            out["slots"] = [{"phase": s.phase, "buckets": list(s.bucket_ids),
+                             "channel": s.channel, "ready": round(s.ready, 6)}
+                            for s in self.slots]
+        else:
+            out["slots_elided"] = len(self.slots)
+        return out
 
     def validate(self) -> None:
         """Structural invariants every executor relies on."""
@@ -155,5 +181,92 @@ def build_schedule(policy: str, bucket_sizes: Sequence[int],
                                        channel=chan_of[b], ready=ready))
     sched = CommSchedule(policy=policy, microbatches=m, bucket_sizes=sizes,
                          channels=int(channels), slots=tuple(slots))
+    sched.validate()
+    return sched
+
+
+def halo_interior_fraction(local_shape: Sequence[int], specs) -> float:
+    """Share of local lattice sites computable before any halo arrives: the
+    interior block, ``halo`` sites away from every exchanged face (what
+    :class:`repro_torch.stencil.op.StencilOp` computes while faces fly)."""
+    frac = 1.0
+    for s in specs:
+        n = int(local_shape[s.dim])
+        frac *= max(n - 2 * s.halo, 0) / max(n, 1)
+    return frac
+
+
+def halo_units(specs, local_shape: Sequence[int], *, schedule: str,
+               chunks: int = 1, itemsize: int = 4,
+               axis_sizes: dict | None = None
+               ) -> tuple[tuple[str, ...], tuple[int, ...]]:
+    """One exchange's payloads, ``(keys, bytes)``, one entry per unit in
+    issue order: per spec the ``'-'`` then ``'+'`` direction, each split
+    into its chunk pieces under ``chunked`` (``"x-#2"``-style keys).
+    ``axis_sizes`` (mesh axis -> size), when known, suppresses the chunk
+    split on size-1 axes as the executor does."""
+    from repro_torch.core.halo import chunk_sizes, face_split_dim
+
+    keys: list[str] = []
+    unit_bytes: list[int] = []
+    for s in specs:
+        face_shape = [int(n) for n in local_shape]
+        face_shape[s.dim] = s.halo
+        elems = math.prod(face_shape)
+        p = axis_sizes.get(s.axis, 2) if axis_sizes is not None else 2
+        if schedule == "chunked" and chunks > 1 and p > 1:
+            split_dim = face_split_dim(tuple(face_shape), s.dim)
+            row = elems // max(face_shape[split_dim], 1)
+            pieces = [row * c for c in
+                      chunk_sizes(face_shape[split_dim], chunks)]
+        else:
+            pieces = [elems]
+        for d in ("-", "+"):                  # both directions, spec order
+            keys.extend(f"{s.axis}{d}" + (f"#{c}" if len(pieces) > 1 else "")
+                        for c in range(len(pieces)))
+            unit_bytes.extend(p * itemsize for p in pieces)
+    return tuple(keys), tuple(unit_bytes)
+
+
+def build_halo_schedule(specs, local_shape: Sequence[int], *,
+                        schedule: str, channels: int = 0, chunks: int = 1,
+                        itemsize: int = 4,
+                        axis_sizes: dict | None = None) -> CommSchedule:
+    """Issue slots for one Cartesian halo exchange.  Units are the
+    exchange's payloads (:func:`halo_units`), ``bucket_sizes`` their bytes.
+
+    * ``sequential`` — every unit on rail 0, one FIFO chain;
+    * ``concurrent`` / ``chunked`` — every unit its own rail;
+    * ``overlap`` — units striped over ``channels`` rails (``0`` =
+      unconstrained), issued at ``ready = 1 - interior_fraction``: only the
+      interior compute can hide a face in flight.
+    """
+    if schedule not in HALO_SCHEDULES:
+        raise ValueError(f"unknown halo schedule {schedule!r}; one of "
+                         f"{HALO_SCHEDULES}")
+    _, unit_bytes = halo_units(specs, local_shape, schedule=schedule,
+                               chunks=chunks, itemsize=itemsize,
+                               axis_sizes=axis_sizes)
+    n_units = len(unit_bytes)
+    ready = 1.0
+    if schedule == "overlap":
+        ready = 1.0 - halo_interior_fraction(local_shape, specs)
+    if schedule == "sequential":
+        chan_of = [0] * n_units
+        knob = 1
+    elif schedule == "overlap" and channels >= 1:
+        chan_of = [0] * n_units
+        for a in assign_channels(unit_bytes, channels):
+            for u in a.buckets:
+                chan_of[u] = a.channel
+        knob = channels
+    else:                                     # concurrent/chunked/overlap@0
+        chan_of = list(range(n_units))
+        knob = 0
+    slots = tuple(IssueSlot(phase=0, bucket_ids=(u,), channel=chan_of[u],
+                            ready=ready) for u in range(n_units))
+    sched = CommSchedule(policy=schedule, microbatches=1,
+                         bucket_sizes=tuple(unit_bytes), channels=knob,
+                         slots=slots)
     sched.validate()
     return sched

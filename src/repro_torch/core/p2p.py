@@ -7,6 +7,10 @@ Every call goes through a :class:`RingAxis`, which
 
 * batches one ring step of every channel chain into one
   ``batch_isend_irecv`` (the chains overlap on the wire);
+* shifts payloads to the +1 and -1 neighbours and receives from both
+  (:meth:`RingAxis.start_shift`, the halo exchange's ``ppermute``), as a
+  handle to wait on later, so that compute can run while faces fly; an
+  axis of one rank wraps its payloads back locally;
 * stages CUDA payloads through pinned host memory when the group's backend
   is gloo (ranks sharing one card: NCCL refuses two ranks on one device,
   and gloo moves only CPU tensors) — explicitly, and only then;
@@ -106,32 +110,49 @@ class RingAxis:
         self.record.staging_s += time.perf_counter() - t0
         return out
 
-    def hop(self, payloads: list[torch.Tensor],
-            directions: Sequence[int]) -> list[torch.Tensor]:
-        """One ring step of every chain at once: ``payloads[i]`` goes to the
-        neighbour ``directions[i]`` steps along the ring and the same-shaped
-        tensor comes back from the opposite neighbour (tag ``i``, so chains
-        between the same two ranks never cross)."""
+    def start_shift(self, payloads: Sequence[torch.Tensor],
+                    directions: Sequence[int],
+                    tags: Sequence[int] | None = None) -> "Shift":
+        """Puts every ``payloads[i]`` on its way to the neighbour
+        ``directions[i]`` steps along the ring, and a same-shaped receive
+        from the opposite neighbour, in one ``batch_isend_irecv`` under tag
+        ``tags[i]`` (default ``i``); returns at once.  Two ranks that are
+        each other's +1 and -1 neighbour (an axis of two) pair their
+        messages by tag, never by order.  On an axis of one rank the
+        payloads come straight back (a periodic wrap onto this rank), and
+        nothing is sent or recorded."""
+        if tags is None:
+            tags = range(len(payloads))
+        if self.size == 1:
+            return Shift(self, list(payloads), [], False, None)
         p, r = self.size, self.index
         staged = self.stage and payloads[0].is_cuda
         if staged:
-            sends = self._stage_out(payloads)
+            sends = self._stage_out(list(payloads))
             recvs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                      for t in sends]
         else:
             sends = [t.contiguous() for t in payloads]
             recvs = [torch.empty_like(t) for t in sends]
         ops = []
-        for tag, (s, rv, d) in enumerate(zip(sends, recvs, directions)):
+        for tag, s, rv, d in zip(tags, sends, recvs, directions):
             ops.append(dist.P2POp(dist.isend, s, self.ranks[(r + d) % p],
                                   self.group, tag))
             ops.append(dist.P2POp(dist.irecv, rv, self.ranks[(r - d) % p],
                                   self.group, tag))
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
+        works = dist.batch_isend_irecv(ops)
         self.record.sends += len(sends)
         self.record.send_bytes += sum(_nbytes(s) for s in sends)
-        return self._stage_in(recvs, payloads[0].device) if staged else recvs
+        return Shift(self, recvs, works, staged, payloads[0].device,
+                     keep=sends)
+
+    def hop(self, payloads: list[torch.Tensor],
+            directions: Sequence[int]) -> list[torch.Tensor]:
+        """One ring step of every chain at once: ``payloads[i]`` goes to the
+        neighbour ``directions[i]`` steps along the ring and the same-shaped
+        tensor comes back from the opposite neighbour (tag ``i``, so chains
+        between the same two ranks never cross)."""
+        return self.start_shift(payloads, directions).wait()
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """Sum of ``t`` over the axis (a fresh tensor; ``t`` is untouched)."""
@@ -177,6 +198,29 @@ class RingAxis:
         self.record.reduce_scatters += 1
         self.record.reduce_scatter_bytes += _nbytes(t)
         return out
+
+
+class Shift:
+    """A :meth:`RingAxis.start_shift` in flight: :meth:`wait` returns the
+    received tensors (on the payloads' device), in payload order."""
+
+    def __init__(self, axis: RingAxis, recvs: list[torch.Tensor],
+                 works: list, staged: bool, device, keep=()):
+        self.axis = axis
+        self._recvs = recvs
+        self._works = works
+        self._staged = staged
+        self._device = device
+        self._keep = keep            # the send buffers, alive until waited
+
+    def wait(self) -> list[torch.Tensor]:
+        for work in self._works:
+            work.wait()
+        self._works, self._keep = [], ()
+        if self._staged:
+            self._recvs = self.axis._stage_in(self._recvs, self._device)
+            self._staged = False
+        return self._recvs
 
 
 def axis_rings(mesh: RankMesh, rank: int, axes: Sequence[str],

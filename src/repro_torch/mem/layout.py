@@ -1,15 +1,17 @@
 """ArenaLayout: page-quantized placement of buffers in one flat arena.
 
-Port of ``repro.mem.layout`` (the halo layout arrives with its slice):
+Port of ``repro.mem.layout``:
 every buffer becomes an :class:`ArenaSegment` whose element offset and
 padded size are quantized to ``page_bytes`` (default the 2 MiB huge page),
 and segments sharing a virtual channel fuse into one contiguous
 :class:`ArenaSpan`, which moves as one collective.  Its users are the
 serving KV arena (:mod:`repro_torch.serve.kv`), the gradient arena
 (:func:`arena_from_bucket_plan`, :class:`repro_torch.mem.arena.CommArena`)
-and the int8 wire's arena (:func:`quant_arena_from_bucket_plan`, an int8
+the int8 wire's arena (:func:`quant_arena_from_bucket_plan`, an int8
 payload laid out like the fp32 arena plus a trailing segment of fp32
-scales, :class:`repro_torch.mem.arena.QuantCommArena`);
+scales, :class:`repro_torch.mem.arena.QuantCommArena`) and the layout of a
+halo exchange's faces (:func:`arena_from_halo_plan`, a layout only: the
+exchange sends its faces as they are);
 :func:`fuse_schedule` turns a bucket schedule into the span schedule the
 arena executes.  An oversized bucket (one leaf larger than the bucketer's
 target) gets its own segment like any other, with a warning once per
@@ -444,6 +446,22 @@ def quant_arena_from_bucket_plan(plan: BucketPlan, *,
                                              plan.pad_multiple),
                             bucket_bytes=bucket_bytes,
                             warn_oversized=warn_oversized)
+
+
+def arena_from_halo_plan(halo_plan, *, page_bytes: int = PAGE_BYTES,
+                         itemsize: int = 4, dtype: torch.dtype = torch.float32,
+                         pad_multiple: int = 1) -> ArenaLayout:
+    """Arena layout for halo face payloads: one segment per exchange unit
+    of a :class:`~repro_torch.comm.plan.HaloPlan` (whose ``unit_bytes`` are
+    bytes; segments here are elements), grouped by the plan's halo channels
+    so each rail's faces fuse into one contiguous span."""
+    sizes = [-(-int(b) // itemsize) for b in halo_plan.unit_bytes]
+    chan_of = [0] * len(sizes)
+    for hc in halo_plan.channels:
+        for u in hc.units:
+            chan_of[u] = hc.channel
+    return plan_arena(sizes, page_bytes=page_bytes, dtype=dtype,
+                      channel_of=chan_of, pad_multiple=pad_multiple)
 
 
 def fuse_schedule(schedule: CommSchedule,
