@@ -159,7 +159,8 @@ Phases, each of which raises on a failed check (exit code != 0):
               norm bitwise; then one profiled step, with the peak;
 20. train_ring_zero1 — train_ring's checks for zero1, under deterministic
               algorithms (two ranks, full
-              width at ``ZERO1_RING_LAYERS`` = 16 layers, the full depth;
+              width at ``ZERO1_RING_LAYERS`` = 4 layers (16 until the
+              tensor-parallel phases joined the script);
               it runs right after the build, while this process holds
               nothing on the card, and every two-rank phase logs what the
               card holds before its ranks spawn): ``reduce_add``
@@ -186,7 +187,7 @@ Phases, each of which raises on a failed check (exit code != 0):
               writes and reads == group buckets x steps (18 at 16 layers),
               all bulk, the kernel step == the plain step bitwise; one
               profiled step, the peak;
-23. train_ring_fsdp — two fsdp ranks at the full 16 layers over the ring
+23. train_ring_fsdp — two fsdp ranks at 4 layers over the ring
               gather (``fsdp_gather="ring"`` on the CLI's step config),
               deterministic, right after train_ring_zero1 (which runs
               deterministic too): ``reduce_add`` (fp32 + bf16 -> fp32)
@@ -213,7 +214,7 @@ Phases, each of which raises on a failed check (exit code != 0):
               ``torch.add(fp32, bf16)`` and the bound (10 bytes an
               element).
 27. train_ckpt — one rank, zero1 (the arch's default), the arena on,
-              seq 256, batch 8, full width at 4 layers (cut further, with
+              seq 256, batch 8, full width at 2 layers (cut further, with
               the reason printed, if two step directories do not fit the
               free disk), under deterministic algorithms: an unbroken
               4-step run; a run stopped after 2 steps, whose final save
@@ -258,8 +259,44 @@ Phases, each of which raises on a failed check (exit code != 0):
               the all-reduces, the unrolled ladder (8 iterations) 17 / 8 /
               2 all-reduces and 2 x ``predicted_halo_exchanges`` sends;
               iterations, ms, all-reduces, the peak and one profiled
-              solve's idle share on one and on two ranks.
+              solve's idle share on one and on two ranks;
+32. train_tp — tensor parallelism: two ranks on the card over gloo on a
+              (1, 2) ``("data", "model")`` mesh (``launch.train``
+              ``--model-parallel 2``), full width, 16 layers, seq 256,
+              batch 8, bf16 over fp32 masters, the arena on, 3 steps
+              replicated then 3 zero1: losses finite and equal on both
+              ranks, the leaves replicated over the model axis bitwise
+              equal on both, pack writes and reads == segments x steps (all
+              bulk), no ``reduce_add`` and nothing on the data axis of 1,
+              the model axis's all-reduces the same on both ranks; a
+              profiled step a mode; then the gate: 4 layers at fp32
+              compute, losses within 5e-5 and gradient norms within rtol
+              1e-4 of the one-rank replicated run (rank 0, a (1, 1) mesh);
+33. prefill_tp — the resident prefill on the (1, 2) mesh, B=1, S=4096,
+              bf16, weights model-sharded: 16 wgmma flash-attention
+              launches a rank and no other; the vocab shards gathered, its
+              relative L2 error against the fp32 blockwise one-rank prefill
+              at most 1.25 times the one-rank bf16 kernel prefill's;
+34. serve_contiguous_tp — ``launch.serve --model-parallel 2`` (the
+              contiguous loop, batch 4, cache 512, 16 tokens; no kernel),
+              its last logits within the engine's tolerance of the
+              one-rank loop fed the same tokens (rows whose greedy token
+              differs counted); one fp32 decode at position
+              8000 against an 8192-slot cache of seeded random K/V,
+              sequence-sharded (4096 slots a rank), within 2e-2 of the
+              unsharded one-rank decode (the reference's SERVE_SCRIPT
+              bound);
+35. serve_tp — the paged engine at R = 2 (page-parallel decode, weights
+              replicated) on the serve phase's trace, continuous policy:
+              16 ``flash_decode`` launches a step a rank and no other
+              kernel's (every counter read), K/V unexpanded,
+              32 all-reduces and ``predicted_wire_bytes_per_token`` bytes
+              a token (``CommRecord``); every live logit within the
+              engine's tolerance of the R = 1 engine on the same step
+              inputs (the scheduler's token stream), rows whose greedy
+              token differs counted.
 
+The phases before train_tp run data-only (``--model-parallel 1``).
 Each phase prints its seconds (``[phase]``).  It prints a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` gives them, and as its last line
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
@@ -825,19 +862,25 @@ def phase_profile(dev, run) -> dict:
             "top_device_ms_per_step": dict(top)}
 
 
+# --model-parallel 1: the data-only host mesh (the CLI's default puts two
+# ranks on a model axis; the tensor-parallel phases come last)
 TRAIN_ARGS = ["--arch", ARCH, "--dp-mode", "replicated", "--transport",
               "ring_hier", "--use-arena", "--seq", "256", "--batch", "8",
-              "--steps", "3", "--device", "cuda", "--seed", "0"]
+              "--steps", "3", "--device", "cuda", "--seed", "0",
+              "--model-parallel", "1"]
 # two ranks on one 80 GB card: full width, depth cut to 4 layers
 RING_ARGS = TRAIN_ARGS + ["--layers", "4"]
 INT8_ARGS = ["--wire-codec", "int8"]
 # the same run with no --dp-mode: llama3.2-1b's own full-size default,
 # zero1, resolves.  Two zero1 ranks fit on the card at the model's full
 # depth with this phase's checks (33.4 GiB a rank at the peak on an 80 GB
-# H100); the phase runs first, while this process holds nothing there
+# H100); since the tensor-parallel phases joined the script the
+# two-rank zero1 and fsdp phases run at 4 layers (16 until then), to keep
+# the script well inside its time limit; the phase runs first, while this
+# process holds nothing there
 ZERO1_ARGS = [a for i, a in enumerate(TRAIN_ARGS)
               if "--dp-mode" not in TRAIN_ARGS[max(i - 1, 0):i + 1]]
-ZERO1_RING_LAYERS = 16
+ZERO1_RING_LAYERS = 4
 ZERO1_RING_ARGS = ZERO1_ARGS + ["--layers", str(ZERO1_RING_LAYERS)]
 ZERO1_INT8_ARGS = ZERO1_ARGS + ["--layers", "4"] + INT8_ARGS
 MANY_BLOCKS = 500_000      # the kernel checks' largest block count
@@ -1674,11 +1717,12 @@ def phase_train_ring(argv: list[str], tag: str) -> dict:
 
 
 # fsdp (ZeRO-3): the train phase's run with --dp-mode fsdp; two ranks at
-# the full 16 layers over the ring gather (set on the step config the CLI
-# builds: the reference's CLI has no flag for it), and over the native
-# gather with the int8 arena at 4 layers
+# ZERO1_RING_LAYERS (their first two losses are train_ring_zero1's) over
+# the ring gather (set on the step config the CLI builds: the reference's
+# CLI has no flag for it), and over the native gather with the int8 arena
+# at 4 layers
 FSDP_ARGS = ["fsdp" if a == "replicated" else a for a in TRAIN_ARGS]
-FSDP_RING_LAYERS = 16
+FSDP_RING_LAYERS = ZERO1_RING_LAYERS
 FSDP_RING_ARGS = FSDP_ARGS + ["--layers", str(FSDP_RING_LAYERS)]
 FSDP_INT8_ARGS = FSDP_ARGS + ["--layers", "4"] + INT8_ARGS
 
@@ -2208,8 +2252,9 @@ def phase_timing_fsdp(dev, hop_widths: list[int]) -> dict:
 # the checkpoint: a zero1 run stopped after CKPT_STOP of CKPT_STEPS steps
 # and resumed by a fresh Trainer, against an unbroken run, under
 # deterministic algorithms; one rank at full width and CKPT_LAYERS layers
-# (the arena on), then two ranks on the card over the int8 wire
-CKPT_LAYERS, CKPT_STEPS, CKPT_STOP = 4, 4, 2
+# (the arena on), then two ranks on the card over the int8 wire (2 layers
+# since the tensor-parallel phases joined the script: 4 until then)
+CKPT_LAYERS, CKPT_STEPS, CKPT_STOP = 2, 4, 2
 # bytes a step directory takes per parameter: params, mu, nu and the fp32
 # arena (one rank); params, the global mu and nu, "ef" of both ranks and
 # their int8 arenas (about 1 B a parameter each) at two ranks
@@ -4063,6 +4108,690 @@ def phase_timing_attn(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism: two ranks on the one card over gloo, a (1, 2)
+# ("data", "model") mesh, llama3.2-1b at full width
+# ---------------------------------------------------------------------------
+
+TP_TRAIN_ARGS = ["--arch", ARCH, "--transport", "ring_hier", "--use-arena",
+                 "--seq", "256", "--batch", "8", "--steps", "3", "--device",
+                 "cuda", "--seed", "0", "--model-parallel", "2", "--layers",
+                 "16"]
+TP_GATE_LAYERS = 4          # the fp32 gate's depth
+TP_GATE_ATOL = 5e-5         # the CPU tests' loss bound (test_torch_tp_train)
+TP_PREFILL_L2 = 1.25        # prefill_tp: relative L2 error at most this
+                            # times the one-rank bf16 kernel prefill's
+TP_SEQ_CACHE = 8192         # serve_contiguous_tp's sequence-sharded cache
+TP_SEQ_POS = 8000           # its decode position: both ranks' slots valid
+TP_SEQ_ATOL = 2e-2          # tests/test_distributed.py::SERVE_SCRIPT
+
+
+def _tp_mesh():
+    from repro_torch.core.topology import RankMesh
+
+    return RankMesh(("data", "model"), (1, 2))
+
+
+def _leaf_count(tree) -> int:
+    from repro_torch import tree as tree_util
+
+    return sum(t.numel() for t in tree_util.leaves(tree))
+
+
+def _replicated_digest(step, params) -> list[int]:
+    """Digests of the leaves replicated over the model axis (equal on every
+    model rank after every step)."""
+    from repro_torch import tree as tree_util
+    from repro_torch.sharding.rules import is_model_sharded, spec_leaves
+
+    leaves = tree_util.leaves(params)
+    return params_digest([t for t, sp in zip(leaves, spec_leaves(step.specs))
+                          if not is_model_sharded(sp)])
+
+
+def _tp_train_run(args, world) -> dict:
+    """One ``launch.train`` run on the TP mesh: 3 steps, then one more,
+    profiled on rank 0; launches, records, peak and state size."""
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.launch import train as launch_train
+
+    torch.cuda.reset_peak_memory_stats(world.device)
+    run = launch_train.setup(args, world)
+    _check_full_width(run.model.cfg, args.layers, "train_tp")
+    trainer = run.trainer
+    step = trainer.step_fn
+    if (step.model_size, step.data_world, step.cfg.dp_mode) != (
+            2, 1, args.dp_mode):
+        raise AssertionError(f"[train_tp] mesh {step.mesh}, dp_mode "
+                             f"{step.cfg.dp_mode}")
+    state_bytes = sum(t.numel() * t.element_size() for k in ("params", "opt")
+                      for t in tree_util.leaves(trainer.state[k]))
+    reset_launch_counters()
+    step.comm.record.reset()
+    step.model_record.reset()
+    hist = trainer.run()["history"]
+    counts = launch_counters()
+    routes = pack_routes()
+    model_rec = step.model_record.as_dict()
+    comm_rec = step.comm.record.as_dict()
+    peak_run = torch.cuda.max_memory_allocated(world.device)
+    prof = step_profile(trainer, step.data_index, step.data_world,
+                        profiled=world.rank == 0)
+    segs = step.arena.layout.n_segments
+    steps = args.steps
+    # the data axis is 1: no hop; the arena packs and unpacks each of its
+    # segments once a step (zero1: the delta spans read out segment by
+    # segment), all on the bulk route
+    predicted = dict.fromkeys(counts, 0)
+    predicted.update(pack_write=segs * steps, pack_read=segs * steps)
+    out = {"losses": [h["loss"] for h in hist],
+           "grad_norms": [h["grad_norm"] for h in hist],
+           "step_s": [h["sec"] for h in hist], "counts": counts,
+           "predicted": predicted, "pack_routes": routes,
+           "model_record": model_rec, "comm_record": comm_rec,
+           "local_params": _leaf_count(trainer.state["params"]),
+           "full_params": run.model.param_count(),
+           "state_bytes": state_bytes, "peak_run_bytes": peak_run,
+           "peak_bytes": torch.cuda.max_memory_allocated(world.device),
+           "replicated_digest": _replicated_digest(step,
+                                                   trainer.state["params"]),
+           "profile": prof, "segments": segs,
+           "layers": run.model.cfg.num_layers}
+    return out
+
+
+def _tp_gate(world) -> dict:
+    """The TP step at ``TP_GATE_LAYERS`` layers with fp32 compute against
+    the one-rank replicated run (rank 0 alone, a (1, 1) mesh): the same
+    seed, batches and step config, 3 steps."""
+    import gc
+
+    import torch
+
+    from repro_torch.comm import CommConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.topology import RankMesh
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.models import build_model
+    from repro_torch.optim import OptimConfig
+    from repro_torch.runtime.train_loop import Trainer, TrainerConfig
+    from repro_torch.runtime.train_step import TrainStepConfig
+
+    model = build_model(get_config(ARCH).with_(num_layers=TP_GATE_LAYERS,
+                                               dtype="float32"))
+    data = SyntheticTokens(DataConfig(vocab_size=model.cfg.vocab_size,
+                                      seq_len=256, global_batch=8))
+    step_cfg = TrainStepConfig(
+        dp_mode="replicated", comm=CommConfig(transport="ring_hier",
+                                              chunks=2),
+        optim=OptimConfig(base_lr=3e-4, warmup=1, total_steps=3))
+
+    def hist(mesh):
+        tr = Trainer(model, mesh, step_cfg, data,
+                     TrainerConfig(steps=3, seed=0), device=world.device,
+                     rank=world.rank, log=lambda msg: None)
+        h = tr.run()["history"]
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        return [x["loss"] for x in h], [x["grad_norm"] for x in h]
+
+    tp = hist(_tp_mesh())
+    one = hist(RankMesh(("data", "model"), (1, 1))) if world.rank == 0 \
+        else None
+    return {"tp": tp, "one": one}
+
+
+def _tp_train_worker(argv: list[str]) -> dict:
+    """One of the two ranks of train_tp: replicated and zero1 at full
+    width, then the fp32 gate."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import train as launch_train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = launch_train.init_distributed("cuda")
+    try:
+        out = {"backend": world.backend}
+        for mode in ("replicated", "zero1"):
+            args = launch_train.parser().parse_args(argv +
+                                                    ["--dp-mode", mode])
+            out[mode] = _tp_train_run(args, world)
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["gate"] = _tp_gate(world)
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_train_tp() -> dict:
+    """Two ranks on the one card over gloo on a (1, 2) mesh: Megatron-style
+    TP training at full width, replicated then zero1, and the fp32 gate."""
+    from repro_torch.launch import train as launch_train
+
+    before = card_memory()
+    log(f"[train_tp] before the ranks spawn: {before['card_used_mib']} of "
+        f"{before['card_total_mib']} MiB of the card in use")
+    ranks = launch_train.spawn(_tp_train_worker, 2, TP_TRAIN_ARGS,
+                               timeout=900)
+    for r, out in enumerate(ranks):
+        if out["backend"] != "gloo":
+            raise AssertionError(f"[train_tp] rank {r} backend "
+                                 f"{out['backend']}")
+        for mode in ("replicated", "zero1"):
+            o = out[mode]
+            if not all(math.isfinite(x) for x in o["losses"]):
+                raise AssertionError(f"[train_tp] {mode} rank {r}: "
+                                     f"non-finite loss")
+            if o["counts"] != o["predicted"]:
+                raise AssertionError(f"[train_tp] {mode} rank {r} launches "
+                                     f"{o['counts']} != {o['predicted']}")
+            if o["pack_routes"]["vector"]:
+                raise AssertionError(f"[train_tp] {mode} rank {r}: pack on "
+                                     f"the vector route {o['pack_routes']}")
+            if o["comm_record"]["sends"] or o["comm_record"]["all_reduces"]:
+                raise AssertionError(f"[train_tp] {mode} rank {r}: the data "
+                                     f"axis of 1 moved data "
+                                     f"{o['comm_record']}")
+    for mode in ("replicated", "zero1"):
+        a, b = ranks[0][mode], ranks[1][mode]
+        if a["losses"] != b["losses"]:
+            raise AssertionError(f"[train_tp] {mode}: the ranks disagree on "
+                                 f"the loss")
+        if a["replicated_digest"] != b["replicated_digest"]:
+            raise AssertionError(f"[train_tp] {mode}: the leaves replicated "
+                                 f"over the model axis differ")
+        if [{k: v for k, v in o["model_record"].items() if k != "staging_s"}
+                for o in (a, b)] != [{k: v for k, v in a["model_record"]
+                                      .items() if k != "staging_s"}] * 2:
+            raise AssertionError(f"[train_tp] {mode}: the ranks' model-axis "
+                                 f"collectives differ: {a['model_record']}, "
+                                 f"{b['model_record']}")
+    gate = ranks[0]["gate"]
+    (tp_l, tp_n), (one_l, one_n) = gate["tp"], gate["one"]
+    loss_err = max(abs(x - y) for x, y in zip(tp_l, one_l))
+    norm_err = max(abs(x - y) / y for x, y in zip(tp_n, one_n))
+    if loss_err > TP_GATE_ATOL or norm_err > 1e-4:
+        raise AssertionError(f"[train_tp] fp32 gate at {TP_GATE_LAYERS} "
+                             f"layers: losses {tp_l} vs one rank {one_l} "
+                             f"({loss_err:.3e}), norms {tp_n} vs {one_n}")
+    if ranks[1]["gate"]["tp"] != gate["tp"]:
+        raise AssertionError("[train_tp] the ranks' gate runs disagree")
+    for mode in ("replicated", "zero1"):
+        o = ranks[0][mode]
+        rec, prof = o["model_record"], o["profile"]
+        n = len(o["losses"])
+        log(f"[train_tp] {mode}, 2 ranks on (1, 2), {o['layers']} layers, "
+            f"{o['local_params']} of {o['full_params']} parameters a rank, "
+            f"fp32 params + AdamW {o['state_bytes'] / 2**30:.2f} GiB a rank: "
+            f"losses {', '.join(f'{x:.4f}' for x in o['losses'])}; step "
+            f"wall {', '.join(f'{x * 1e3:.0f}' for x in o['step_s'])} ms; "
+            f"model-axis all-reduces {rec['all_reduces'] / n:.0f} a step, "
+            f"{rec['all_reduce_bytes'] / n / 2**20:.1f} MiB a step, staging "
+            f"{rec['staging_s'] / n:.3f} s a step; peak "
+            f"{o['peak_run_bytes'] / 2**30:.2f} GiB a rank "
+            f"({o['peak_bytes'] / 2**30:.2f} with the profiled step); "
+            f"launches {({k: v for k, v in o['counts'].items() if v})} == "
+            f"predicted; profiled step (rank 0): wall "
+            f"{prof['step_wall_ms']:.1f} ms, busy "
+            f"{prof['step_device_ms']:.1f} ms, idle "
+            f"{prof['idle_share']:.3f}")
+    log(f"[train_tp] gate, {TP_GATE_LAYERS} layers fp32: TP losses "
+        f"{', '.join(f'{x:.6f}' for x in tp_l)} vs one rank "
+        f"{', '.join(f'{x:.6f}' for x in one_l)}: max |diff| "
+        f"{loss_err:.3e} (<= {TP_GATE_ATOL}), gradient norms within "
+        f"{norm_err:.3e} relative; replicated leaves bitwise equal on both "
+        f"ranks")
+    return {"ranks": ranks, "gate_loss_err": loss_err,
+            "gate_norm_err": norm_err, "card_before": before}
+
+
+def _prefill_errors(got, ref) -> dict:
+    diff = (got.float() - ref).abs()
+    return {"rel_l2": (diff.norm() / ref.norm()).item(),
+            "max_abs": diff.max().item(),
+            "outside": int((diff > ENGINE_ATOL + ENGINE_RTOL * ref.abs())
+                           .sum())}
+
+
+def _tp_prefill(model, full, world) -> dict:
+    """prefill_tp on one rank of the (1, 2) mesh: the resident TP prefill
+    at B=1, S=4096, bf16; rank 0 also the one-rank bf16 kernel prefill and
+    the fp32 blockwise one (the gate's reference)."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import build_model
+    from repro_torch.runtime.serve_step import (build_prefill, gather_vocab,
+                                                resident_params)
+
+    dev, mesh = world.device, _tp_mesh()
+    params = resident_params(model, full, mesh)
+    shape = ShapeConfig("prefill_tp", PREFILL_CHECK_SEQ, 1, "prefill")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, model.cfg.vocab_size,
+                                     (1, PREFILL_CHECK_SEQ), generator=gen,
+                                     device=dev, dtype=torch.int32)}
+    pre = build_prefill(model, shape, device=dev, mesh=mesh)
+    pre(params, batch)                                   # warm
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counters()
+    t0 = time.perf_counter()
+    local = pre(params, batch)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    counts, routes = launch_counters(), attn_routes()
+    peak = torch.cuda.max_memory_allocated(dev)
+    finite = bool(torch.isfinite(local).all())
+    got = gather_vocab(pre.ctx, local)
+    del local
+    out = {"wall_ms": wall * 1e3, "counts": counts, "routes": routes,
+           "peak_bytes": peak, "finite": finite,
+           "layers": model.cfg.num_layers}
+    if world.rank == 0:
+        one = build_prefill(model, shape, device=dev)
+        one(full, batch)                                 # warm
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        want = one(full, batch)
+        torch.cuda.synchronize(dev)
+        out["one_rank_wall_ms"] = (time.perf_counter() - t0) * 1e3
+        model32 = build_model(model.cfg.with_(dtype="float32"))
+        ref = build_prefill(model32, shape, attn_impl="blockwise",
+                            device=dev)(full, batch).float()
+        out["tp_err"] = _prefill_errors(got, ref)
+        out["one_err"] = _prefill_errors(want, ref)
+        diff = (got.float() - want.float()).abs()
+        out["tp_vs_one_max_abs"] = diff.max().item()
+        del ref, want, diff
+    del got
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_contiguous(model, full, world) -> dict:
+    """serve_contiguous_tp on one rank: the contiguous loop at R = 2 (and
+    at R = 1 on rank 0), then one fp32 decode at a sequence-sharded cache
+    of ``TP_SEQ_CACHE`` slots, random K/V in every slot, at position
+    ``TP_SEQ_POS`` (slots on both ranks valid), against the unsharded
+    one-rank decode of the same cache (rank 0)."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.runtime.serve_step import (build_decode_step,
+                                                gather_vocab,
+                                                resident_params)
+
+    dev, mesh = world.device, _tp_mesh()
+    args = serve.parser().parse_args(["--arch", ARCH, "--device", "cuda",
+                                      "--seed", "0", "--model-parallel",
+                                      "2"])
+    built = serve.build_decode_step
+    fed, diverged = [], []         # the R = 2 loop's input tokens, a step
+
+    def recording(*a, **kw):
+        step = built(*a, **kw)
+
+        def run(params, token, state, pos):
+            fed.append(token.clone())
+            return step(params, token, state, pos)
+
+        run.ctx = step.ctx
+        return run
+
+    def forced(*a, **kw):
+        """The R = 1 step on the R = 2 loop's inputs, counting the rows
+        whose greedy token differs from the one R = 2 fed next."""
+        step = built(*a, **kw)
+
+        def run(params, token, state, pos):
+            logits, state = step(params, fed[pos], state, pos)
+            if pos + 1 < len(fed):
+                diverged.append((logits.argmax(-1).to(torch.int32)
+                                 != fed[pos + 1]).sum())
+            return logits, state
+
+        run.ctx = step.ctx
+        return run
+
+    serve.build_decode_step = recording
+    try:
+        reset_launch_counters()
+        loop = serve.run_contiguous(args, dev)
+        counts = launch_counters()
+    finally:
+        serve.build_decode_step = built
+    logits = loop.pop("logits")
+    out = {"loop": loop, "counts": counts,
+           "loop_finite": bool(torch.isfinite(logits).all()),
+           "loop_shape": tuple(logits.shape),
+           "want_shape": (args.batch, model.cfg.vocab_size)}
+    if world.rank == 0:
+        # the R = 1 loop on the same step inputs: its last logits are the
+        # unsharded step's on what the R = 2 loop's last step saw
+        args1 = serve.parser().parse_args(["--arch", ARCH, "--device",
+                                           "cuda", "--seed", "0"])
+        serve.build_decode_step = forced
+        try:
+            one = serve.run_contiguous(args1, dev)
+        finally:
+            serve.build_decode_step = built
+        want = one.pop("logits").float()
+        d = (logits.float() - want).abs()
+        out.update(loop_one=one, loop_max_abs=d.max().item(),
+                   loop_outside=int((d > ENGINE_ATOL + ENGINE_RTOL
+                                     * want.abs()).sum()),
+                   loop_diverged=int(sum(x.item() for x in diverged)),
+                   loop_rows=len(diverged) * args.batch)
+    # the sequence-sharded branch, fp32 (the reference's SERVE_SCRIPT runs
+    # its reduced config in fp32)
+    model32 = build_model(model.cfg.with_(dtype="float32"))
+    b, r = 4, mesh.coords(world.rank)[1]
+    shape = ShapeConfig("serve_seq", TP_SEQ_CACHE, b, "decode")
+    c_local = TP_SEQ_CACHE // 2
+    gen = torch.Generator(device=dev).manual_seed(3)
+    a = model.cfg.attn
+    cache_shape = (b, a.num_kv_heads, TP_SEQ_CACHE, a.head_dim)
+    caches = [{"kv": {n: torch.randn(cache_shape, generator=gen, device=dev)
+                      for n in ("k", "v")}}
+              for _ in range(model.cfg.num_layers)]
+    sharded = [{"kv": {n: layer["kv"][n][:, :, r * c_local:
+                                         (r + 1) * c_local].clone()
+                       for n in ("k", "v")}} for layer in caches]
+    token = torch.randint(0, model.cfg.vocab_size, (b,), generator=gen,
+                          device=dev, dtype=torch.int32)
+    step = build_decode_step(model32, shape, device=dev, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    local, _ = step(resident_params(model32, full, mesh), token, sharded,
+                    TP_SEQ_POS)
+    torch.cuda.synchronize(dev)
+    out["seq_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    got = gather_vocab(step.ctx, local)
+    out["seq_finite"] = bool(torch.isfinite(got).all())
+    del sharded
+    if world.rank == 0:
+        one = build_decode_step(model32, shape, device=dev)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        want, _ = one(full, token, caches, TP_SEQ_POS)
+        torch.cuda.synchronize(dev)
+        out["seq_one_wall_ms"] = (time.perf_counter() - t0) * 1e3
+        out["seq_max_abs"] = (got - want).abs().max().item()
+        out["seq_tokens_equal"] = bool(torch.equal(got.argmax(-1),
+                                                   want.argmax(-1)))
+    del caches
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_paged(world) -> dict:
+    """serve_tp on one rank: the paged engine at R = 2 over the serve
+    phase's trace (continuous policy), every step's logits kept; rank 0
+    then serves the same trace at R = 1 (same seed, the scheduler's
+    deterministic token stream: the same step inputs) and compares the
+    live rows step by step."""
+    import torch
+
+    from repro_torch.kernels.flash_decode import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.attention import padded_heads
+    from repro_torch.serve import PagedDecodeEngine, ServeScheduler
+    from repro_torch.serve.engine import (gqa_is_uniform,
+                                          predicted_collectives_per_token,
+                                          predicted_wire_bytes_per_token)
+    from repro_torch.serve.kv import plan_kv_arena
+
+    dev = world.device
+    kv_heads = set()
+    wrapper = ops.flash_decode_stats
+
+    def seen(q, k, v, valid):
+        kv_heads.add((q.shape[1], k.shape[1], v.shape[1]))
+        return wrapper(q, k, v, valid)
+
+    args = serve.parser().parse_args(
+        [a if a != "both" else "continuous" for a in SERVE_ARGS]
+        + ["--model-parallel", "2"])
+    ops.flash_decode_stats = seen
+    try:
+        run = serve.setup_paged(args, dev)
+    finally:
+        ops.flash_decode_stats = wrapper
+    cfg, plan, eng = run.model.cfg, run.plan, run.engine
+    eng.admit(0)                          # warm-up step
+    eng.decode(run.params, [1, 0, 0, 0])
+    eng.retire(0)
+    torch.cuda.synchronize(dev)
+    kept, live_rows = [], []
+    step = eng.decode
+
+    def keep(params, token):
+        live_rows.append(eng.slot_valid.copy())
+        logits = step(params, token)
+        kept.append(logits)
+        return logits
+
+    eng.decode = keep
+    reset_launch_counters()
+    eng.comm.record.reset()
+    res = serve.serve_policies(run, ["continuous"])["continuous"]
+    counts = launch_counters()
+    rec = eng.comm.record.as_dict()
+    eng.decode = step
+    a = cfg.attn
+    hq = padded_heads(a.num_heads)
+    # K/V unexpanded where the model's GQA map is the kernel's (llama3.2-1b:
+    # 32 q heads read 8 kv heads)
+    hkv = a.num_kv_heads if gqa_is_uniform(
+        hq, a.num_kv_heads, max(a.num_heads // a.num_kv_heads, 1)) else hq
+    out = {"steps": res["steps"], "tokens_per_s": res["tokens_per_s"],
+           "wall_s": res["wall_s"], "counts": counts, "record": rec,
+           "kv_heads": sorted(kv_heads), "want_kv_heads": [(hq, hkv, hkv)],
+           "layers": cfg.num_layers,
+           "predicted_collectives": predicted_collectives_per_token(plan),
+           "predicted_bytes": predicted_wire_bytes_per_token(
+               plan, cfg, plan.max_seqs),
+           "blocks_per_rank": plan.blocks_per_rank,
+           "finite": all(bool(torch.isfinite(x).all()) for x in kept)}
+    if world.rank == 0:
+        plan1 = plan_kv_arena(cfg, page_tokens=args.page_tokens,
+                              max_seqs=args.slots,
+                              max_seq_len=args.prompt_len + max(
+                                  args.long_len, args.short_len))
+        eng1 = PagedDecodeEngine(run.model, plan1, device=dev)
+        worst, outside, diverged, live_total = 0.0, 0, 0, 0
+        step1, i = eng1.decode, 0
+
+        def compare(params, token):
+            nonlocal worst, outside, diverged, live_total, i
+            want = step1(params, token)
+            rows = torch.from_numpy(live_rows[i]).to(dev)
+            got, w = kept[i][rows].float(), want[rows].float()
+            d = (got - w).abs()
+            worst = max(worst, d.max().item())
+            outside += int((d > ENGINE_ATOL + ENGINE_RTOL * w.abs()).sum())
+            diverged += int((got.argmax(-1) != w.argmax(-1)).sum())
+            live_total += int(rows.sum())
+            i += 1
+            return want
+
+        eng1.decode = compare
+        t0 = time.perf_counter()
+        res1 = ServeScheduler(eng1, "continuous").run(run.params,
+                                                      list(run.trace))
+        torch.cuda.synchronize(dev)
+        wall1 = time.perf_counter() - t0
+        out.update(one_steps=res1["steps"], one_wall_s=wall1,
+                   one_tokens_per_s=res1["generated_tokens"] / wall1,
+                   max_abs=worst, outside=outside, diverged_rows=diverged,
+                   live_rows=live_total)
+        del eng1
+    del kept, run, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_serve_worker() -> dict:
+    """One of the two ranks of the TP serving phases: prefill_tp,
+    serve_contiguous_tp and serve_tp, each timed."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = launch_train.init_distributed("cuda")
+    try:
+        model = build_model(get_config(ARCH))
+        _check_full_width(model.cfg, 16, "prefill_tp")
+        full = model.init(torch.Generator(device=world.device).manual_seed(0),
+                          world.device)
+        out, seconds = {"backend": world.backend}, {}
+        for name, fn in (("prefill_tp", lambda: _tp_prefill(model, full,
+                                                            world)),
+                         ("serve_contiguous_tp",
+                          lambda: _tp_contiguous(model, full, world))):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            seconds[name] = time.perf_counter() - t0
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["serve_tp"] = _tp_paged(world)
+        seconds["serve_tp"] = time.perf_counter() - t0
+        out["seconds"] = seconds
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_serve_tp() -> dict:
+    """Two ranks on the one card over gloo on a (1, 2) mesh: prefill_tp,
+    serve_contiguous_tp and serve_tp, with their gates."""
+    from repro_torch.launch import train as launch_train
+
+    ranks = launch_train.spawn(_tp_serve_worker, 2, timeout=900)
+    r0 = ranks[0]
+    for r, out in enumerate(ranks):
+        p = out["prefill_tp"]
+        layers = p["layers"]
+        if p["counts"] != dict(dict.fromkeys(p["counts"], 0),
+                               flash_attn=layers) or \
+                p["routes"] != dict(dict.fromkeys(p["routes"], 0),
+                                    wgmma=layers):
+            raise AssertionError(f"[prefill_tp] rank {r} launches "
+                                 f"{p['counts']}, by route {p['routes']}: "
+                                 f"expected {layers} wgmma flash_attn")
+        if not p["finite"]:
+            raise AssertionError(f"[prefill_tp] rank {r} non-finite logits")
+        c = out["serve_contiguous_tp"]
+        if any(c["counts"].values()) or not c["loop_finite"] or \
+                c["loop_shape"] != c["want_shape"] or not c["seq_finite"]:
+            raise AssertionError(f"[serve_contiguous_tp] rank {r}: "
+                                 f"launches {c['counts']}, finite "
+                                 f"{c['loop_finite']} / {c['seq_finite']}, "
+                                 f"logits {c['loop_shape']}")
+        s = out["serve_tp"]
+        n = s["steps"]
+        if s["counts"] != dict(dict.fromkeys(s["counts"], 0),
+                               flash_decode=n * layers):
+            raise AssertionError(f"[serve_tp] rank {r} launches "
+                                 f"{s['counts']} for {n} steps: expected "
+                                 f"{n * layers} flash_decode and nothing "
+                                 f"else")
+        if s["kv_heads"] != s["want_kv_heads"]:
+            raise AssertionError(f"[serve_tp] rank {r}: K/V heads "
+                                 f"{s['kv_heads']}")
+        rec = s["record"]
+        if rec["all_reduces"] != n * s["predicted_collectives"] or \
+                rec["all_reduce_bytes"] != n * s["predicted_bytes"]:
+            raise AssertionError(f"[serve_tp] rank {r}: {rec} for {n} steps, "
+                                 f"predicted {s['predicted_collectives']} "
+                                 f"collectives and {s['predicted_bytes']} B "
+                                 f"a token")
+        if not s["finite"]:
+            raise AssertionError(f"[serve_tp] rank {r}: non-finite logits")
+    p = r0["prefill_tp"]
+    if p["tp_err"]["rel_l2"] > TP_PREFILL_L2 * p["one_err"]["rel_l2"]:
+        raise AssertionError(f"[prefill_tp] relative L2 error "
+                             f"{p['tp_err']} against the one-rank bf16 "
+                             f"prefill's {p['one_err']}")
+    c = r0["serve_contiguous_tp"]
+    if c["loop_outside"]:
+        raise AssertionError(f"[serve_contiguous_tp] {c['loop_outside']} "
+                             f"last logits of the R = 2 loop outside rtol "
+                             f"{ENGINE_RTOL} / atol {ENGINE_ATOL} of the "
+                             f"R = 1 step on the same inputs (max |diff| "
+                             f"{c['loop_max_abs']:.3e})")
+    if c["seq_max_abs"] > TP_SEQ_ATOL:
+        raise AssertionError(f"[serve_contiguous_tp] sequence-sharded decode "
+                             f"{c['seq_max_abs']:.3e} from the unsharded "
+                             f"one")
+    s = r0["serve_tp"]
+    if s["outside"] or s["one_steps"] != s["steps"]:
+        raise AssertionError(f"[serve_tp] {s['outside']} live logits outside "
+                             f"rtol {ENGINE_RTOL} / atol {ENGINE_ATOL} of "
+                             f"the R = 1 engine ({s['one_steps']} vs "
+                             f"{s['steps']} steps)")
+    walls = [o["prefill_tp"]["wall_ms"] for o in ranks]
+    log(f"[prefill_tp] B=1 S={PREFILL_CHECK_SEQ}, weights sharded over 2 "
+        f"ranks, bf16: flash_attn {p['counts']['flash_attn']} launches a "
+        f"rank, all wgmma; wall {max(walls):.1f} ms (ranks "
+        f"{', '.join(f'{w:.1f}' for w in walls)}) vs one rank "
+        f"{p['one_rank_wall_ms']:.1f} ms; against the fp32 blockwise "
+        f"one-rank prefill: relative L2 {p['tp_err']['rel_l2']:.4e} (one "
+        f"rank bf16 {p['one_err']['rel_l2']:.4e}, gate "
+        f"{TP_PREFILL_L2}x), {p['tp_err']['outside']} logits outside rtol "
+        f"{ENGINE_RTOL} / atol {ENGINE_ATOL} (one rank "
+        f"{p['one_err']['outside']}); max |TP - one rank| "
+        f"{p['tp_vs_one_max_abs']:.3e}; peak {p['peak_bytes'] / 2**30:.2f} "
+        f"GiB a rank")
+    loop, one = c["loop"], c["loop_one"]
+    log(f"[serve_contiguous_tp] batch 4, cache 512, 16 tokens: R=2 "
+        f"{loop['tokens_per_s']:.1f} tok/s ({loop['wall_s'] * 1e3:.0f} ms) "
+        f"vs R=1 {one['tokens_per_s']:.1f} tok/s ({one['wall_s'] * 1e3:.0f} "
+        f"ms); last logits vs R=1 on the same step inputs: max |diff| "
+        f"{c['loop_max_abs']:.3e}, {c['loop_outside']} outside rtol "
+        f"{ENGINE_RTOL} / atol {ENGINE_ATOL}; greedy tokens differ in "
+        f"{c['loop_diverged']} of {c['loop_rows']} (step, row); fp32 "
+        f"decode at {TP_SEQ_CACHE} slots (4096 a rank), position "
+        f"{TP_SEQ_POS}: max |diff| {c['seq_max_abs']:.3e} from the unsharded "
+        f"one-rank decode (<= {TP_SEQ_ATOL}), tokens equal "
+        f"{c['seq_tokens_equal']}; wall {c['seq_wall_ms']:.1f} ms vs "
+        f"{c['seq_one_wall_ms']:.1f} ms")
+    log(f"[serve_tp] paged engine at R=2, {s['steps']} steps (continuous): "
+        f"{s['tokens_per_s']:.1f} tok/s ({s['wall_s']:.2f} s) vs R=1 "
+        f"{s['one_tokens_per_s']:.1f} tok/s ({s['one_wall_s']:.2f} s); "
+        f"flash_decode {s['counts']['flash_decode']} launches a rank == "
+        f"{s['steps']} x {s['layers']} ({s['blocks_per_rank']} blocks a "
+        f"rank), nothing else, K/V heads "
+        f"{s['kv_heads']}; all-reduces "
+        f"{s['record']['all_reduces'] / s['steps']:.0f} a token == "
+        f"predicted {s['predicted_collectives']}, "
+        f"{s['record']['all_reduce_bytes'] / s['steps']:.0f} B a token == "
+        f"predicted {s['predicted_bytes']:.0f}; vs R=1 on the same step "
+        f"inputs: max |logit diff| {s['max_abs']:.3e} over "
+        f"{s['live_rows']} live rows, {s['outside']} outside rtol "
+        f"{ENGINE_RTOL} / atol {ENGINE_ATOL}, greedy tokens differ in "
+        f"{s['diverged_rows']} rows")
+    return {"ranks": ranks, "seconds": r0["seconds"]}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -4154,6 +4883,22 @@ def main() -> None:
     halo = run_phase("halo", phase_halo)
     stencil = run_phase("stencil", phase_stencil, dev)
     stencil_cg = run_phase("stencil_cg", phase_stencil_cg, dev)
+    torch.cuda.empty_cache()
+    train_tp = run_phase("train_tp", phase_train_tp)
+    serve_tp = run_phase("serve_tp_ranks", phase_serve_tp)
+    for name, sec in serve_tp["seconds"].items():
+        phase_s[name] = sec
+        log(f"[phase] {name}: {sec:.1f} s (rank 0, inside serve_tp_ranks)")
+    tp0, stp0 = train_tp["ranks"][0], serve_tp["ranks"][0]
+    # each kernel's launches a rank on the tensor-parallel paths: 3 steps of
+    # train_tp in each mode, one prefill_tp, the whole serve_tp trace
+    tp_launches = {name: {
+        "train_tp_replicated": tp0["replicated"]["counts"][name],
+        "train_tp_zero1": tp0["zero1"]["counts"][name],
+        "prefill_tp": stp0["prefill_tp"]["counts"][name],
+        "serve_contiguous_tp": stp0["serve_contiguous_tp"]["counts"][name],
+        "serve_tp": stp0["serve_tp"]["counts"][name]}
+        for name in launch_counters()}
     z1, z8 = (train_ring_zero1["ranks"][0],
               train_ring_zero1_int8["ranks"][0])
     f8 = train_ring_fsdp_int8["ranks"][0]
@@ -4278,6 +5023,8 @@ def main() -> None:
                            timing_attn["max_abs_err"]),
         **{k: timing_attn[k] for k in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")}})
+    for row in rows:
+        row["launches_tp"] = tp_launches[row["name"]]
     kernels = {"kernels": rows, "gpu": gpu}
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -4298,6 +5045,7 @@ def main() -> None:
              "timing_fsdp": timing_fsdp, "train_ckpt": train_ckpt,
              "train_ring_ckpt": train_ring_ckpt, "halo": halo,
              "stencil": stencil, "stencil_cg": stencil_cg,
+             "train_tp": train_tp, "serve_tp": serve_tp,
              "phase_s": phase_s,
              "torch": torch.__version__, "cuda": torch.version.cuda,
              "wall_s": time.perf_counter() - t_start}, indent=1))

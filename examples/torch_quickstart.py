@@ -12,7 +12,10 @@ scale per block on every ring hop); with ``--use-arena`` the reduction also
 runs through the int8 arena with error feedback.
 
 Several ranks on one host are spawned as local processes (gloo on the CPU,
-or several ranks sharing one card; NCCL when each rank has its own card).
+or several ranks sharing one card; NCCL when each rank has its own card)
+and laid out as the reference's host mesh, ``("data", "model")`` with a
+model axis of 2 where the rank count allows: two ranks train
+tensor-parallel, four on a (2, 2) mesh.
 """
 
 import argparse
@@ -24,7 +27,8 @@ from repro_torch.launch.train import init_distributed, spawn
 from repro_torch.models import build_model
 from repro_torch.optim import OptimConfig
 from repro_torch.runtime.train_loop import Trainer, TrainerConfig
-from repro_torch.runtime.train_step import TrainStepConfig, data_mesh
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.runtime.train_step import TrainStepConfig
 
 
 def train(device: str, wire_codec: str | None = None,
@@ -40,10 +44,11 @@ def train(device: str, wire_codec: str | None = None,
         optim=OptimConfig(base_lr=3e-3, warmup=10, total_steps=60),
         use_arena=use_arena, wire_codec=wire_codec)
     log = print if world.rank == 0 else (lambda msg: None)
-    log(f"ranks: {world.size}, device: {world.device}, "
+    mesh = make_host_mesh(world.size)
+    log(f"ranks: {world.size}, mesh: {mesh.sizes()}, device: {world.device}, "
         f"backend: {world.backend}, wire codec: {wire_codec}, "
         f"arena: {use_arena}")
-    trainer = Trainer(model, data_mesh(world.size), step_cfg, data,
+    trainer = Trainer(model, mesh, step_cfg, data,
                       TrainerConfig(steps=60, log_every=10),
                       device=world.device, rank=world.rank, log=log)
     out = trainer.run()

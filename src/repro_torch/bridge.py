@@ -10,7 +10,12 @@ carry a whole train state the same way (parameters, AdamW moments, the
 int8 arena and the fp32 ``"ef"`` accumulator; under fsdp the ``"groups"``
 of flat shards and moments of the same shape, ``{name: [shards]}``), so
 that a step can start from the same state on both sides; the step counter
-is a Python ``int`` in the port.
+is a Python ``int`` in the port.  Under tensor parallelism
+:func:`local_params_from_numpy` hands a rank its blocks of the reference's
+full tree (the reference's ``NamedSharding`` placement, through
+:func:`repro_torch.sharding.rules.local_shard`), and
+:func:`global_params_to_numpy` puts the ranks' blocks back together, so
+that tests compare whole trees.
 """
 
 from __future__ import annotations
@@ -39,7 +44,10 @@ def _to_torch(a, device: torch.device) -> torch.Tensor:
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
     """A copy on the host, never a view: the port updates some state
-    tensors (the arena, ``"ef"``) in place."""
+    tensors (the arena, ``"ef"``) in place.  A numpy array is copied as it
+    is."""
+    if isinstance(t, np.ndarray):
+        return t.copy()
     t = t.detach().cpu().contiguous()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(_bf16_numpy_dtype()).copy()
@@ -80,3 +88,22 @@ def state_to_numpy(state: dict) -> dict:
     out = params_to_numpy({k: v for k, v in state.items() if k != "step"})
     out["step"] = np.int64(state["step"])
     return out
+
+
+def local_params_from_numpy(tree, specs, mesh, rank: int,
+                            device: str | torch.device = "cuda"):
+    """This rank's blocks of a full numpy tree (``specs``: the port's spec
+    tree on ``mesh``), as tensors on ``device``."""
+    from repro_torch.sharding.rules import local_shard
+
+    return params_from_numpy(local_shard(tree, specs, mesh, rank), device)
+
+
+def global_params_to_numpy(shards, specs, mesh):
+    """The full numpy tree from every rank's tree of blocks (``shards[r]``
+    rank ``r``'s, tensors or numpy), the inverse of
+    :func:`local_params_from_numpy`."""
+    from repro_torch.sharding.rules import global_from_shards
+
+    return global_from_shards([params_to_numpy(t) for t in shards], specs,
+                              mesh)

@@ -70,6 +70,9 @@ _reduce_scatter_flat = getattr(dist, "reduce_scatter_single",
                                dist.reduce_scatter_tensor)
 
 
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
@@ -154,13 +157,14 @@ class RingAxis:
         between the same two ranks never cross)."""
         return self.start_shift(payloads, directions).wait()
 
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum of ``t`` over the axis (a fresh tensor; ``t`` is untouched)."""
+    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """Sum (``op="max"``: maximum) of ``t`` over the axis (a fresh
+        tensor; ``t`` is untouched)."""
         if self.size == 1:
             return t.clone()
         staged = self.stage and t.is_cuda
         wire = self._stage_out([t])[0] if staged else t.clone()
-        dist.all_reduce(wire, group=self.group)
+        dist.all_reduce(wire, op=_REDUCE_OPS[op], group=self.group)
         self.record.all_reduces += 1
         self.record.all_reduce_bytes += _nbytes(wire)
         return self._stage_in([wire], t.device)[0] if staged else wire

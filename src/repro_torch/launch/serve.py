@@ -14,12 +14,17 @@ generator.  Port of ``repro.launch.serve``'s two paths:
       PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
           --paged --policy both
 
-It runs on ``cuda`` unless ``--device cpu`` is given, on one rank (the
-reference's ``--model-parallel`` page-parallel decode and
-``--production-mesh`` are not ported yet).  With ``--paged``, ``--obs-dir
-DIR`` instruments the engine and scheduler (``events.jsonl`` and
-``trace.json`` under DIR, read with ``python -m repro_torch.obs.report
-DIR``).
+It runs on ``cuda`` unless ``--device cpu`` is given.  ``--model-parallel
+R`` spawns R local ranks on a ``(1, R)`` ``("data", "model")`` mesh (gloo
+on the CPU or for ranks sharing one card): with ``--paged`` each rank
+scores its slice of the page-table columns and the ranks merge the softmax
+statistics (page-parallel decode, weights replicated); the contiguous loop
+runs tensor-parallel (weights model-sharded, caches of 8192 slots or more
+sequence-sharded, the vocab shards gathered for the argmax).  Rank 0
+prints.  The reference's ``--production-mesh`` is not ported.  With
+``--paged``, ``--obs-dir DIR`` instruments rank 0's engine and scheduler
+(``events.jsonl`` and ``trace.json`` under DIR, read with ``python -m
+repro_torch.obs.report DIR``).
 """
 
 from __future__ import annotations
@@ -32,11 +37,14 @@ import torch
 
 from repro_torch.configs import get_config, list_archs, reduced_config
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.core.topology import RankMesh
 from repro_torch.device import resolve_device
 from repro_torch.launch.settings import settings_for
 from repro_torch.models import Model, build_model
 from repro_torch.obs import ObsConfig, make_obs
-from repro_torch.runtime.serve_step import build_decode_step
+from repro_torch.runtime.serve_step import (build_decode_step, gather_vocab,
+                                            init_decode_state,
+                                            resident_params)
 from repro_torch.serve.engine import (PagedDecodeEngine,
                                       predicted_collectives_per_token,
                                       predicted_wire_bytes_per_token)
@@ -55,30 +63,49 @@ class PagedServe:
     trace: list[Request]
 
 
-def setup_paged(args) -> PagedServe:
+def serve_mesh(model_parallel: int) -> RankMesh:
+    """The ``(1, R)`` ``("data", "model")`` mesh of ``--model-parallel``."""
+    return RankMesh(("data", "model"), (1, model_parallel))
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _log(msg: str) -> None:
+    if _rank() == 0:
+        print(msg, flush=True)
+
+
+def setup_paged(args, device=None) -> PagedServe:
     """Builds the model, its random weights (``--seed``), the KV arena plan,
-    the engine and the request trace."""
-    dev = resolve_device(args.device)
+    the engine (on the ``(1, --model-parallel)`` mesh) and the request
+    trace; ``device`` overrides ``--device`` (a spawned rank's card)."""
+    dev = resolve_device(device if device is not None else args.device)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     model = build_model(cfg)
     longest = args.prompt_len + max(args.long_len, args.short_len)
-    plan = plan_kv_arena(model.cfg, page_tokens=args.page_tokens,
+    plan = plan_kv_arena(model.cfg, model_parallel=args.model_parallel,
+                         page_tokens=args.page_tokens,
                          max_seqs=args.slots, max_seq_len=longest)
     obs = make_obs(ObsConfig(run_dir=args.obs_dir)
-                   if args.obs_dir else None)
+                   if args.obs_dir and _rank() == 0 else None)
     engine = PagedDecodeEngine(model, plan, attn_impl=args.attn_impl,
-                               device=dev, obs=obs)
+                               device=dev, obs=obs,
+                               mesh=serve_mesh(args.model_parallel))
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = model.init(gen, dev)
     trace = mixed_trace(groups=args.groups, slots=args.slots,
                         long_len=args.long_len, short_len=args.short_len,
                         prompt_len=args.prompt_len)
-    print(f"{args.arch}: paged serve on {dev}, {len(trace)} requests, "
-          f"{plan.n_kv_pages} KV pages ({plan.total_bytes} B arena), "
-          f"page_tokens={plan.page_tokens}, R={plan.model_parallel} "
-          f"({predicted_collectives_per_token(plan)} collectives/token, "
-          f"{predicted_wire_bytes_per_token(plan, model.cfg, plan.max_seqs):.0f}"
-          f" wire B/token)")
+    _log(f"{args.arch}: paged serve on {dev}, {len(trace)} requests, "
+         f"{plan.n_kv_pages} KV pages ({plan.total_bytes} B arena), "
+         f"page_tokens={plan.page_tokens}, R={plan.model_parallel} "
+         f"({predicted_collectives_per_token(plan)} collectives/token, "
+         f"{predicted_wire_bytes_per_token(plan, model.cfg, plan.max_seqs):.0f}"
+         f" wire B/token)")
     return PagedServe(model, plan, engine, params, trace)
 
 
@@ -96,58 +123,76 @@ def serve_policies(run: PagedServe, policies: list[str]) -> dict:
         res["wall_s"] = time.perf_counter() - t0
         res["tokens_per_s"] = res["generated_tokens"] / res["wall_s"]
         results[policy] = res
-        print(f"  {policy:10s}: {res['steps']} steps, "
-              f"{res['generated_tokens']} tokens, "
-              f"{res['tokens_per_step']:.3f} tok/step, "
-              f"{res['tokens_per_s']:.1f} tok/s, "
-              f"mean live slots {res['mean_live_slots']:.2f}")
+        _log(f"  {policy:10s}: {res['steps']} steps, "
+             f"{res['generated_tokens']} tokens, "
+             f"{res['tokens_per_step']:.3f} tok/step, "
+             f"{res['tokens_per_s']:.1f} tok/s, "
+             f"mean live slots {res['mean_live_slots']:.2f}")
     if len(results) == 2:
         ratio = (results["continuous"]["tokens_per_step"]
                  / results["static"]["tokens_per_step"])
-        print(f"  continuous / static throughput: {ratio:.2f}x")
+        _log(f"  continuous / static throughput: {ratio:.2f}x")
     return results
 
 
-def run_paged(args) -> dict:
+def run_paged(args, device=None) -> dict:
     policies = (["continuous", "static"] if args.policy == "both"
                 else [args.policy])
-    run = setup_paged(args)
+    run = setup_paged(args, device)
     results = serve_policies(run, policies)
     paths = run.engine.obs.finish()
     if paths.get("events"):
-        print(f"  obs: events={paths['events']} trace={paths['trace']}")
+        _log(f"  obs: events={paths['events']} trace={paths['trace']}")
     return results
 
 
-def run_contiguous(args) -> dict:
+def run_contiguous(args, device=None) -> dict:
     """Decodes ``--tokens`` tokens for ``--batch`` sequences against
     ``--cache``-slot caches, from position 0 with token 0, feeding back the
-    greedy argmax; returns the wall time (device work included), tokens/s
-    and the last logits."""
-    dev = resolve_device(args.device)
+    greedy argmax, on the ``(1, --model-parallel)`` mesh; returns the wall
+    time (device work included), tokens/s and the last logits (the whole
+    vocabulary, on the CPU)."""
+    dev = resolve_device(device if device is not None else args.device)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     model = build_model(cfg)
+    mesh = serve_mesh(args.model_parallel)
     shape = ShapeConfig("serve", args.cache, args.batch, "decode")
     wm = settings_for(args.arch).serve_weights if not args.reduced \
         else "resident"
-    step = build_decode_step(model, shape, weight_mode=wm, device=dev)
+    step = build_decode_step(model, shape, weight_mode=wm, device=dev,
+                             mesh=mesh)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = model.init(gen, dev)
-    state = model.init_decode_state(args.batch, args.cache, device=dev)
+    params = resident_params(model, model.init(gen, dev), mesh)
+    state = init_decode_state(model, shape, mesh, device=dev)
     token = torch.zeros((args.batch,), dtype=torch.int32, device=dev)
     logits = None
     t0 = time.perf_counter()
     for pos in range(args.tokens):
         logits, state = step(params, token, state, pos)
+        logits = gather_vocab(step.ctx, logits)
         token = torch.clamp(torch.argmax(logits, -1).to(torch.int32), 0,
                             model.cfg.vocab_size - 1)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
-    print(f"{args.arch}: {args.tokens * args.batch / dt:.1f} tok/s "
-          f"(batch {args.batch}, cache {args.cache})")
+    _log(f"{args.arch}: {args.tokens * args.batch / dt:.1f} tok/s "
+         f"(batch {args.batch}, cache {args.cache}) R={args.model_parallel}")
     return {"wall_s": dt, "tokens_per_s": args.tokens * args.batch / dt,
-            "logits": logits}
+            "logits": logits.cpu()}
+
+
+def _rank_main(args) -> dict:
+    """One spawned rank of a ``--model-parallel`` run."""
+    from repro_torch.launch.train import init_distributed
+
+    import torch.distributed as dist
+
+    world = init_distributed(args.device)
+    try:
+        return (run_paged if args.paged else run_contiguous)(args,
+                                                             world.device)
+    finally:
+        dist.destroy_process_group()
 
 
 def parser() -> argparse.ArgumentParser:
@@ -180,6 +225,10 @@ def parser() -> argparse.ArgumentParser:
                     help="paged: token positions per KV page")
     ap.add_argument("--slots", type=int, default=4,
                     help="paged: concurrent sequence slots")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="spawn this many ranks on a (1, R) (data, model) "
+                         "mesh: page-parallel decode with --paged, else "
+                         "tensor-parallel resident decode")
     ap.add_argument("--groups", type=int, default=4,
                     help="paged: mixed-trace groups (1 long + slots-1 short "
                          "requests each)")
@@ -194,7 +243,14 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> None:
     args = parser().parse_args(argv)
-    if args.paged:
+    if args.model_parallel < 1:
+        raise SystemExit("--model-parallel must be >= 1")
+    if args.model_parallel > 1:
+        from repro_torch.launch.train import spawn
+
+        resolve_device(args.device)        # refuse before spawning anything
+        spawn(_rank_main, args.model_parallel, args)
+    elif args.paged:
         run_paged(args)
     else:
         run_contiguous(args)

@@ -13,6 +13,13 @@ one card), gloo on the CPU.  ::
         --reduced --steps 20 --device cpu --nproc 2 --use-arena \\
         --wire-codec int8
 
+The ranks form the reference's host mesh, ``("data", "model")`` with a
+model axis of ``--model-parallel`` (2 by default) halved until it divides
+the rank count (``launch/mesh.py``): ``--nproc 2`` trains tensor-parallel
+on (1, 2), ``--nproc 4`` on (2, 2).  ``replicated`` and ``zero1`` run on a
+model axis; ``fsdp`` and ``--ckpt-dir`` need ``--model-parallel 1``
+(ROADMAP Queue 1 #6b).
+
 It runs on ``cuda`` unless ``--device cpu`` is given.  ``--dp-mode`` is
 ``replicated``, ``zero1`` (llama3.2-1b's own default at full size) or
 ``fsdp`` (the full-size default of qwen2-7b and the larger archs);
@@ -53,8 +60,9 @@ from repro_torch.models import Model, build_model
 from repro_torch.obs import ObsConfig
 from repro_torch.optim import OptimConfig
 from repro_torch.runtime.train_loop import Trainer, TrainerConfig
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.runtime.train_step import (DP_MODES, TrainStepConfig,
-                                            data_mesh, require_ported)
+                                            require_ported)
 
 
 @dataclass(frozen=True)
@@ -152,13 +160,15 @@ def setup(args, world: World, *,
     # one run directory: rank 0 instruments the run
     obs_cfg = (ObsConfig(run_dir=args.obs_dir)
                if args.obs_dir and world.rank == 0 else None)
-    trainer = Trainer(model, data_mesh(world.size), step_cfg, data,
+    mesh = make_host_mesh(world.size, args.model_parallel)
+    trainer = Trainer(model, mesh, step_cfg, data,
                       TrainerConfig(steps=args.steps, ckpt_every=50,
                                     ckpt_dir=args.ckpt_dir, log_every=10,
                                     seed=args.seed, obs=obs_cfg),
                       device=world.device, rank=world.rank, log=log)
     log(f"arch={args.arch} layers={cfg.num_layers} "
         f"params={model.param_count() / 1e6:.1f}M world={world.size} "
+        f"mesh={mesh.sizes()} "
         f"device={world.device} dp_mode={dp_mode} "
         f"transport={ccfg.transport} channels={ccfg.channels} "
         f"arena={args.use_arena} wire_codec={args.wire_codec}"
@@ -282,6 +292,10 @@ def parser() -> argparse.ArgumentParser:
                     help="seed of the random weights")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda)")
+    ap.add_argument("--model-parallel", type=int, default=2,
+                    help="model axis of the (data, model) host mesh, halved "
+                         "until it divides the rank count (1: data-only; "
+                         "fsdp and --ckpt-dir need it)")
     ap.add_argument("--nproc", type=int, default=None,
                     help="spawn this many local ranks (else one rank, or "
                          "the world of torch.distributed's environment)")

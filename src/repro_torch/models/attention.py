@@ -22,6 +22,8 @@ import torch
 from repro_torch.configs.base import AttnConfig
 from repro_torch.kernels.flash_attn import flash_attention
 from repro_torch.models.common import apply_rope, dense, dense_init
+from repro_torch.models.parallel import (SINGLE, ParallelCtx,
+                                         sum_grads_over_model)
 
 NEG_INF = -1e30
 HEAD_PAD_TO = 16  # model-axis size the padded head count must tile
@@ -61,14 +63,51 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, s, h * d)
 
 
-def _gather_kv_for_local_q(k: torch.Tensor, v: torch.Tensor,
-                           cfg: AttnConfig, hq: int):
-    """q head ``h`` reads kv head ``h // true_group`` (clipped for padded
-    heads); returns kv per q head."""
+def _kv_index(cfg: AttnConfig, first: int, n: int, device) -> torch.Tensor:
+    """The kv head each of the q heads ``first .. first + n - 1`` (global)
+    reads: ``h // true_group``, clipped for padded heads."""
     true_group = max(cfg.num_heads // cfg.num_kv_heads, 1)
-    idx = torch.clamp(torch.arange(hq, device=k.device) // true_group, 0,
-                      cfg.num_kv_heads - 1)
+    h = first + torch.arange(n, device=device)
+    return torch.clamp(h // true_group, 0, cfg.num_kv_heads - 1)
+
+
+def _gather_kv_for_local_q(k: torch.Tensor, v: torch.Tensor,
+                           cfg: AttnConfig, hq_local: int,
+                           ctx: ParallelCtx = SINGLE):
+    """The tensor-parallel rank's GQA map: its local q head ``j`` is global
+    head ``model_index * hq_local + j`` and reads that head's kv head;
+    returns kv per local q head."""
+    idx = _kv_index(cfg, ctx.model_index() * hq_local, hq_local, k.device)
     return k.index_select(1, idx), v.index_select(1, idx)
+
+
+def _needs_psum(p: dict, cfg: AttnConfig) -> bool:
+    """Row-parallel ``wo``: a psum completes it when the merged-head
+    dimension is a local shard."""
+    return p["wo"]["w"].shape[0] < padded_heads(cfg.num_heads) * cfg.head_dim
+
+
+def _kernel_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  cfg: AttnConfig, ctx: ParallelCtx):
+    """What this rank hands ``flash_attention``: its real query heads (the
+    global heads below ``num_heads``, from ``model_index * hq_local`` on)
+    and the kv heads they read.  Where their map is the kernel's uniform
+    ``h // group`` over a run of kv heads, that run is sliced; otherwise kv
+    are expanded to one head per query head.  ``None`` when the rank holds
+    only padded heads."""
+    hq = q.shape[1]
+    first = ctx.model_index() * hq
+    n_real = max(0, min(cfg.num_heads - first, hq))
+    if n_real == 0:
+        return None
+    idx = _kv_index(cfg, first, n_real, "cpu")
+    lo, hi = int(idx[0]), int(idx[-1]) + 1
+    group = n_real // (hi - lo)
+    if group * (hi - lo) == n_real and torch.equal(
+            idx, lo + torch.arange(n_real) // group):
+        return q[:, :n_real], k[:, lo:hi], v[:, lo:hi]
+    idx = idx.to(k.device)
+    return q[:, :n_real], k.index_select(1, idx), v.index_select(1, idx)
 
 
 def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
@@ -142,19 +181,22 @@ ATTN_IMPLS = ("blockwise", "kernel")
 
 
 def attn_apply(p: dict, x: torch.Tensor, cfg: AttnConfig, *, is_global: bool,
+               ctx: ParallelCtx = SINGLE,
                positions: torch.Tensor | None = None,
                compute_dtype: torch.dtype = torch.bfloat16,
                causal: bool = True, causal_skip: bool = False,
                block_q: int = 2048, block_k: int = 2048,
                attn_impl: str = "blockwise") -> torch.Tensor:
-    """Self-attention over a full sequence (train / prefill) on one rank;
-    the tensor-parallel split arrives with its slice.
+    """Self-attention over a full sequence (train / prefill).  The weights
+    may be this rank's tensor-parallel shards (``wq`` by heads, ``wo`` by
+    rows, ``wk``/``wv`` replicated, their gradients summed over the model
+    axis); ``ctx.psum`` completes the row-parallel output.
 
     ``attn_impl="kernel"`` (the prefill; no gradient) runs
-    :func:`flash_attention` on the ``num_heads`` real query heads, which read
-    kv head ``h // (num_heads / num_kv_heads)`` as the reference's
-    ``_gather_kv_for_local_q`` maps them, and gives the padded heads zeros
-    (their rows of ``wo`` are zero, so the output is the same).
+    :func:`flash_attention` on this rank's real query heads and the kv
+    heads they read (:func:`_kernel_heads`), and gives the padded heads
+    zeros (their rows of ``wo`` are zero, so the output is the same); a
+    rank that holds only padded heads launches nothing.
     """
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
@@ -163,8 +205,13 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: AttnConfig, *, is_global: bool,
     hq = p["wq"]["w"].shape[1] // cfg.head_dim
     hkv = p["wk"]["w"].shape[1] // cfg.head_dim
     q = _split_heads(dense(p["wq"], x, compute_dtype), hq)
-    k = _split_heads(dense(p["wk"], x, compute_dtype), hkv)
-    v = _split_heads(dense(p["wv"], x, compute_dtype), hkv)
+    wk, wv = p["wk"], p["wv"]
+    if hq < padded_heads(cfg.num_heads):
+        # TP-sharded q, replicated kv: each rank's use of them differs
+        wk = sum_grads_over_model(wk, ctx)
+        wv = sum_grads_over_model(wv, ctx)
+    k = _split_heads(dense(wk, x, compute_dtype), hkv)
+    v = _split_heads(dense(wv, x, compute_dtype), hkv)
     pos = (positions if positions is not None
            else torch.arange(s, device=x.device))
     q = apply_rope(q, pos, cfg.rope_theta)
@@ -172,18 +219,23 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: AttnConfig, *, is_global: bool,
     window = None if is_global else cfg.window
     chunk = None if is_global else cfg.chunk
     if attn_impl == "kernel":
-        o = flash_attention(q[:, :cfg.num_heads], k, v, causal=causal,
-                            window=window, chunk=chunk)
-        if hq > cfg.num_heads:
-            o = torch.cat([o, o.new_zeros((b, hq - cfg.num_heads) +
-                                          o.shape[2:])], dim=1)
+        heads = _kernel_heads(q, k, v, cfg, ctx)
+        if heads is None:
+            o = q.new_zeros(q.shape)
+        else:
+            o = flash_attention(*heads, causal=causal, window=window,
+                                chunk=chunk)
+            if o.shape[1] < hq:
+                o = torch.cat([o, o.new_zeros((b, hq - o.shape[1]) +
+                                              o.shape[2:])], dim=1)
     else:
         if hq != hkv:
-            k, v = _gather_kv_for_local_q(k, v, cfg, hq)
+            k, v = _gather_kv_for_local_q(k, v, cfg, hq, ctx)
         o = blockwise_attention(q, k, v, causal=causal, window=window,
                                 chunk=chunk, block_q=block_q, block_k=block_k,
                                 causal_skip=causal_skip)
-    return dense(p["wo"], _merge_heads(o), compute_dtype)
+    y = dense(p["wo"], _merge_heads(o), compute_dtype)
+    return ctx.psum(y) if _needs_psum(p, cfg) else y
 
 
 def decode_attention(q1: torch.Tensor, k_cache: torch.Tensor,
@@ -216,39 +268,93 @@ def decode_attention(q1: torch.Tensor, k_cache: torch.Tensor,
 
 
 def attn_decode(p: dict, x1: torch.Tensor, cfg: AttnConfig, cache: dict, *,
-                is_global: bool, pos: int,
+                is_global: bool, pos: int, ctx: ParallelCtx = SINGLE,
                 compute_dtype: torch.dtype = torch.bfloat16,
                 cache_len_global: int | None = None) -> tuple:
     """One-token decode against a contiguous rolling cache
-    ``{"k", "v"}: (B,Hkv,C,D)``, written in place at slot ``pos mod C``
-    (the reference donates the cache and returns the updated one; the port
-    updates the same tensors and returns them).  A cache shorter than
-    ``cache_len_global`` is sequence-sharded over the model axis, which is
-    not ported."""
+    ``{"k", "v"}: (B,Hkv,C_local,D)``, written in place at slot ``pos mod
+    C`` (the reference donates the cache and returns the updated one; the
+    port updates the same tensors and returns them).
+
+    When ``C_local < cache_len_global`` the cache is *sequence-sharded*
+    over the model axis: rank ``r`` holds slots ``[r*C_local,
+    (r+1)*C_local)``; only the owner of slot ``pos mod C`` writes it, each
+    rank scores its slots, and the softmax combines with a ``pmax`` of the
+    partial maxima and a ``psum`` each of the numerator and denominator.
+    The partial statistics are taken for every query head: under
+    tensor-parallel ``wq`` the ranks' heads are first gathered over the
+    model axis, and each rank keeps its own heads of the combined output.
+    (The reference combines the ranks' *local* heads index by index, which
+    pairs global head ``j`` with head ``hq_local + j``; the two agree where
+    every rank past the first holds only padded heads, whose ``wo`` rows
+    are zero.)"""
     hq = p["wq"]["w"].shape[1] // cfg.head_dim
     hkv = p["wk"]["w"].shape[1] // cfg.head_dim
-    c_local = cache["k"].shape[2]
-    if c_local < (cache_len_global or c_local):
-        raise NotImplementedError(
-            "sequence-sharded decode needs the model axis (the "
-            "tensor-parallel slice)")
     q = _split_heads(dense(p["wq"], x1, compute_dtype), hq)       # (B,Hq,1,D)
     k1 = _split_heads(dense(p["wk"], x1, compute_dtype), hkv)
     v1 = _split_heads(dense(p["wv"], x1, compute_dtype), hkv)
     pos1 = torch.full((1,), pos, device=x1.device)
     q = apply_rope(q, pos1, cfg.rope_theta)
     k1 = apply_rope(k1, pos1, cfg.rope_theta)
-    slot = pos % c_local
-    cache["k"][:, :, slot] = k1[:, :, 0].to(cache["k"].dtype)
-    cache["v"][:, :, slot] = v1[:, :, 0].to(cache["v"].dtype)
-    kc, vc = cache["k"], cache["v"]
-    if hq != hkv:
-        kc, vc = _gather_kv_for_local_q(kc, vc, cfg, hq)
+    c_local = cache["k"].shape[2]
+    c_total = cache_len_global or c_local
     window = None if is_global else cfg.window
     chunk = None if is_global else cfg.chunk
-    o = decode_attention(q, kc, vc, pos, window=window, chunk=chunk,
-                         rolling=True)
-    return dense(p["wo"], _merge_heads(o), compute_dtype), cache
+    if c_local == c_total:
+        slot = pos % c_local
+        cache["k"][:, :, slot] = k1[:, :, 0].to(cache["k"].dtype)
+        cache["v"][:, :, slot] = v1[:, :, 0].to(cache["v"].dtype)
+        kc, vc = cache["k"], cache["v"]
+        if hq != hkv:
+            kc, vc = _gather_kv_for_local_q(kc, vc, cfg, hq, ctx)
+        o = decode_attention(q, kc, vc, pos, window=window, chunk=chunk,
+                             rolling=True)
+    else:
+        o = _seq_sharded_decode(q, k1, v1, cache, cfg, pos, c_total, ctx,
+                                window=window, chunk=chunk)
+    y = dense(p["wo"], _merge_heads(o), compute_dtype)
+    return (ctx.psum(y) if _needs_psum(p, cfg) else y), cache
+
+
+def _seq_sharded_decode(q, k1, v1, cache: dict, cfg: AttnConfig, pos: int,
+                        c_total: int, ctx: ParallelCtx, *,
+                        window: int | None, chunk: int | None):
+    """The sequence-sharded branch of :func:`attn_decode`."""
+    r, c_local = ctx.model_index(), cache["k"].shape[2]
+    if c_local * ctx.model_size() != c_total:
+        raise ValueError(f"a cache of {c_local} slots a rank over "
+                         f"{ctx.model_size()} ranks is not one of "
+                         f"{c_total}")
+    ls = pos % c_total - r * c_local
+    if 0 <= ls < c_local:                     # the owner writes the slot
+        cache["k"][:, :, ls] = k1[:, :, 0].to(cache["k"].dtype)
+        cache["v"][:, :, ls] = v1[:, :, 0].to(cache["v"].dtype)
+    hq = q.shape[1]
+    sharded_q = hq < padded_heads(cfg.num_heads)
+    if sharded_q:                             # every rank scores all heads
+        q = ctx.gather_replicated(q.transpose(0, 1)).transpose(0, 1)
+    idx = _kv_index(cfg, 0, q.shape[1], q.device)
+    kc = cache["k"].index_select(1, idx)
+    vc = cache["v"].index_select(1, idx)
+    dev = q.device
+    slot_g = r * c_local + torch.arange(c_local, device=dev)
+    k_pos = pos - torch.remainder(pos - slot_g, c_total)
+    valid = (k_pos <= pos) & (k_pos >= 0)
+    if window is not None:
+        valid &= k_pos > pos - window
+    if chunk is not None:
+        valid &= (k_pos // chunk) == (pos // chunk)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float() / math.sqrt(cfg.head_dim),
+                     kc.float())
+    s = torch.where(valid, s, NEG_INF)
+    m = ctx.pmax(s.amax(dim=-1, keepdim=True))
+    e = torch.exp(s - m)
+    num = ctx.psum(torch.einsum("bhqk,bhkd->bhqd", e, vc.float()))
+    den = ctx.psum(e.sum(dim=-1, keepdim=True))
+    o = (num / torch.clamp(den, min=1e-30)).to(q.dtype)
+    if sharded_q:
+        o = o[:, r * hq:(r + 1) * hq]
+    return o
 
 
 def init_cache(cfg: AttnConfig, batch: int, seq_len: int, *, is_global: bool,

@@ -109,12 +109,18 @@ def glu_mlp_init(generator, d: int, f: int, *,
 
 
 def glu_mlp(p: dict, x: torch.Tensor, act: str,
-            compute_dtype: torch.dtype) -> torch.Tensor:
-    """Gated MLP on one rank (the tensor-parallel reduction arrives with
-    the communicator slice)."""
+            compute_dtype: torch.dtype, ctx=None,
+            global_ff: int | None = None) -> torch.Tensor:
+    """Column-parallel gate/up, row-parallel down: ``ctx.psum`` completes
+    the output when the ff dimension of ``w_down`` is a local shard of
+    ``global_ff``."""
     g = dense(p["w_gate"], x, compute_dtype)
     u = dense(p["w_up"], x, compute_dtype)
-    return dense(p["w_down"], activation(act)(g) * u, compute_dtype)
+    y = dense(p["w_down"], activation(act)(g) * u, compute_dtype)
+    if ctx is not None and global_ff is not None \
+            and p["w_down"]["w"].shape[0] < global_ff:
+        y = ctx.psum(y)
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -128,15 +134,27 @@ def embed_init(generator, vocab: int, d: int, *,
     return {"table": trunc_normal(generator, (vocab, d), 0.02, dtype, device)}
 
 
-def embed(p: dict, tokens: torch.Tensor,
-          compute_dtype: torch.dtype) -> torch.Tensor:
-    """Row lookup in the full (unsharded) table."""
-    return p["table"].to(compute_dtype)[tokens]
+def embed(p: dict, tokens: torch.Tensor, compute_dtype: torch.dtype,
+          ctx=None, global_vocab: int | None = None) -> torch.Tensor:
+    """Row lookup.  A table that is this rank's vocab shard (fewer rows
+    than ``global_vocab``) is vocab-parallel: the rows of other shards read
+    zeros and ``ctx.psum`` adds the ranks' lookups."""
+    table = p["table"].to(compute_dtype)
+    v_local = table.shape[0]
+    if global_vocab is None or v_local == global_vocab:
+        return table[tokens]
+    idx = tokens - ctx.model_index() * v_local
+    valid = (idx >= 0) & (idx < v_local)
+    out = table[idx.clamp(0, v_local - 1)]
+    out = torch.where(valid[..., None], out, torch.zeros((), dtype=out.dtype,
+                                                         device=out.device))
+    return ctx.psum(out)
 
 
 def unembed(p: dict, x: torch.Tensor,
             compute_dtype: torch.dtype) -> torch.Tensor:
-    """Tied unembedding: logits over the whole vocabulary."""
+    """Tied unembedding: logits over the table's rows (this rank's vocab
+    shard under tensor parallelism)."""
     return x.to(compute_dtype) @ p["table"].to(compute_dtype).T
 
 
@@ -146,12 +164,28 @@ def unembed(p: dict, x: torch.Tensor,
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
-                 mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Token-mean cross entropy in fp32 over the full vocabulary (the
-    vocab-parallel form arrives with tensor parallelism)."""
+                 mask: torch.Tensor | None = None, ctx=None,
+                 global_vocab: int | None = None) -> torch.Tensor:
+    """Token-mean cross entropy in fp32.  ``logits`` may be this rank's
+    vocab shard (B, S, V_local): with ``ctx`` and ``global_vocab`` the
+    reduction is vocab-parallel (a shared max, detached as the reference's
+    ``stop_gradient``, then a psum of the exp-sum and one of the gold
+    logit)."""
     lf = logits.float()
-    logz = torch.logsumexp(lf, dim=-1)
-    gold = torch.take_along_dim(lf, labels.long()[..., None], dim=-1)[..., 0]
+    labels = labels.long()
+    v_local = lf.shape[-1]
+    if ctx is None or global_vocab is None or v_local == global_vocab:
+        logz = torch.logsumexp(lf, dim=-1)
+        gold = torch.take_along_dim(lf, labels[..., None], dim=-1)[..., 0]
+    else:
+        m = ctx.pmax(lf.detach().amax(dim=-1))
+        se = ctx.psum(torch.exp(lf - m[..., None]).sum(dim=-1))
+        logz = torch.log(se) + m
+        idx = labels - ctx.model_index() * v_local
+        valid = (idx >= 0) & (idx < v_local)
+        g = torch.take_along_dim(lf, idx.clamp(0, v_local - 1)[..., None],
+                                 dim=-1)[..., 0]
+        gold = ctx.psum(torch.where(valid, g, torch.zeros((), device=g.device)))
     nll = logz - gold
     if mask is None:
         return nll.mean()

@@ -15,6 +15,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
+from repro_torch.models.parallel import SINGLE, ParallelCtx
 
 VOCAB_PAD_TO = 128
 
@@ -48,21 +49,33 @@ class Model:
                              f"parameters are made on {dev}")
         return transformer.init_params(generator, self.cfg, dev)
 
+    def param_specs(self, mesh):
+        """The ``tp``-policy spec tree of the parameters on ``mesh`` (the
+        data axes are realised by the step's flat shards, never by the
+        parameter specs, as in the reference)."""
+        from repro_torch.sharding.rules import param_specs
+
+        tree = transformer.init_params(None, self.cfg, torch.device("meta"))
+        return param_specs(tree, self.cfg.with_(sharding="tp"), mesh)
+
     def loss_fn(self, params: dict, batch: dict, *,
-                causal_skip: bool = False,
+                ctx: ParallelCtx = SINGLE, causal_skip: bool = False,
                 block_resolver=None) -> torch.Tensor:
         """Token-mean cross entropy of ``batch`` (the reference's
-        ``Model.loss_fn`` on one data-parallel rank); ``block_resolver``
-        gathers FSDP blocks (:func:`transformer.forward`)."""
-        return transformer.loss_fn(params, batch, self.cfg,
+        ``Model.loss_fn`` on one rank of the mesh ``ctx`` describes);
+        ``block_resolver`` gathers FSDP blocks
+        (:func:`transformer.forward`)."""
+        return transformer.loss_fn(params, batch, self.cfg, ctx=ctx,
                                    causal_skip=causal_skip,
                                    block_resolver=block_resolver)
 
     def forward(self, params: dict, batch: dict, *,
-                causal_skip: bool = False, attn_impl: str = "blockwise",
+                ctx: ParallelCtx = SINGLE, causal_skip: bool = False,
+                attn_impl: str = "blockwise",
                 block_resolver=None) -> torch.Tensor:
+        """Logits over this rank's vocab shard (all of it on one rank)."""
         return transformer.forward(params, batch["tokens"], self.cfg,
-                                   causal_skip=causal_skip,
+                                   ctx=ctx, causal_skip=causal_skip,
                                    attn_impl=attn_impl,
                                    block_resolver=block_resolver)
 
@@ -74,10 +87,11 @@ class Model:
                                              device=resolve_device(device))
 
     def decode_step(self, params: dict, token: torch.Tensor, state: list,
-                    pos: int, *, seq_len: int | None = None,
+                    pos: int, *, ctx: ParallelCtx = SINGLE,
+                    seq_len: int | None = None,
                     block_resolver=None) -> tuple[torch.Tensor, list]:
         return transformer.decode_step(params, token, state, pos, self.cfg,
-                                       seq_len=seq_len,
+                                       ctx=ctx, seq_len=seq_len,
                                        block_resolver=block_resolver)
 
     def param_count(self) -> int:

@@ -1,12 +1,27 @@
 """ParallelCtx: the collectives model and step code call explicitly.
 
-Port of the data-parallel half of ``repro.models.parallel``.  In the
-reference the whole step runs inside a fully manual ``shard_map`` and model
-code calls ``ctx.psum`` after row-parallel contractions; the port has no
-tensor parallelism yet, so every model-axis collective is the identity and
-only the data-axis helpers move data: ``pmean_data`` is one
-``dist.all_reduce`` over the data group, through the communicator's
-recording wrapper.  ``ParallelCtx()`` is the single-rank context.
+Port of ``repro.models.parallel``.  In the reference the whole step runs
+inside a fully manual ``shard_map``: model code sees its local weight
+shards and calls ``ctx.psum`` after row-parallel contractions
+(Megatron-style tensor parallelism, every collective visible).  Here the
+model axis is a :class:`~repro_torch.core.p2p.RingAxis` over the ranks
+that share this rank's data coordinates (its own process group, apart from
+the communicator's rails), and each collective with a custom gradient is a
+``torch.autograd.Function``:
+
+* :meth:`ParallelCtx.psum` — all-reduce forward, identity backward (the
+  output is consumed as replicated);
+* :meth:`ParallelCtx.fan_out` — identity forward, all-reduce backward
+  (Megatron's ``f``, before column-parallel branches);
+* :meth:`ParallelCtx.gather_replicated` — tiled all-gather forward on the
+  leading dimension, this rank's slice of the cotangent backward;
+* :func:`sum_grads_over_model` — identity forward, all-reduce backward, on
+  the weights a rank uses in a rank-dependent way (the kv projections
+  under the GQA head gather).
+
+The data axes are one joint ring (``data``): ``psum_data`` is one
+``dist.all_reduce`` over it.  ``ParallelCtx()`` is the single-rank
+context: every collective is the identity.
 """
 
 from __future__ import annotations
@@ -15,27 +30,84 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.core.p2p import RingAxis
+from repro_torch import tree as tree_util
+from repro_torch.core.p2p import CommRecord, RingAxis, joint_ring
+from repro_torch.core.topology import RankMesh
+from repro_torch.sharding.rules import MODEL_AXIS
+
+
+class _PsumIdBwd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return axis.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _PsumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.axis.all_reduce(grad.contiguous()), None
+
+
+class _GatherIdBwd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis, ctx.n = axis, x.shape[0]
+        full = axis.all_gather(x.contiguous())
+        return full.view((axis.size * x.shape[0],) + tuple(x.shape[1:]))
+
+    @staticmethod
+    def backward(ctx, grad):
+        i = ctx.axis.index
+        return grad[i * ctx.n:(i + 1) * ctx.n], None
 
 
 @dataclass(frozen=True)
 class ParallelCtx:
     data: RingAxis | None = None     # joint group of the data axes
+    model: RingAxis | None = None    # the model axis (tensor parallelism)
 
-    def psum(self, x):
-        return x
+    # -- model-axis collectives ------------------------------------------
 
-    def fan_out(self, x):
-        return x
+    def _tp(self) -> bool:
+        return self.model is not None and self.model.size > 1
 
-    def pmax(self, x):
-        return x
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """Row-parallel completion sum, replicated over the model axis;
+        the backward passes the (replicated) cotangent through."""
+        return _PsumIdBwd.apply(x, self.model) if self._tp() else x
+
+    def fan_out(self, x: torch.Tensor) -> torch.Tensor:
+        """Identity on a replicated activation about to feed rank-sharded
+        branches; the backward sums their cotangents over the model axis.
+        The dual of :meth:`psum`."""
+        return _PsumGrad.apply(x, self.model) if self._tp() else x
+
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        """Maximum over the model axis (no gradient)."""
+        return self.model.all_reduce(x.detach(), op="max") if self._tp() \
+            else x
+
+    def gather_replicated(self, x: torch.Tensor) -> torch.Tensor:
+        """The ranks' blocks of ``x`` concatenated along dimension 0 in
+        model order; the backward returns this rank's slice."""
+        return _GatherIdBwd.apply(x, self.model) if self._tp() else x
 
     def model_size(self) -> int:
-        return 1
+        return self.model.size if self.model is not None else 1
 
     def model_index(self) -> int:
-        return 0
+        return self.model.index if self.model is not None else 0
+
+    # -- data-axis helpers -----------------------------------------------
 
     def dp_world(self) -> int:
         return self.data.size if self.data is not None else 1
@@ -50,3 +122,28 @@ class ParallelCtx:
 
 
 SINGLE = ParallelCtx()
+
+
+def make_ctx(mesh: RankMesh, data: RingAxis | None = None,
+             record: CommRecord | None = None) -> ParallelCtx:
+    """The models' explicit-collective context on ``mesh``: ``data`` (the
+    communicator's joint ring of the data axes) and, when the mesh has a
+    model axis above 1, a ring over it on process groups of its own,
+    recording into ``record``.  Creating the groups is collective: every
+    rank calls this in the same order."""
+    model = None
+    if mesh.sizes().get(MODEL_AXIS, 1) > 1:
+        import torch.distributed as dist
+
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        model = joint_ring(mesh, rank, (MODEL_AXIS,),
+                           record if record is not None else CommRecord())
+    return ParallelCtx(data=data, model=model)
+
+
+def sum_grads_over_model(tree, ctx: ParallelCtx):
+    """Identity on values; each leaf's cotangent is summed over the model
+    axis (weights replicated over it and used differently on each rank)."""
+    if not ctx._tp():
+        return tree
+    return tree_util.tree_map(lambda t: _PsumGrad.apply(t, ctx.model), tree)

@@ -25,6 +25,7 @@ from repro_torch.models.attention import (attn_apply, attn_decode,
 from repro_torch.models.common import (dense, dense_init, embed, embed_init,
                                        glu_mlp, glu_mlp_init, rmsnorm,
                                        rmsnorm_init, softmax_xent, unembed)
+from repro_torch.models.parallel import SINGLE, ParallelCtx
 
 
 def _require_dense(cfg: ModelConfig) -> None:
@@ -66,18 +67,19 @@ def init_params(generator, cfg: ModelConfig, device=None) -> dict:
 
 def block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, i: int, *,
                 positions: torch.Tensor, causal_skip: bool,
-                attn_impl: str = "blockwise") -> torch.Tensor:
+                attn_impl: str = "blockwise",
+                ctx: ParallelCtx = SINGLE) -> torch.Tensor:
     cdt = getattr(torch, cfg.dtype)
-    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    h = ctx.fan_out(rmsnorm(p["ln1"], x, cfg.norm_eps))
     mix = attn_apply(p["attn"], h, cfg.attn,
                      is_global=cfg.layer_kind(i).get("attn_global", True),
-                     positions=positions, compute_dtype=cdt,
+                     ctx=ctx, positions=positions, compute_dtype=cdt,
                      causal_skip=causal_skip, attn_impl=attn_impl)
     x = x + mix.to(x.dtype)
     if "mlp" not in p:
         return x
-    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    y = glu_mlp(p["mlp"], h, cfg.act, cdt)
+    h = ctx.fan_out(rmsnorm(p["ln2"], x, cfg.norm_eps))
+    y = glu_mlp(p["mlp"], h, cfg.act, cdt, ctx, cfg.d_ff)
     return x + y.to(x.dtype)
 
 
@@ -88,42 +90,49 @@ def _resolved_block_apply(raw, x: torch.Tensor, cfg: ModelConfig, i: int, *,
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
-            causal_skip: bool = False, attn_impl: str = "blockwise",
+            ctx: ParallelCtx = SINGLE, causal_skip: bool = False,
+            attn_impl: str = "blockwise",
             block_resolver=None) -> torch.Tensor:
-    """tokens: (B, S) -> logits (B, S, V) in the compute dtype.
+    """tokens: (B, S) -> logits (B, S, V_local) in the compute dtype: the
+    whole vocabulary on one rank, this rank's vocab shard under tensor
+    parallelism (``ctx``, the parameters this rank's shards).
     ``attn_impl="kernel"`` runs every layer's attention through the
     ``flash_attn`` kernel (the serving prefill; no gradient).
     ``block_resolver`` (FSDP) turns a block's shard list into its tree, and
     is called inside the checkpointed function."""
     _require_dense(cfg)
     cdt = getattr(torch, cfg.dtype)
-    x = embed(params["embed"], tokens.long(), cdt)
+    x = embed(params["embed"], tokens.long(), cdt, ctx, cfg.vocab_size)
     positions = torch.arange(x.shape[1], device=x.device)
     kw = dict(positions=positions, causal_skip=causal_skip,
-              attn_impl=attn_impl, block_resolver=block_resolver)
+              attn_impl=attn_impl, block_resolver=block_resolver, ctx=ctx)
     for i, raw in enumerate(params["blocks"]):
         if cfg.remat == "layer" and torch.is_grad_enabled():
             x = checkpoint(_resolved_block_apply, raw, x, cfg, i, **kw,
                            use_reentrant=False)
         else:
             x = _resolved_block_apply(raw, x, cfg, i, **kw)
-    return _logits(params, x, cfg)
+    return _logits(params, ctx.fan_out(
+        rmsnorm(params["final_norm"], x, cfg.norm_eps)), cfg)
 
 
 def _logits(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The normed activations -> logits over the table's vocab rows."""
     cdt = getattr(torch, cfg.dtype)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
         return unembed(params["embed"], x, cdt)
     return dense(params["lm_head"], x, cdt)
 
 
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *,
-            causal_skip: bool = False, block_resolver=None) -> torch.Tensor:
-    """batch: {"tokens": (B,S), "labels": (B,S), optional "mask"}."""
-    logits = forward(params, batch["tokens"], cfg, causal_skip=causal_skip,
-                     block_resolver=block_resolver)
-    return softmax_xent(logits, batch["labels"], batch.get("mask"))
+            ctx: ParallelCtx = SINGLE, causal_skip: bool = False,
+            block_resolver=None) -> torch.Tensor:
+    """batch: {"tokens": (B,S), "labels": (B,S), optional "mask"}; the
+    cross entropy is vocab-parallel under tensor parallelism."""
+    logits = forward(params, batch["tokens"], cfg, ctx=ctx,
+                     causal_skip=causal_skip, block_resolver=block_resolver)
+    return softmax_xent(logits, batch["labels"], batch.get("mask"), ctx,
+                        cfg.vocab_size)
 
 
 def _is_global(cfg: ModelConfig, i: int) -> bool:
@@ -153,23 +162,28 @@ def cache_len(cfg: ModelConfig, i: int, seq_len: int) -> int:
 
 
 def decode_step(params: dict, token: torch.Tensor, state: list, pos: int,
-                cfg: ModelConfig, *, seq_len: int | None = None,
+                cfg: ModelConfig, *, ctx: ParallelCtx = SINGLE,
+                seq_len: int | None = None,
                 block_resolver=None) -> tuple[torch.Tensor, list]:
-    """token: (B,) ints at position ``pos``; returns (logits (B, V), state)
-    with every layer's cache written in place."""
+    """token: (B,) ints at position ``pos``; returns (logits (B, V_local),
+    state) with every layer's cache written in place (a sequence-sharded
+    cache holds this rank's slots)."""
     _require_dense(cfg)
     cdt = getattr(torch, cfg.dtype)
-    x = embed(params["embed"], token.long()[:, None], cdt)
+    x = embed(params["embed"], token.long()[:, None], cdt, ctx,
+              cfg.vocab_size)
     for i, raw in enumerate(params["blocks"]):
         bp = block_resolver("blocks", i, raw) if block_resolver else raw
         h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
         clen = cache_len(cfg, i, seq_len) if seq_len else None
         mix, state[i]["kv"] = attn_decode(
             bp["attn"], h, cfg.attn, state[i]["kv"],
-            is_global=_is_global(cfg, i), pos=pos, compute_dtype=cdt,
-            cache_len_global=clen)
+            is_global=_is_global(cfg, i), pos=pos, ctx=ctx,
+            compute_dtype=cdt, cache_len_global=clen)
         x = x + mix.to(x.dtype)
         if "mlp" in bp:
             h = rmsnorm(bp["ln2"], x, cfg.norm_eps)
-            x = x + glu_mlp(bp["mlp"], h, cfg.act, cdt).to(x.dtype)
+            x = x + glu_mlp(bp["mlp"], h, cfg.act, cdt, ctx,
+                            cfg.d_ff).to(x.dtype)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _logits(params, x, cfg)[:, 0], state

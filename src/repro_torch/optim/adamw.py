@@ -47,11 +47,30 @@ def init_opt_state_flat(shards) -> dict:
             "nu": [torch.zeros_like(s, dtype=torch.float32) for s in shards]}
 
 
-def global_grad_norm(grads) -> torch.Tensor:
-    """Global L2 norm of a replicated gradient tree (fp32).  Without tensor
-    parallelism every leaf is counted once on every rank."""
-    sq = sum(torch.sum(torch.square(g.float())) for g in tree_util.leaves(grads))
-    return torch.sqrt(sq)
+def global_grad_norm(grads, specs=None, ctx=None) -> torch.Tensor:
+    """Global L2 norm of a gradient tree (fp32) with model-axis-aware
+    accounting: on a model axis above 1 (``ctx``), the sums of squares of
+    leaves whose spec (``specs``, the congruent spec tree; see
+    :mod:`repro_torch.sharding.rules`) splits over the model axis are
+    summed over it (``ctx.psum``), replicated leaves are counted once.  On
+    one model rank every leaf is summed in tree order (the same norm; the
+    reference keeps the sharded and replicated sums apart there too, which
+    moves the last bit)."""
+    leaves = tree_util.leaves(grads)
+    if specs is None or ctx is None or ctx.model_size() == 1:
+        return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in leaves))
+    from repro_torch.sharding.rules import is_model_sharded, spec_leaves
+
+    flags = [is_model_sharded(s) for s in spec_leaves(specs)]
+    if len(flags) != len(leaves):
+        raise ValueError("gradients and specs differ in structure")
+    zero = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    sharded = sum((torch.sum(torch.square(g.float()))
+                   for g, f in zip(leaves, flags) if f), zero)
+    local = sum((torch.sum(torch.square(g.float()))
+                 for g, f in zip(leaves, flags) if not f), zero)
+    return torch.sqrt(ctx.psum(sharded) + local)
 
 
 def clip_factor(gnorm: torch.Tensor, max_norm: float) -> torch.Tensor:

@@ -16,9 +16,8 @@ the FT tests via simulated failures.
   self-evident — it is running); ``prune_stale`` garbage-collects beat
   files of hosts long gone so a drained host doesn't alarm forever.
 * ``elastic_remesh`` — rebuilds the largest usable mesh from the
-  surviving rank count as a :class:`~repro_torch.core.topology.RankMesh`
-  (the port's meshes are data-only: a model axis above 1 raises);
-  training resumes from the latest committed checkpoint, whose global
+  surviving rank count as a ``(data, model)``
+  :class:`~repro_torch.core.topology.RankMesh`; training resumes from the latest committed checkpoint, whose global
   arrays each rank slices to its own shard on restore.
 """
 
@@ -202,18 +201,9 @@ def elastic_shape(n_devices: int, *, model_parallel: int = 16,
 
 def elastic_remesh(n_devices: int, *, model_parallel: int = 16,
                    want_pods: int = 1) -> RankMesh:
-    """The mesh of :func:`elastic_shape` as a data-only
-    :class:`RankMesh` (``("data",)``, or ``("pod", "data")``); the model
-    axis of size 1 is dropped.  A model axis above 1 raises: tensor
-    parallelism is not ported (ROADMAP Queue 1 #6)."""
+    """The mesh of :func:`elastic_shape` as a :class:`RankMesh`:
+    ``("data", "model")``, or ``("pod", "data", "model")``, the reference's
+    ``make_mesh(shape, names)``."""
     shape, names = elastic_shape(n_devices, model_parallel=model_parallel,
                                  want_pods=want_pods)
-    sizes = dict(zip(names, shape))
-    if sizes["model"] > 1:
-        raise NotImplementedError(
-            f"elastic_remesh: {n_devices} devices give a model axis of "
-            f"{sizes['model']}; the port's meshes are data-only until "
-            f"tensor parallelism is ported (ROADMAP Queue 1 #6) — pass "
-            f"model_parallel=1")
-    kept = tuple(n for n in names if n != "model")
-    return RankMesh(kept, tuple(sizes[n] for n in kept))
+    return RankMesh(names, shape)

@@ -15,12 +15,21 @@ place, which stands for the reference's donation of the state.
   bf16 at every call and each block as the model reaches it.  Decoder-only
   stacks only, as in the reference.
 
-A step built over a data mesh of several ranks (``mesh``; one rank by
+A step built over a mesh of several ranks (``mesh``; one rank by
 default) takes the global batch and computes this rank's rows of it, as
 the reference shards the batch over ``("pod", "data")`` when they divide
 it, else over ``data`` alone, else not at all; the decode state holds this
 rank's rows (:func:`local_batch`).  Under ``gathered`` every rank must
 call the step together: the gathers are collectives.
+
+On a mesh with a model axis above 1 (resident weights only; ``gathered``
+there is refused, ROADMAP Queue 1 #6b) the step runs tensor-parallel: the
+parameters are this rank's blocks (:func:`resident_params`), the decode
+state is laid out by ``decode_state_specs`` (:func:`init_decode_state`:
+caches of 8192 slots or more are sequence-sharded over the model axis),
+and the logits are this rank's vocab shard; :func:`gather_vocab` gathers
+them (``step.ctx``, the step's context).  Building the step makes the
+model axis's process groups, and every rank calls it together.
 """
 
 from __future__ import annotations
@@ -33,9 +42,14 @@ import torch.distributed as dist
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.topology import RankMesh
 from repro_torch.device import resolve_device
+from repro_torch.models import transformer
 from repro_torch.models.model_api import Model
+from repro_torch.models.parallel import ParallelCtx, make_ctx
 from repro_torch.runtime.train_step import (FsdpPlan, TrainStepConfig,
-                                            data_mesh)
+                                            data_mesh, model_size_of,
+                                            require_data_only)
+from repro_torch.sharding.rules import (decode_state_specs, local_shapes,
+                                        local_shard, map_specs)
 
 WEIGHT_MODES = ("resident", "gathered")
 
@@ -83,14 +97,59 @@ def local_batch(shape_cfg: ShapeConfig, mesh: RankMesh | None = None) -> int:
     return rows.stop - rows.start
 
 
+def resident_params(model: Model, params, mesh: RankMesh | None = None):
+    """This rank's blocks of a full parameter tree for resident serving on
+    ``mesh`` (the tree itself without a model axis above 1)."""
+    mesh = mesh or data_mesh(1)
+    if model_size_of(mesh) == 1:
+        return params
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    return local_shard(params, model.param_specs(mesh), mesh, rank)
+
+
+def init_decode_state(model: Model, shape_cfg: ShapeConfig,
+                      mesh: RankMesh | None = None, *,
+                      cache_dtype: torch.dtype = torch.bfloat16,
+                      device: str | torch.device = "cuda") -> list:
+    """Zero decode state of this rank for ``shape_cfg`` (global batch and
+    cache length) on ``mesh``: its rows, and on a model axis above 1 its
+    slots of every sequence-sharded cache (``decode_state_specs``)."""
+    mesh = mesh or data_mesh(1)
+    dev = resolve_device(device)
+    full = transformer.init_decode_state(model.cfg, shape_cfg.global_batch,
+                                         shape_cfg.seq_len,
+                                         cache_dtype=cache_dtype,
+                                         device=torch.device("meta"))
+    specs = decode_state_specs(full, model.cfg, mesh, shape_cfg.global_batch)
+    if model_size_of(mesh) == 1:
+        # the data-parallel rows, as build_decode_step serves them
+        b = local_batch(shape_cfg, mesh)
+        return transformer.init_decode_state(model.cfg, b, shape_cfg.seq_len,
+                                             cache_dtype=cache_dtype,
+                                             device=dev)
+    return map_specs(lambda leaf, shape: torch.zeros(
+        shape, dtype=leaf.dtype, device=dev), full,
+        local_shapes(full, specs, mesh))
+
+
+def gather_vocab(ctx: ParallelCtx, logits: torch.Tensor) -> torch.Tensor:
+    """The ranks' vocab shards of ``logits`` (last dimension) gathered into
+    the whole vocabulary, on every rank (the identity at one rank)."""
+    if ctx.model_size() == 1:
+        return logits
+    t = logits.movedim(-1, 0)
+    return ctx.gather_replicated(t).movedim(0, -1)
+
+
 def _weights(model: Model, mesh: RankMesh, weight_mode: str, what: str):
     """A function of the step's ``params`` that returns the tree and the
     keyword arguments the model is called with: the parameters as they are
-    (``resident``), or the gathered roots and the block resolver of an
-    :class:`FsdpPlan` (``gathered``)."""
+    (``resident``; this rank's blocks on a model axis), or the gathered
+    roots and the block resolver of an :class:`FsdpPlan` (``gathered``)."""
     _check_weight_mode(weight_mode)
     if weight_mode == "resident":
         return lambda params: (params, {})
+    require_data_only(mesh, f"gathered {what} (weight_mode='gathered')")
     _require_decoder_only(model.cfg, what)
     plan = FsdpPlan(model, mesh, TrainStepConfig(dp_mode="fsdp"))
 
@@ -107,14 +166,17 @@ def build_prefill(model: Model, shape_cfg: ShapeConfig, *,
                   attn_impl: str = "kernel",
                   device: str | torch.device = "cuda",
                   mesh: RankMesh | None = None):
-    """Returns ``prefill(params, batch) -> logits (B, S, V)`` for batches
-    of ``shape_cfg``'s (global_batch, seq_len) tokens; ``B`` is this rank's
-    rows (all of them on one rank).  With ``attn_impl="kernel"`` every
+    """Returns ``prefill(params, batch) -> logits (B, S, V_local)`` for
+    batches of ``shape_cfg``'s (global_batch, seq_len) tokens; ``B`` is
+    this rank's rows (all of them on one rank), ``V_local`` its vocab shard
+    (all of it without a model axis).  With ``attn_impl="kernel"`` every
     layer's attention runs the ``flash_attn`` kernel (its plain version for
-    CPU tensors); ``"blockwise"`` runs the reference's blockwise loop."""
+    CPU tensors) on this rank's real heads; ``"blockwise"`` runs the
+    reference's blockwise loop."""
     dev = resolve_device(device)
     mesh = mesh or data_mesh(1)
     weights = _weights(model, mesh, weight_mode, "prefill")
+    ctx = make_ctx(mesh)
     want = (shape_cfg.global_batch, shape_cfg.seq_len)
     rows = _batch_rows(mesh, shape_cfg.global_batch)
 
@@ -125,10 +187,11 @@ def build_prefill(model: Model, shape_cfg: ShapeConfig, *,
                              f"{tuple(tokens.shape)}")
         with torch.no_grad():
             tree, kw = weights(params)
-            return model.forward(tree, {"tokens": tokens[rows]},
+            return model.forward(tree, {"tokens": tokens[rows]}, ctx=ctx,
                                  causal_skip=causal_skip, attn_impl=attn_impl,
                                  **kw)
 
+    prefill.ctx = ctx
     return prefill
 
 
@@ -136,13 +199,15 @@ def build_decode_step(model: Model, shape_cfg: ShapeConfig, *,
                       weight_mode: str = "resident",
                       device: str | torch.device = "cuda",
                       mesh: RankMesh | None = None):
-    """Returns ``decode(params, token, state, pos) -> (logits (B, V),
-    state)`` for the ``shape_cfg.global_batch`` tokens ``token`` against
-    caches of ``shape_cfg.seq_len`` positions (``Model.init_decode_state``
-    of this rank's :func:`local_batch` rows, which ``B`` counts)."""
+    """Returns ``decode(params, token, state, pos) -> (logits (B,
+    V_local), state)`` for the ``shape_cfg.global_batch`` tokens ``token``
+    against caches of ``shape_cfg.seq_len`` positions (this rank's
+    :func:`init_decode_state`: its :func:`local_batch` rows, which ``B``
+    counts, and its slots of a sequence-sharded cache)."""
     dev = resolve_device(device)
     mesh = mesh or data_mesh(1)
     weights = _weights(model, mesh, weight_mode, "decode")
+    ctx = make_ctx(mesh)
     seq_len = shape_cfg.seq_len
     rows = _batch_rows(mesh, shape_cfg.global_batch)
 
@@ -151,6 +216,7 @@ def build_decode_step(model: Model, shape_cfg: ShapeConfig, *,
         with torch.no_grad():
             tree, kw = weights(params)
             return model.decode_step(tree, token[rows], state, int(pos),
-                                     seq_len=seq_len, **kw)
+                                     ctx=ctx, seq_len=seq_len, **kw)
 
+    decode.ctx = ctx
     return decode

@@ -1,8 +1,10 @@
 """Trainer: steps, metrics, checkpoint-restart, straggler accounting.
 
 Port of ``repro.runtime.train_loop``.  Data is stateless: step ``s`` trains
-on ``data.batch_at(s)``, of which this rank takes its rows, so a resumed
-run replays the same batches.
+on ``data.batch_at(s)``, of which this rank takes the rows of its data
+coordinate (the ranks of one model group take the same rows), so a resumed
+run replays the same batches.  A checkpoint on a model axis above 1 is
+refused (ROADMAP Queue 1 #6b).
 
 The fault-tolerance contract: every ``ckpt_every`` steps the full train
 state is saved (atomically, async; the sharded leaves gathered into global
@@ -34,7 +36,8 @@ from repro_torch.models.model_api import Model
 from repro_torch.obs import ObsConfig, make_obs
 from repro_torch.runtime.ft import StragglerMonitor
 from repro_torch.runtime.train_step import (TrainStep, TrainStepConfig,
-                                            init_train_state, shard_batch)
+                                            init_train_state,
+                                            require_data_only, shard_batch)
 
 
 @dataclass
@@ -58,6 +61,9 @@ class Trainer:
         self.log = log
         self.rank = rank
         self.world = mesh.size
+        if tcfg.ckpt_dir:
+            # the format gathers model-sharded leaves into global arrays
+            require_data_only(mesh, "a checkpoint (ckpt_dir)")
         self.obs = make_obs(tcfg.obs)
         self.monitor = StragglerMonitor(bus=self.obs.bus)
         self.step_fn = TrainStep(model, mesh, step_cfg, device=device)
@@ -112,8 +118,9 @@ class Trainer:
         t_total = time.perf_counter()
         for step in range(self.start_step, self.tcfg.steps):
             with obs.span("data", step=step):
-                batch = shard_batch(self.data.batch_at(step), self.rank,
-                                    self.world)
+                batch = shard_batch(self.data.batch_at(step),
+                                    self.step_fn.data_index,
+                                    self.step_fn.data_world)
             t0 = time.perf_counter()
             with obs.span("step", step=step):
                 with obs.span("dispatch", step=step):

@@ -14,7 +14,17 @@ transport, issuing each bucket at its :class:`CommSchedule` slot.
   decoupled weight decay.  The same wire volume as the all-reduce; the
   optimizer memory falls by the data world size.  The global gradient
   norm is the shards' weighted sum of squares, all-reduced once over data
-  (:func:`build_norm_weights`: the arena's page padding weighs 0).
+  and once over the model axis (:func:`build_norm_weights`: the arena's
+  page padding weighs 0, a model-replicated field ``1/model_size``).
+
+Tensor parallelism: over a ``("data", "model")`` mesh (``"pod"`` may lead)
+each rank holds its block of every parameter (:meth:`Model.param_specs`,
+:func:`~repro_torch.sharding.rules.local_shard`) and of the AdamW state,
+the model code calls the model-axis collectives of :func:`make_ctx`'s
+context (Megatron-style), and the communicator reduces over the data axes
+only: over the ranks that share this rank's model index, whose local
+shards have the same shapes.  ``replicated`` and ``zero1`` run on a model
+axis; ``fsdp`` on one is refused (ROADMAP Queue 1 #6b).
 
 With
 ``use_arena`` the gradients pack into the page-aligned
@@ -57,18 +67,20 @@ from repro_torch.comm.api import CommConfig, Communicator
 from repro_torch.comm.schedule import (SCHEDULE_POLICIES, CommSchedule,
                                        build_schedule)
 from repro_torch.core.bucketing import BucketPlan
-from repro_torch.core.p2p import RingAxis
+from repro_torch.core.p2p import CommRecord, RingAxis
 from repro_torch.core.topology import RankMesh
 from repro_torch.mem.arena import CommArena, QuantCommArena
 from repro_torch.mem.layout import (ArenaLayout, QuantArenaLayout, plan_arena,
                                     plan_quant_arena)
 from repro_torch.models.model_api import Model
-from repro_torch.models.parallel import ParallelCtx
+from repro_torch.models.parallel import ParallelCtx, make_ctx
 from repro_torch.models.transformer import init_params
 from repro_torch.optim import (OptimConfig, adamw_flat_update,
                                adamw_tree_update, clip_factor,
                                global_grad_norm, init_opt_state,
                                init_opt_state_flat, make_schedule)
+from repro_torch.sharding.rules import (MODEL_AXIS, is_model_sharded,
+                                        local_shard, spec_leaves)
 
 DP_MODES = ("replicated", "zero1", "fsdp")
 FSDP_GATHERS = ("native", "ring")
@@ -126,6 +138,18 @@ def data_mesh(world: int) -> RankMesh:
     return RankMesh(("data",), (world,))
 
 
+def model_size_of(mesh: RankMesh) -> int:
+    return mesh.sizes().get(MODEL_AXIS, 1)
+
+
+def require_data_only(mesh: RankMesh, what: str) -> None:
+    """Refuses ``what`` on a model axis above 1 (not ported yet)."""
+    if model_size_of(mesh) > 1:
+        raise NotImplementedError(
+            f"{what} on a model axis of {model_size_of(mesh)} is not ported "
+            f"yet (ROADMAP Queue 1 #6b); use a mesh whose model axis is 1")
+
+
 def shard_batch(batch: dict, index: int, world: int) -> dict:
     """This rank's rows of a global batch (the reference's ``P("data")``
     batch spec: rank ``r`` holds rows ``r*B/p .. (r+1)*B/p``)."""
@@ -144,12 +168,20 @@ def abstract_params(model: Model) -> dict:
     return init_params(None, model.cfg, torch.device("meta"))
 
 
-def build_norm_weights(plan: BucketPlan) -> list[torch.Tensor]:
-    """Per-bucket fp32 weight vectors of the zero1 gradient norm.  The
-    reference weighs a model-replicated field ``1/model_size`` so that its
-    sum over the model axis counts every parameter once; the port has no
-    model axis (``model_size`` 1), so every element weighs 1.0."""
-    return [torch.ones((n,), dtype=torch.float32) for n in plan.bucket_sizes]
+def build_norm_weights(plan: BucketPlan, specs_flat: Sequence | None = None,
+                       model_size: int = 1) -> list[torch.Tensor]:
+    """Per-bucket fp32 weight vectors of the zero1 gradient norm: 1.0 on
+    model-sharded fields, ``1/model_size`` elsewhere (``specs_flat``: each
+    leaf's spec in flatten order), so that the sum over the model axis
+    counts every parameter once."""
+    rep_w = 1.0 / max(model_size, 1)
+    weights = [torch.full((n,), rep_w, dtype=torch.float32)
+               for n in plan.bucket_sizes]
+    if specs_flat is not None:
+        for f in plan.fields:
+            if is_model_sharded(specs_flat[f.leaf]):
+                weights[f.bucket][f.offset:f.offset + f.size] = 1.0
+    return weights
 
 
 def build_span_norm_weights(layout: ArenaLayout | QuantArenaLayout,
@@ -188,26 +220,24 @@ def _slice_like_shard(w: torch.Tensor,
     return w[start:stop]
 
 
-def span_norm_ranges(layout: ArenaLayout | QuantArenaLayout,
-                     rings: Sequence[RingAxis]
-                     ) -> list[list[tuple[int, int]]]:
-    """Per span, the ranges of this rank's shard (shard-local) that hold a
-    bucket's payload: where the slice of :func:`build_span_norm_weights`'
-    vector is 1.0 (the port has no model axis), the page padding left out.
-    The zero1 norm sums the squares over these ranges, so that no weight
+def zero1_norm_ranges(weights: Sequence[torch.Tensor],
+                      rings: Sequence[RingAxis]) -> tuple[list, list]:
+    """Per zero1 shard, the runs of one value of its norm weight vector
+    (``weights``: :func:`build_norm_weights`, under the arena
+    :func:`build_span_norm_weights`) sliced like this rank's shard: the
+    shard-local ranges and their values, the runs of 0 (page padding) left
+    out.  The step sums the squares over these ranges, so that no weight
     vector lives beside the shards."""
-    out = []
-    for sp in layout.spans:
-        lo, hi = _owned_range(sp.size, rings)
-        ranges = []
-        for b in sp.buckets:
-            seg = layout.segment_of(b)
-            start = max(seg.offset - sp.offset, lo)
-            stop = min(seg.offset - sp.offset + seg.size, hi)
-            if start < stop:
-                ranges.append((start - lo, stop - lo))
-        out.append(ranges)
-    return out
+    all_ranges, all_values = [], []
+    for w in weights:
+        s = _slice_like_shard(w, rings)
+        cuts = (torch.nonzero(s[1:] != s[:-1]).flatten() + 1).tolist()
+        bounds = [0, *cuts, s.numel()]
+        runs = [(a, z, s[a].item()) for a, z in zip(bounds, bounds[1:])
+                if a < z and s[a] != 0]
+        all_ranges.append([(a, z) for a, z, _ in runs])
+        all_values.append([v for _, _, v in runs])
+    return all_ranges, all_values
 
 
 class FsdpPlan:
@@ -334,7 +364,7 @@ class TrainStep:
     every rank of the mesh builds its steps in the same order.  Under
     ``zero1`` it also holds the shard sizes of the optimizer state (one per
     bucket, or one per arena span) and, per shard, the ranges that count in
-    the gradient norm (:func:`span_norm_ranges`).  Under ``fsdp`` it holds
+    the gradient norm (:func:`zero1_norm_ranges`).  Under ``fsdp`` it holds
     the :class:`FsdpPlan` (:attr:`fsdp`), whose communicator is the step's.
 
     For checkpoints it holds :attr:`ranks` (this rank's place in the global
@@ -346,21 +376,27 @@ class TrainStep:
     def __init__(self, model: Model, mesh: RankMesh, cfg: TrainStepConfig,
                  *, device: torch.device):
         require_ported(cfg.dp_mode)
+        if cfg.dp_mode == "fsdp":
+            require_data_only(mesh, "dp_mode='fsdp'")
         self.model = model
+        self.mesh = mesh
         self.cfg = cfg
         self.device = device
+        self.model_size = model_size_of(mesh)
         self.lr_fn = make_schedule(cfg.optim.schedule,
                                    base_lr=cfg.optim.base_lr,
                                    warmup=cfg.optim.warmup,
                                    total=cfg.optim.total_steps)
         self.shard_sizes: list[int] = []
         self.norm_ranges: list[list[tuple[int, int]]] = []
+        self.norm_weights: list[list[float]] = []
         self.fsdp: FsdpPlan | None = None
         policy = cfg.schedule_policy
         if cfg.dp_mode == "fsdp":
             self.fsdp = FsdpPlan(model, mesh, cfg)
             self.comm = self.fsdp.comm
             self.ctx = ParallelCtx(data=self.comm.transport.rails[0].joint)
+            self.specs = None
             self.plan = None
             lay = self.fsdp.arena_layout
             self.arena = (None if lay is None else
@@ -372,8 +408,12 @@ class TrainStep:
             return
         self.comm = Communicator(mesh, cfg.comm_config(("pod", "data")))
         self.ranks = self._checkpoint_ranks()
-        self.ctx = ParallelCtx(data=self.comm.transport.rails[0].joint)
-        local = abstract_params(model)
+        # the model axis's own groups, made after the communicator's
+        self.model_record = CommRecord()
+        self.ctx = make_ctx(mesh, self.comm.transport.rails[0].joint,
+                            self.model_record)
+        self.specs = model.param_specs(mesh)
+        local = self.local_params(abstract_params(model))
         self.plan = self.comm.plan(local)
         self.arena = self.comm.arena(local) if cfg.use_arena else None
         self.schedule: CommSchedule = (
@@ -387,16 +427,42 @@ class TrainStep:
                     f"{self.comm.cfg.transport!r} has none (the ring "
                     f"transports do)")
             world = self.comm.world
-            if self.arena is not None:
-                # the shards follow the fused spans; padding weighs zero
-                lay = self.arena.layout
-                rings = tuple(reversed(self.comm.transport.rails[0].axes))
-                self.shard_sizes = [sp.size // world for sp in lay.spans]
-                self.norm_ranges = span_norm_ranges(lay, rings)
-            else:
-                self.shard_sizes = [n // world for n in
-                                    self.plan.bucket_plan.bucket_sizes]
-                self.norm_ranges = [[(0, n)] for n in self.shard_sizes]
+            rings = tuple(reversed(self.comm.transport.rails[0].axes))
+            # the shards follow the fused spans under the arena
+            lay = self.arena.layout if self.arena is not None else None
+            self.shard_sizes = [n // world for n in (
+                [sp.size for sp in lay.spans] if lay is not None
+                else self.plan.bucket_plan.bucket_sizes)]
+            weights = build_norm_weights(self.plan.bucket_plan,
+                                         spec_leaves(self.specs),
+                                         self.model_size)
+            if lay is not None:
+                weights = build_span_norm_weights(lay, weights)
+            self.norm_ranges, self.norm_weights = zero1_norm_ranges(weights,
+                                                                    rings)
+
+    @property
+    def data_index(self) -> int:
+        """This rank's joint index over the data axes: its rows of the
+        global batch (the ranks of one model group share them)."""
+        data = self.ctx.data
+        return data.index if data is not None else 0
+
+    @property
+    def data_world(self) -> int:
+        return self.ctx.dp_world()
+
+    def local_params(self, params):
+        """This rank's block of a full parameter tree (``params`` itself
+        without a model axis; a leaf split over the model axis is copied,
+        so that the full tree can be freed)."""
+        if self.specs is None or self.model_size == 1:
+            return params
+        rank = self.comm.rank
+        local = local_shard(params, self.specs, self.mesh, rank)
+        return tree_util.tree_map(
+            lambda blk, full: blk if blk.shape == full.shape or
+            blk.device.type == "meta" else blk.clone(), local, params)
 
     def _checkpoint_ranks(self) -> RankShards:
         """This rank's place in the global arrays of a checkpoint: its
@@ -405,6 +471,8 @@ class TrainStep:
         reduce-scatter), and the host-side group the checkpoint gathers
         over.  Collective over several ranks."""
         world = self.comm.world
+        if self.model_size > 1:
+            return None                   # refused by the Trainer (#6b)
         if world == 1:
             return RankShards()
         import torch.distributed as dist
@@ -444,8 +512,8 @@ class TrainStep:
         if self.fsdp is not None:
             tree, kw["block_resolver"] = self.fsdp.params_and_resolver(
                 tree, getattr(torch, self.cfg.gather_dtype))
-        loss = self.model.loss_fn(tree, mb, causal_skip=self.cfg.causal_skip,
-                                  **kw)
+        loss = self.model.loss_fn(tree, mb, ctx=self.ctx,
+                                  causal_skip=self.cfg.causal_skip, **kw)
         del tree
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
@@ -501,7 +569,7 @@ class TrainStep:
         else:
             grads = out[0]
             del out
-            gnorm = global_grad_norm(grads)
+            gnorm = global_grad_norm(grads, self.specs, self.ctx)
             factor = clip_factor(gnorm, self.cfg.optim.clip_norm)
             grads = tree_util.tree_map(lambda g: g * factor, grads)
             new_p, new_opt = adamw_tree_update(state["params"], grads,
@@ -568,12 +636,16 @@ class TrainStep:
 
     def _shard_norm(self, shards: list) -> torch.Tensor:
         """The exact global norm of the reduced gradient from this rank's
-        shards: the sum of squares over :attr:`norm_ranges` (the reference's
-        weighted sum, every weight 1.0 or 0), summed over data."""
+        shards: the sum of squares over :attr:`norm_ranges`, each range
+        times its weight in :attr:`norm_weights` (the reference's weighted
+        sum; the ranges of weight 0 left out), summed over data and over
+        the model axis."""
         sq = torch.zeros((), dtype=torch.float32, device=self.device)
-        for s, ranges in zip(shards, self.norm_ranges):
-            for start, stop in ranges:
-                sq = sq + torch.sum(torch.square(s[start:stop]))
+        for s, ranges, weights in zip(shards, self.norm_ranges,
+                                      self.norm_weights):
+            for (start, stop), w in zip(ranges, weights):
+                part = torch.sum(torch.square(s[start:stop]))
+                sq = sq + (part if w == 1.0 else part * w)
         return torch.sqrt(self.ctx.psum(self.ctx.psum_data(sq)))
 
 
@@ -581,8 +653,9 @@ def init_train_state(model: Model, step: TrainStep, *, params=None,
                      generator: torch.Generator | None = None) -> dict:
     """``{"params", "opt", "step"}`` (+ ``"arena"``, and under a wire codec
     ``"ef"``, both allocated here once) on the step's device: ``params``
-    when given (e.g. bridged from the reference), else fresh ones drawn
-    from ``generator``.  Under ``zero1``, ``opt`` holds lists of this
+    (the full tree) when given (e.g. bridged from the reference), else
+    fresh ones drawn from ``generator``; on a model axis this rank keeps
+    its block of them (:meth:`TrainStep.local_params`).  Under ``zero1``, ``opt`` holds lists of this
     rank's fp32 moment shards (:attr:`TrainStep.shard_sizes`).  Under
     ``fsdp`` the parameters are this rank's shards instead:
     ``{"groups": {name: [fp32 shards]}, "opt": {"mu", "nu"} of the same
@@ -591,6 +664,7 @@ def init_train_state(model: Model, step: TrainStep, *, params=None,
         if generator is None:
             raise ValueError("pass params or a generator")
         params = model.init(generator, step.device)
+    params = step.local_params(params)
     if step.fsdp is not None:
         groups = step.fsdp.shard_state(params)
         del params

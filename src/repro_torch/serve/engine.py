@@ -15,9 +15,14 @@ against the paged KV cache:
   kernel takes the gathered K/V as they are, and reads each K/V row once
   for its whole group of query heads.  Otherwise, and for ``"ref"``, K/V
   are first expanded to one KV head per (padded) query head.
-* **One rank.**  Page-parallel decode over ``model_parallel > 1`` ranks (one
-  max and one fused statistics all-reduce per layer) needs the communicator
-  slice of the port; the engine refuses such a plan when it is built.
+* **Page-parallel decode on the model axis.**  Weights replicate over the
+  model axis; at ``model_parallel = R > 1`` (a mesh with a model axis of
+  R) each rank gathers and scores its static ``blocks_per_rank`` chunk of
+  the page-table columns, then the partial softmax statistics merge over
+  the ranks with one ``pmax`` of the running max and ONE fused
+  :meth:`Communicator.all_reduce` of ``[acc·w, l·w]`` (transport
+  ``psum`` over the model axis): two collectives a layer a token, zero at
+  one rank (:func:`predicted_collectives_per_token`).
 
 Admission, eviction and page recycling are host-side numpy, as in the
 reference.  The host's page table and slot vectors travel to the device once
@@ -31,7 +36,9 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.comm.api import CommConfig, Communicator
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.topology import RankMesh
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.kernels.flash_decode import ref as fd_ref
@@ -39,6 +46,7 @@ from repro_torch.models.attention import (_merge_heads, _split_heads,
                                           padded_heads)
 from repro_torch.models.common import (apply_rope, dense, embed, glu_mlp,
                                        rmsnorm, unembed)
+from repro_torch.models.parallel import SINGLE, make_ctx
 from repro_torch.obs import NULL_OBS
 from repro_torch.serve.kv import KVArenaPlan, KVPageAllocator, PageTable
 
@@ -145,22 +153,38 @@ def _local_valid(plan: KVArenaPlan, tab: torch.Tensor, slot_len: torch.Tensor,
 
 
 def build_paged_decode_step(model, plan: KVArenaPlan, *,
-                            attn_impl: str = "kernel"):
+                            attn_impl: str = "kernel",
+                            mesh: RankMesh | None = None):
     """Returns ``step(pages, params, table, token, slot_len, slot_valid,
     rows) -> logits (B, vocab)``; ``pages`` is written in place.
 
-    ``params`` is the full tree (one rank holds every weight).
+    ``params`` is the full tree: every rank holds every weight.
     ``attn_impl``: "kernel" scores pages with the CUDA flash-decode kernel
     (its plain version for CPU tensors), "ref" with the plain version.
+    ``mesh`` (a ``("data", "model")`` mesh; one rank without it) must have
+    a model axis of ``plan.model_parallel``; over several ranks building
+    the step makes process groups, which is collective, and every rank
+    calls the step together.  The step's :class:`Communicator` (``None``
+    at one rank) records both collectives of each layer
+    (``step.comm.record``).
     """
     if attn_impl not in ("kernel", "ref"):
         raise ValueError(f"attn_impl must be kernel|ref, got {attn_impl!r}")
     cfg = model.cfg
-    if plan.model_parallel != 1:
-        raise NotImplementedError(
-            f"model_parallel={plan.model_parallel}: page-parallel decode "
-            f"needs the communicator slice of the port; plan with "
-            f"model_parallel=1")
+    mesh = mesh or RankMesh(("data", "model"), (1, 1))
+    r_mesh = mesh.sizes().get("model", 1)
+    if r_mesh != plan.model_parallel:
+        raise ValueError(
+            f"plan was laid out for model_parallel={plan.model_parallel} "
+            f"but the mesh model axis is {r_mesh}; re-plan with this mesh")
+    r = plan.model_parallel
+    comm, ctx = None, SINGLE
+    if r > 1:
+        comm = Communicator(mesh, CommConfig(transport="psum",
+                                             data_axes=("model",),
+                                             channels=1))
+        ctx = make_ctx(mesh, record=comm.record)
+    rank = ctx.model_index()
     if cfg.moe is not None:
         raise NotImplementedError(f"{cfg.name}: MoE decode is not ported yet")
     cdt = getattr(torch, cfg.dtype)
@@ -174,7 +198,7 @@ def build_paged_decode_step(model, plan: KVArenaPlan, *,
         padded_heads(cfg.attn.num_heads), hkv, true_group)
 
     def attend(q, pages, layer, table, slot_len, slot_valid):
-        k, v, tab = _gather_local_kv(pages, plan, layer, table)
+        k, v, tab = _gather_local_kv(pages, plan, layer, table, rank)
         if grouped:
             # one block per slot gathers as a strided view
             k, v = k.contiguous(), v.contiguous()
@@ -186,9 +210,18 @@ def build_paged_decode_step(model, plan: KVArenaPlan, *,
                                  // true_group, 0, hkv - 1)
             k = k.index_select(1, kv_idx)
             v = v.index_select(1, kv_idx)
-        valid = _local_valid(plan, tab, slot_len, slot_valid)
+        valid = _local_valid(plan, tab, slot_len, slot_valid, rank)
         acc, m, l = stats(q, k, v, valid)
-        return fd_ref.combine([(acc, m, l)]).to(q.dtype)
+        if r == 1:
+            return fd_ref.combine([(acc, m, l)]).to(q.dtype)
+        m_g = ctx.pmax(m)
+        w = torch.exp(m - m_g)
+        n_num = acc.numel()
+        buf = torch.cat([(acc * w).reshape(-1), (l * w).reshape(-1)])
+        red = comm.all_reduce([buf])[0]
+        num = red[:n_num].view(acc.shape)
+        den = red[n_num:].view(l.shape)
+        return (num / torch.clamp(den, min=1e-30)).to(q.dtype)
 
     def step(pages, params, table, token, slot_len, slot_valid, rows):
         x = embed(params["embed"], token[:, None], cdt)
@@ -215,6 +248,7 @@ def build_paged_decode_step(model, plan: KVArenaPlan, *,
             logits = dense(params["lm_head"], x, cdt)
         return logits[:, 0]
 
+    step.comm = comm
     return step
 
 
@@ -251,11 +285,14 @@ class PagedDecodeEngine:
     host numpy with fixed shapes."""
 
     def __init__(self, model, plan: KVArenaPlan, *, attn_impl: str = "kernel",
-                 device: str | torch.device = "cuda", obs=None):
+                 device: str | torch.device = "cuda", obs=None,
+                 mesh: RankMesh | None = None):
         self.model, self.plan = model, plan
         self.device = resolve_device(device)
         self.obs = obs if obs is not None else NULL_OBS
-        self.step = build_paged_decode_step(model, plan, attn_impl=attn_impl)
+        self.step = build_paged_decode_step(model, plan, attn_impl=attn_impl,
+                                            mesh=mesh)
+        self.comm = self.step.comm
         self.allocator = KVPageAllocator(plan.n_kv_pages)
         self.table = PageTable(plan.max_seqs, plan.max_blocks, plan.n_layers)
         self.slot_len = np.zeros((plan.max_seqs,), np.int32)

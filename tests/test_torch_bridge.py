@@ -127,6 +127,22 @@ def test_port_imports_nothing_of_jax_or_repro(path):
     assert not hits, f"{path}: {hits}"
 
 
+def test_scan_covers_the_tensor_parallel_modules():
+    """The scan above holds every module of the port, the tensor-parallel
+    slice's among them, and the per-rank jobs of its tests import no JAX
+    (the spawned ranks run torch only)."""
+    scanned = {p.relative_to(REPO).as_posix() for p in _port_sources()}
+    for path in ("src/repro_torch/sharding/__init__.py",
+                 "src/repro_torch/sharding/rules.py",
+                 "src/repro_torch/launch/mesh.py",
+                 "src/repro_torch/models/parallel.py",
+                 "src/repro_torch/runtime/serve_step.py",
+                 "src/repro_torch/serve/engine.py", "chip_smoke.py"):
+        assert path in scanned, path
+    jobs = (REPO / "tests" / "torch_tp_jobs.py").read_text()
+    assert not re.search(r"^\s*(import|from)\s+jax\b", jobs, re.M)
+
+
 def _host_only_sources():
     root = REPO / "src" / "repro_torch"
     return sorted((root / "checkpoint").rglob("*.py")) \

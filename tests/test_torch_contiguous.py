@@ -20,9 +20,12 @@ from repro.configs import reduced_config as jax_reduced_config
 from repro.models import build_model as jax_build_model
 from repro.models.transformer import (init_decode_state as
                                      jax_init_decode_state)
+import torch_tp_jobs as tp_jobs
+from torch_dist_util import run_ranks
 from repro_torch import bridge
 from repro_torch.configs import reduced_config
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.core.topology import RankMesh
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import build_model
 from repro_torch.models.transformer import init_decode_state
@@ -68,16 +71,30 @@ def test_decode_step_matches_reference_through_a_cache_wrap():
 
 
 def test_decode_refuses_what_is_not_ported():
+    """Since tensor parallelism was ported, a cache shorter than the
+    sequence is sequence-sharded over the model axis: on a (1, 2) mesh of
+    two gloo ranks, each holding CACHE // 2 slots of every layer, the
+    decode through a cache wrap (rank 1 holding real query heads: 16 of
+    16) within 2e-2 of the unsharded one-rank decode (the reference's
+    tolerance, ``tests/test_distributed.py::SERVE_SCRIPT``).  Without a
+    model axis a short cache is refused; gathered weights build (fsdp,
+    test_torch_fsdp.py runs them) and are refused on a model axis."""
     model = build_model(reduced_config(ARCH))
     shape = ShapeConfig("serve", CACHE, BATCH, "decode")
-    # gathered builds since fsdp was ported (test_torch_fsdp.py runs it)
     assert callable(build_decode_step(model, shape, weight_mode="gathered",
                                       device="cpu"))
+    with pytest.raises(NotImplementedError, match="Queue 1 #6b"):
+        build_decode_step(model, shape, weight_mode="gathered", device="cpu",
+                          mesh=RankMesh(("data", "model"), (1, 2)))
     params = model.init(torch.Generator().manual_seed(0), "cpu")
     short = model.init_decode_state(BATCH, CACHE // 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="model axis"):
+    with pytest.raises(ValueError, match="not one of"):
         build_decode_step(model, shape, device="cpu")(
             params, torch.zeros(BATCH, dtype=torch.int32), short, 0)
+    sharded, whole = run_ranks(tp_jobs.seq_sharded_job, 2, BATCH, CACHE,
+                               TOKENS)[0]
+    np.testing.assert_allclose(sharded, whole, rtol=0, atol=2e-2)
+    assert np.max(np.abs(sharded - whole)) < 1e-4    # fp32: far inside
 
 
 def test_launch_serve_contiguous_on_cpu(capsys):

@@ -34,6 +34,7 @@ from repro.serve.engine import _gather_local_kv as jax_gather
 from repro_torch import bridge
 from repro_torch.configs import reduced_config
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.core.topology import RankMesh
 from repro_torch.kernels.flash_decode import ops
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import build_model
@@ -183,10 +184,18 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(models, monkeypatch):
 
 
 def test_engine_refuses_what_is_not_ported(models):
+    """Since page-parallel decode was ported, a plan whose model_parallel
+    differs from the mesh's model axis is refused (the reference's own
+    check); a model_parallel=2 plan runs on a (1, 2) mesh
+    (test_torch_tp_serve.py)."""
     model = models[2]
-    with pytest.raises(NotImplementedError, match="communicator"):
+    with pytest.raises(ValueError, match="re-plan with this mesh"):
         PagedDecodeEngine(model, plan_kv_arena(model.cfg, model_parallel=2,
                                                **PLAN_KW), device="cpu")
+    with pytest.raises(ValueError, match="mesh model axis is 2"):
+        PagedDecodeEngine(model, plan_kv_arena(model.cfg, **PLAN_KW),
+                          device="cpu",
+                          mesh=RankMesh(("data", "model"), (1, 2)))
     with pytest.raises(ValueError):
         PagedDecodeEngine(model, plan_kv_arena(model.cfg, **PLAN_KW),
                           attn_impl="pallas", device="cpu")

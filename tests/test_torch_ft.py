@@ -93,10 +93,18 @@ def test_elastic_shape_matches_reference(n, mp, pods):
 
 
 def test_elastic_remesh_is_data_only():
-    assert ft.elastic_remesh(6, model_parallel=1) == RankMesh(("data",), (6,))
+    """Since tensor parallelism was ported, ``elastic_remesh`` returns the
+    reference's ``(data, model)`` mesh of ``elastic_shape`` (the name is
+    kept from when it was data-only)."""
+    assert ft.elastic_remesh(6, model_parallel=1) == \
+        RankMesh(("data", "model"), (6, 1))
     assert ft.elastic_remesh(6, model_parallel=1, want_pods=2) == \
-        RankMesh(("pod", "data"), (2, 3))
-    with pytest.raises(NotImplementedError, match="Queue 1 #6"):
-        ft.elastic_remesh(32)
+        RankMesh(("pod", "data", "model"), (2, 3, 1))
+    assert ft.elastic_remesh(32) == RankMesh(("data", "model"), (2, 16))
+    for n, mp, pods in ((32, 16, 1), (24, 4, 3), (257, 16, 2), (12, 16, 2)):
+        shape, names = ref_ft.elastic_shape(n, model_parallel=mp,
+                                            want_pods=pods)
+        assert ft.elastic_remesh(n, model_parallel=mp, want_pods=pods) == \
+            RankMesh(names, shape)
     with pytest.raises(ValueError):
         ft.elastic_shape(0)

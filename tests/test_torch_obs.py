@@ -185,7 +185,8 @@ def test_train_cli_saves_resumes_and_instruments_two_ranks(tmp_path, capfd):
     ck, od = str(tmp_path / "ck"), str(tmp_path / "obs")
     argv = ["--arch", "llama3.2-1b", "--reduced", "--device", "cpu",
             "--nproc", "2", "--seq", "32", "--batch", "4", "--use-arena",
-            "--wire-codec", "int8", "--dp-mode", "zero1", "--ckpt-dir", ck]
+            "--wire-codec", "int8", "--dp-mode", "zero1", "--ckpt-dir", ck,
+            "--model-parallel", "1"]      # a checkpoint needs a data-only mesh
     launch_train.main(argv + ["--steps", "2", "--obs-dir", od])
     out = capfd.readouterr().out
     assert f"obs: events={od}/events.jsonl trace={od}/trace.json" in out
