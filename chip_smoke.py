@@ -235,7 +235,8 @@ Phases, each of which raises on a failed check (exit code != 0):
               on both ranks, each rank's restored arena, ``"ef"`` and
               moment shards bitwise what it saved, the launches a step of
               ``pack``, ``pack_quant``, ``quant`` and ``reduce_add`` equal
-              to the unbroken run's;
+              to the unbroken run's (the fifth job of the ``ring_ranks``
+              spawn, below);
 29. halo    — the paper's first workload: two ranks on the card over
               gloo, mesh (2, 1, 1, 1) over the axes x, y, z, t, a 32^4
               lattice of 24 fp32 a site (a Wilson spinor) a rank: for each
@@ -294,9 +295,48 @@ Phases, each of which raises on a failed check (exit code != 0):
               a token (``CommRecord``); every live logit within the
               engine's tolerance of the R = 1 engine on the same step
               inputs (the scheduler's token stream), rows whose greedy
-              token differs counted.
+              token differs counted;
+36. train_tp_fsdp — four ranks on the card over gloo on a (2, 2)
+              ``("data", "model")`` mesh, one spawn, in turn: (a) fsdp
+              (``launch.train --dp-mode fsdp --model-parallel 2``), full
+              width, 4 layers, native bf16 gathers, the arena on, 3 steps,
+              deterministic: losses finite and equal on all four ranks,
+              pack writes and reads == group buckets x steps (all bulk),
+              native gathers, reduce-scatters and their bytes ==
+              :func:`fsdp_expected` (the model-local buckets), the model
+              axis's all-reduces the same on every rank and ==
+              :func:`tp_fsdp_model_all_reduces`; a profiled step; one step
+              over the ring gather: ``reduce_add`` (fp32 + bf16) launches
+              == the reduce-scatter's hops, sends == expected, its kernel
+              step == its plain step bitwise (each its own backward pass);
+              (b) the fp32 gate: 4 layers, fp32 compute and gathers,
+              losses within 5e-5 and gradient norms within rtol 1e-4 of
+              the one-rank replicated run; (c) the checkpoint: zero1 (the
+              arch's default) with the arena at CKPT_LAYERS layers,
+              train_ckpt's stop-and-resume check bitwise on all four ranks,
+              the parameters laid out as model blocks (global arrays on
+              disk), the flat leaves gathered in rank order, the bytes,
+              the save's blocking part and the restore; (d) the gathered
+              prefill: ``build_prefill(weight_mode="gathered")`` on (2, 2),
+              16 layers, B=2, S=4096, bf16: 16 wgmma flash-attention
+              launches a rank and no other kernel's, this rank's logits
+              within the engine's bf16 tolerance of the resident prefill
+              on the same mesh with the same weights.
 
-The phases before train_tp run data-only (``--model-parallel 1``).
+The phases before train_tp run data-only (``--model-parallel 1``).  The
+two-rank train phases share two spawns, each running its phases' workers
+in turn on one process group (:func:`spawn_in_turn`), right after the
+build: ``ring_ranks_deterministic`` (train_ring_zero1, train_ring_fsdp)
+and ``ring_ranks`` (train_ring, train_ring_int8, train_ring_zero1_int8,
+train_ring_fsdp_int8, train_ring_ckpt); so do the later two-rank phases,
+in ``stencil_tp_ranks`` (halo, stencil_cg's two ranks, train_tp,
+prefill_tp, serve_contiguous_tp, serve_tp).  Until train_tp_fsdp joined
+the script each paid a spawn of its own: two ranks' start-up (the
+interpreters, the CUDA contexts, the kernels' loads, the full-width model
+built) took about 30 s of each phase's 35-106 s.  Every check of every
+phase holds as before: each worker runs as it did, its results checked by
+the same code; between two workers the peak statistics are reset, the
+card's cache emptied and deterministic algorithms switched off.
 Each phase prints its seconds (``[phase]``).  It prints a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` gives them, and as its last line
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
@@ -1435,14 +1475,13 @@ def _deterministic(torch) -> None:
 
 
 def _ring_worker(argv: list[str]) -> dict:
-    """One of two ranks of the train_ring phases (a spawned process): the
-    fp32 arena, or with ``--wire-codec int8`` the int8 arena, and then,
-    under the int8 wire or zero1, one step with the arena off
-    (:func:`_bucket_pass`)."""
+    """One of two ranks of the train_ring phases (run by
+    :func:`_workers_in_turn`): the fp32 arena, or with ``--wire-codec
+    int8`` the int8 arena, and then, under the int8 wire or zero1, one step
+    with the arena off (:func:`_bucket_pass`)."""
     import gc
 
     import torch
-    import torch.distributed as dist
 
     from repro_torch.core.ring import _channel_slices
     from repro_torch.launch import train as launch_train
@@ -1456,102 +1495,99 @@ def _ring_worker(argv: list[str]) -> dict:
         # these (the index ops' backward adds with atomics otherwise)
         _deterministic(torch)
     world = launch_train.init_distributed(args.device)
-    try:
-        run = launch_train.setup(args, world)
-        _check_full_width(run.model.cfg, args.layers, "train_ring")
-        trainer = run.trainer
-        step = trainer.step_fn
-        comm = step.comm
-        zero1 = step.cfg.dp_mode == "zero1"
-        layout = step.arena.layout
-        p = world.size
-        slices = sum(len(_channel_slices(sp.size // p,
-                                         comm.transport.ring_cfg))
-                     for sp in layout.spans)
-        # (no name holds the first state: it would keep its parameters and
-        # moments alive through the run)
-        kept = [k for k in ("arena", "ef") if k in trainer.state]
-        ptrs = [trainer.state[k].data_ptr() for k in kept]
-        reset_launch_counters()
-        comm.record.reset()
-        hist = trainer.run()["history"]
-        counts = launch_counters()
-        routes = pack_routes()
-        record = comm.record.as_dict()
-        peak_run = torch.cuda.max_memory_allocated(world.device)
-        steps = args.steps
-        segs, spans = layout.n_segments, layout.n_spans
-        # derived from the code: per step, each span's ring all-reduce runs
-        # p - 1 reduce-scatter hops, each adding, and under the int8 codec
-        # encoding and decoding, every channel slice, then an all-gather
-        # that encodes each slice once and decodes each of the slice's p
-        # payloads (its own and p - 1 received) one by one; the fp32 arena
-        # packs and unpacks each segment once; the int8 arena encodes each
-        # segment (pack, with error feedback) and each reduced span
-        # (re-encode) and decodes each span (before its collective) and
-        # each segment (unpack).  Zero1 runs the same reduce-scatter hops
-        # and an all-gather of the delta shards with the same launches; the
-        # shards go to AdamW as they are (no re-encode, no unpack), and
-        # the gathered fp32 delta spans are read out segment by segment
-        # (unpack_spans: pack reads, under either wire)
-        predicted = {"flash_decode": 0, "flash_attn": 0,
-                     "reduce_add": slices * (p - 1) * steps,
-                     "pack_write": 0 if quant else segs * steps,
-                     "pack_read": segs * steps if zero1 or not quant else 0,
-                     "quantize": slices * p * steps if quant else 0,
-                     "dequantize": slices * (2 * p - 1) * steps if quant
-                     else 0,
-                     "pack_quant_write": ((segs if zero1 else segs + spans)
-                                          * steps if quant else 0),
-                     "pack_quant_read": ((spans if zero1 else spans + segs)
-                                         * steps if quant else 0)}
-        # every pack copy is a bulk copy
-        predicted_routes = {"bulk": predicted["pack_write"]
-                            + predicted["pack_read"], "vector": 0}
-        planned = {"sends": step.plan.arena_messages_per_device * steps,
-                   "send_bytes": step.plan.arena_bytes_per_device * steps}
-        losses = [h["loss"] for h in hist]
-        stable = [trainer.state[k].data_ptr() for k in kept] == ptrs
+    run = launch_train.setup(args, world)
+    _check_full_width(run.model.cfg, args.layers, "train_ring")
+    trainer = run.trainer
+    step = trainer.step_fn
+    comm = step.comm
+    zero1 = step.cfg.dp_mode == "zero1"
+    layout = step.arena.layout
+    p = world.size
+    slices = sum(len(_channel_slices(sp.size // p,
+                                     comm.transport.ring_cfg))
+                 for sp in layout.spans)
+    # (no name holds the first state: it would keep its parameters and
+    # moments alive through the run)
+    kept = [k for k in ("arena", "ef") if k in trainer.state]
+    ptrs = [trainer.state[k].data_ptr() for k in kept]
+    reset_launch_counters()
+    comm.record.reset()
+    hist = trainer.run()["history"]
+    counts = launch_counters()
+    routes = pack_routes()
+    record = comm.record.as_dict()
+    peak_run = torch.cuda.max_memory_allocated(world.device)
+    steps = args.steps
+    segs, spans = layout.n_segments, layout.n_spans
+    # derived from the code: per step, each span's ring all-reduce runs
+    # p - 1 reduce-scatter hops, each adding, and under the int8 codec
+    # encoding and decoding, every channel slice, then an all-gather
+    # that encodes each slice once and decodes each of the slice's p
+    # payloads (its own and p - 1 received) one by one; the fp32 arena
+    # packs and unpacks each segment once; the int8 arena encodes each
+    # segment (pack, with error feedback) and each reduced span
+    # (re-encode) and decodes each span (before its collective) and
+    # each segment (unpack).  Zero1 runs the same reduce-scatter hops
+    # and an all-gather of the delta shards with the same launches; the
+    # shards go to AdamW as they are (no re-encode, no unpack), and
+    # the gathered fp32 delta spans are read out segment by segment
+    # (unpack_spans: pack reads, under either wire)
+    predicted = {"flash_decode": 0, "flash_attn": 0,
+                 "reduce_add": slices * (p - 1) * steps,
+                 "pack_write": 0 if quant else segs * steps,
+                 "pack_read": segs * steps if zero1 or not quant else 0,
+                 "quantize": slices * p * steps if quant else 0,
+                 "dequantize": slices * (2 * p - 1) * steps if quant
+                 else 0,
+                 "pack_quant_write": ((segs if zero1 else segs + spans)
+                                      * steps if quant else 0),
+                 "pack_quant_read": ((spans if zero1 else spans + segs)
+                                     * steps if quant else 0)}
+    # every pack copy is a bulk copy
+    predicted_routes = {"bulk": predicted["pack_write"]
+                        + predicted["pack_read"], "vector": 0}
+    planned = {"sends": step.plan.arena_messages_per_device * steps,
+               "send_bytes": step.plan.arena_bytes_per_device * steps}
+    losses = [h["loss"] for h in hist]
+    stable = [trainer.state[k].data_ptr() for k in kept] == ptrs
 
-        digest = params_digest(trainer.state["params"])
-        state = trainer.state
-        batch = shard_batch(trainer.data.batch_at(state["step"]),
-                            world.rank, p)
-        same = kernel_vs_plain_step(step, state, batch, world.device)
-        bitwise, max_diff = same["bitwise"], same["max_diff"]
-        prof = step_profile(trainer, world.rank, p, profiled=world.rank == 0)
-        out = {"backend": world.backend, "dp_mode": step.cfg.dp_mode,
-               "layers": args.layers, "losses": losses, "digest": digest,
-               "step_s": [h["sec"] for h in hist], "counts": counts,
-               "record": record, "predicted": predicted, "planned": planned,
-               "pack_routes": routes, "predicted_routes": predicted_routes,
-               "stable": stable, "bitwise": bitwise,
-               "max_diff": max_diff, "differ": same["differ"],
-               "n_spans": spans,
-               "n_segments": segs, "arena_bytes": layout.total_bytes,
-               "arena_pages": layout.n_pages,
-               "padding_fraction": layout.padding_fraction,
-               "ef_bytes": (layout.payload_elems * 4 if quant else 0),
-               "hop_width": max(sp.size for sp in layout.spans) // p
-               // (2 * step.cfg.comm.chunks),
-               # every reduce-scatter hop's width, one step's worth
-               "hop_widths": sorted(
-                   w for sp in layout.spans
-                   for _, w, _ in _channel_slices(sp.size // p,
-                                                  comm.transport.ring_cfg)),
-               "params": run.model.param_count(),
-               "peak_run_bytes": peak_run,
-               "peak_bytes": torch.cuda.max_memory_allocated(world.device),
-               "profile": prof, "bucket": None}
-        if quant or zero1:
-            trainer.state = state = None
-            del run, trainer, step, comm, state
-            gc.collect()
-            torch.cuda.empty_cache()
-            out["bucket"] = _bucket_pass(argv, world)
-        return out
-    finally:
-        dist.destroy_process_group()
+    digest = params_digest(trainer.state["params"])
+    state = trainer.state
+    batch = shard_batch(trainer.data.batch_at(state["step"]),
+                        world.rank, p)
+    same = kernel_vs_plain_step(step, state, batch, world.device)
+    bitwise, max_diff = same["bitwise"], same["max_diff"]
+    prof = step_profile(trainer, world.rank, p, profiled=world.rank == 0)
+    out = {"backend": world.backend, "dp_mode": step.cfg.dp_mode,
+           "layers": args.layers, "losses": losses, "digest": digest,
+           "step_s": [h["sec"] for h in hist], "counts": counts,
+           "record": record, "predicted": predicted, "planned": planned,
+           "pack_routes": routes, "predicted_routes": predicted_routes,
+           "stable": stable, "bitwise": bitwise,
+           "max_diff": max_diff, "differ": same["differ"],
+           "n_spans": spans,
+           "n_segments": segs, "arena_bytes": layout.total_bytes,
+           "arena_pages": layout.n_pages,
+           "padding_fraction": layout.padding_fraction,
+           "ef_bytes": (layout.payload_elems * 4 if quant else 0),
+           "hop_width": max(sp.size for sp in layout.spans) // p
+           // (2 * step.cfg.comm.chunks),
+           # every reduce-scatter hop's width, one step's worth
+           "hop_widths": sorted(
+               w for sp in layout.spans
+               for _, w, _ in _channel_slices(sp.size // p,
+                                              comm.transport.ring_cfg)),
+           "params": run.model.param_count(),
+           "peak_run_bytes": peak_run,
+           "peak_bytes": torch.cuda.max_memory_allocated(world.device),
+           "profile": prof, "bucket": None}
+    if quant or zero1:
+        trainer.state = state = None
+        del run, trainer, step, comm, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["bucket"] = _bucket_pass(argv, world)
+    return out
 
 
 def _bucket_pass(argv: list[str], world) -> dict:
@@ -1619,15 +1655,62 @@ def card_memory() -> dict:
             "parent_reserved_bytes": reserved}
 
 
-def phase_train_ring(argv: list[str], tag: str) -> dict:
-    """Two ranks on the one card over gloo, full width at ``--layers``."""
+def _workers_in_turn(jobs: list) -> list[dict]:
+    """In one spawned rank: each ``(worker, args)`` of ``jobs`` in turn on
+    one process group, every worker's result beside its seconds; between
+    two workers the peak-memory statistics are reset, the allocator's cache
+    emptied and deterministic algorithms switched off; the group is
+    destroyed at the end.  cuBLAS's reproducible workspace is set before
+    the first CUDA call: the fsdp ring gather's kernel and plain steps each
+    run their own backward pass."""
+    import os
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    out = []
+    try:
+        for worker, args in jobs:
+            if torch.cuda.is_initialized():
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            result = worker(*args)
+            out.append({"result": result,
+                        "seconds": time.perf_counter() - t0})
+            del result
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.use_deterministic_algorithms(False)
+            torch.utils.deterministic.fill_uninitialized_memory = True
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return out
+
+
+def spawn_in_turn(tag: str, nproc: int, jobs: list) -> tuple[list, list]:
+    """``jobs`` (``(worker, args)`` pairs) run in turn on ``nproc`` ranks
+    spawned once on the card (:func:`_workers_in_turn`): a spawn and the
+    ranks' start-up paid once for all of them.  Logs what the card holds
+    before; returns, per job, the ranks' results and rank 0's seconds."""
     from repro_torch.launch import train as launch_train
 
     before = card_memory()
     log(f"[{tag}] before the ranks spawn: {before['card_used_mib']} of "
         f"{before['card_total_mib']} MiB of the card in use, this process's "
         f"allocator reserving {before['parent_reserved_bytes']} B")
-    ranks = launch_train.spawn(_ring_worker, 2, argv, timeout=900)
+    ranks = launch_train.spawn(_workers_in_turn, nproc, jobs, timeout=1000)
+    results = [[r[i]["result"] for r in ranks] for i in range(len(jobs))]
+    return results, [ranks[0][i]["seconds"] for i in range(len(jobs))]
+
+
+def check_train_ring(ranks: list, tag: str) -> dict:
+    """The checks of a two-rank train_ring phase (:func:`_ring_worker`'s
+    results, full width at ``--layers``, two ranks on the one card over
+    gloo)."""
     for r, out in enumerate(ranks):
         if out["backend"] != "gloo":
             raise AssertionError(f"[{tag}] rank {r} backend "
@@ -1713,7 +1796,7 @@ def phase_train_ring(argv: list[str], tag: str) -> dict:
             f"{ {k: v for k, v in bucket['predicted'].items() if v} }; "
             f"recorded sends {bucket['record']['sends']} and bytes "
             f"{bucket['record']['send_bytes']} == plan")
-    return {"ranks": ranks, "staging_s": staging, "card_before": before}
+    return {"ranks": ranks, "staging_s": staging}
 
 
 # fsdp (ZeRO-3): the train phase's run with --dp-mode fsdp; two ranks at
@@ -1931,15 +2014,12 @@ def _fsdp_ring_worker(argv: list[str], gather: str) -> dict:
     3 steps with the arena, the kernel step against the plain step, one
     profiled step and, over the ring gather, one step with the arena off.
     Deterministic algorithms throughout (and cuBLAS's reproducible
-    workspace): over the ring gather the reduce-scatter runs inside the
-    backward pass, so the kernel and plain steps each run their own."""
-    import os
-
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    workspace, :func:`_workers_in_turn`): over the ring gather the
+    reduce-scatter runs inside the backward pass, so the kernel and plain
+    steps each run their own."""
     import gc
 
     import torch
-    import torch.distributed as dist
 
     from repro_torch.core.ring import _channel_slices
     from repro_torch.launch import train as launch_train
@@ -1950,73 +2030,70 @@ def _fsdp_ring_worker(argv: list[str], gather: str) -> dict:
     args = launch_train.parser().parse_args(argv)
     world = launch_train.init_distributed(args.device)
     over = {"fsdp_gather": gather}
-    try:
+    run = launch_train.setup(args, world, step_overrides=over)
+    _check_full_width(run.model.cfg, args.layers, "train_ring_fsdp")
+    trainer = run.trainer
+    step = trainer.step_fn
+    comm = step.comm
+    p = world.size
+    plan = step.fsdp
+    layout = step.arena.layout
+    kept = [k for k in ("arena", "ef") if k in trainer.state]
+    ptrs = [trainer.state[k].data_ptr() for k in kept]
+    predicted, wire = fsdp_expected(step, args.steps, p)
+    reset_launch_counters()
+    comm.record.reset()
+    torch.cuda.reset_peak_memory_stats(world.device)
+    hist = trainer.run()["history"]
+    counts = launch_counters()
+    routes = pack_routes()
+    record = comm.record.as_dict()
+    peak_run = torch.cuda.max_memory_allocated(world.device)
+    stable = [trainer.state[k].data_ptr() for k in kept] == ptrs
+    state = trainer.state
+    batch = shard_batch(trainer.data.batch_at(state["step"]),
+                        world.rank, p)
+    same = kernel_vs_plain_step(step, state, batch, world.device,
+                                shared=gather != "ring")
+    prof = step_profile(trainer, world.rank, p, profiled=world.rank == 0)
+    hop_widths = sorted(
+        w for bplan in plan.plans.values() for n in bplan.bucket_sizes
+        for _, w, _ in _channel_slices(n // p, comm.transport.ring_cfg))
+    out = {"backend": world.backend, "gather": gather,
+           "layers": args.layers, "losses": [h["loss"] for h in hist],
+           "step_s": [h["sec"] for h in hist], "counts": counts,
+           "predicted": predicted, "record": record, "wire": wire,
+           "pack_routes": routes, "stable": stable,
+           "bitwise": same["bitwise"], "differ": same["differ"],
+           "max_diff": same["max_diff"],
+           "n_buckets": sum(b.n_buckets for b in plan.plans.values()),
+           "n_segments": layout.n_segments,
+           "arena_bytes": layout.total_bytes,
+           "shard_bytes": 4 * sum(n for sizes in plan.shard_sizes.values()
+                                  for n in sizes),
+           "hop_widths": hop_widths, "params": run.model.param_count(),
+           "peak_run_bytes": peak_run,
+           "peak_bytes": torch.cuda.max_memory_allocated(world.device),
+           "profile": prof, "bucket": None}
+    if gather == "ring":
+        trainer.state = state = None
+        del run, trainer, step, comm, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        argv = [a for a in argv if a != "--use-arena"]
+        argv[argv.index("--steps") + 1] = "1"
+        args = launch_train.parser().parse_args(argv)
         run = launch_train.setup(args, world, step_overrides=over)
-        _check_full_width(run.model.cfg, args.layers, "train_ring_fsdp")
-        trainer = run.trainer
-        step = trainer.step_fn
-        comm = step.comm
-        p = world.size
-        plan = step.fsdp
-        layout = step.arena.layout
-        kept = [k for k in ("arena", "ef") if k in trainer.state]
-        ptrs = [trainer.state[k].data_ptr() for k in kept]
-        predicted, wire = fsdp_expected(step, args.steps, p)
+        step = run.trainer.step_fn
+        bpred, bwire = fsdp_expected(step, 1, p)
         reset_launch_counters()
-        comm.record.reset()
-        torch.cuda.reset_peak_memory_stats(world.device)
-        hist = trainer.run()["history"]
-        counts = launch_counters()
-        routes = pack_routes()
-        record = comm.record.as_dict()
-        peak_run = torch.cuda.max_memory_allocated(world.device)
-        stable = [trainer.state[k].data_ptr() for k in kept] == ptrs
-        state = trainer.state
-        batch = shard_batch(trainer.data.batch_at(state["step"]),
-                            world.rank, p)
-        same = kernel_vs_plain_step(step, state, batch, world.device,
-                                    shared=gather != "ring")
-        prof = step_profile(trainer, world.rank, p, profiled=world.rank == 0)
-        hop_widths = sorted(
-            w for bplan in plan.plans.values() for n in bplan.bucket_sizes
-            for _, w, _ in _channel_slices(n // p, comm.transport.ring_cfg))
-        out = {"backend": world.backend, "gather": gather,
-               "layers": args.layers, "losses": [h["loss"] for h in hist],
-               "step_s": [h["sec"] for h in hist], "counts": counts,
-               "predicted": predicted, "record": record, "wire": wire,
-               "pack_routes": routes, "stable": stable,
-               "bitwise": same["bitwise"], "differ": same["differ"],
-               "max_diff": same["max_diff"],
-               "n_buckets": sum(b.n_buckets for b in plan.plans.values()),
-               "n_segments": layout.n_segments,
-               "arena_bytes": layout.total_bytes,
-               "shard_bytes": 4 * sum(n for sizes in plan.shard_sizes.values()
-                                      for n in sizes),
-               "hop_widths": hop_widths, "params": run.model.param_count(),
-               "peak_run_bytes": peak_run,
-               "peak_bytes": torch.cuda.max_memory_allocated(world.device),
-               "profile": prof, "bucket": None}
-        if gather == "ring":
-            trainer.state = state = None
-            del run, trainer, step, comm, state
-            gc.collect()
-            torch.cuda.empty_cache()
-            argv = [a for a in argv if a != "--use-arena"]
-            argv[argv.index("--steps") + 1] = "1"
-            args = launch_train.parser().parse_args(argv)
-            run = launch_train.setup(args, world, step_overrides=over)
-            step = run.trainer.step_fn
-            bpred, bwire = fsdp_expected(step, 1, p)
-            reset_launch_counters()
-            step.comm.record.reset()
-            h = run.trainer.run()["history"][0]
-            out["bucket"] = {"loss": h["loss"], "step_s": h["sec"],
-                             "counts": launch_counters(),
-                             "predicted": bpred, "wire": bwire,
-                             "record": step.comm.record.as_dict()}
-        return out
-    finally:
-        dist.destroy_process_group()
+        step.comm.record.reset()
+        h = run.trainer.run()["history"][0]
+        out["bucket"] = {"loss": h["loss"], "step_s": h["sec"],
+                         "counts": launch_counters(),
+                         "predicted": bpred, "wire": bwire,
+                         "record": step.comm.record.as_dict()}
+    return out
 
 
 def _check_wire(tag: str, record: dict, wire: dict) -> None:
@@ -2026,23 +2103,16 @@ def _check_wire(tag: str, record: dict, wire: dict) -> None:
                                  f"expected {want}")
 
 
-def phase_train_ring_fsdp(argv: list[str], tag: str, gather: str,
+def check_train_ring_fsdp(ranks: list, tag: str, gather: str,
                           zero1_losses: list[float] | None = None) -> dict:
-    """Two fsdp ranks on the one card over gloo (hops and native
-    collectives staged through pinned host memory), full width at
-    ``--layers``; when ``zero1_losses`` are given (train_ring_zero1's: the
+    """The checks of a two-rank fsdp phase (:func:`_fsdp_ring_worker`'s
+    results: two ranks on the one card over gloo, hops and native
+    collectives staged through pinned host memory, full width at
+    ``--layers``); when ``zero1_losses`` are given (train_ring_zero1's: the
     same seed, batches and depth, both deterministic), the first two
     losses are those bitwise (the bf16 gathers are zero1's bf16 casts
     before the first update moves a weight; see :func:`phase_train_fsdp`
     for the third)."""
-    from repro_torch.launch import train as launch_train
-
-    before = card_memory()
-    log(f"[{tag}] before the ranks spawn: {before['card_used_mib']} of "
-        f"{before['card_total_mib']} MiB of the card in use, this process's "
-        f"allocator reserving {before['parent_reserved_bytes']} B")
-    ranks = launch_train.spawn(_fsdp_ring_worker, 2, argv, gather,
-                               timeout=900)
     for r, out in enumerate(ranks):
         if out["backend"] != "gloo":
             raise AssertionError(f"[{tag}] rank {r} backend "
@@ -2113,8 +2183,7 @@ def phase_train_ring_fsdp(argv: list[str], tag: str, gather: str,
             f"{ {k: v for k, v in bucket['predicted'].items() if v} }; "
             f"recorded wire == expected "
             f"{ {k: v for k, v in bucket['wire'].items() if v} }")
-    return {"ranks": ranks, "staging_s": staging, "card_before": before,
-            "dloss_vs_zero1": dloss}
+    return {"ranks": ranks, "staging_s": staging, "dloss_vs_zero1": dloss}
 
 
 def phase_prefill_gathered(dev) -> dict:
@@ -2252,13 +2321,16 @@ def phase_timing_fsdp(dev, hop_widths: list[int]) -> dict:
 # the checkpoint: a zero1 run stopped after CKPT_STOP of CKPT_STEPS steps
 # and resumed by a fresh Trainer, against an unbroken run, under
 # deterministic algorithms; one rank at full width and CKPT_LAYERS layers
-# (the arena on), then two ranks on the card over the int8 wire (2 layers
-# since the tensor-parallel phases joined the script: 4 until then)
+# (the arena on), two ranks on the card over the int8 wire, and four ranks
+# on a (2, 2) mesh (inside train_tp_fsdp); 2 layers since the
+# tensor-parallel phases joined the script (4 until then)
 CKPT_LAYERS, CKPT_STEPS, CKPT_STOP = 2, 4, 2
 # bytes a step directory takes per parameter: params, mu, nu and the fp32
 # arena (one rank); params, the global mu and nu, "ef" of both ranks and
-# their int8 arenas (about 1 B a parameter each) at two ranks
-CKPT_BYTES_PER_PARAM = {1: 16, 2: 22}
+# their int8 arenas (about 1 B a parameter each) at two ranks; params, the
+# global mu and nu and the four ranks' fp32 arenas (each its model block,
+# about half the parameters) on (2, 2)
+CKPT_BYTES_PER_PARAM = {1: 16, 2: 22, 4: 20}
 
 
 def _argv_with(argv: list[str], **flags) -> list[str]:
@@ -2598,27 +2670,24 @@ def phase_train_ckpt(dev) -> dict:
     return out
 
 
-def _ckpt_ring_worker(argv: list[str], ckpt_dir: str) -> dict:
-    """One of the two ranks of train_ring_ckpt: the unbroken run, the run
-    stopped at CKPT_STOP (its sharded leaves gathered to rank 0, which
-    writes), and the resumed run, each with its launches and per-leaf
-    digests."""
+def _ckpt_runs(argv: list[str], ckpt_dir: str, world, what: str) -> dict:
+    """One rank's part of a several-rank checkpoint check (every rank runs
+    it together, deterministic): the unbroken run, the run stopped at
+    CKPT_STOP (its flat leaves gathered to rank 0 and, on a model axis, its
+    model-sharded parameters assembled there; rank 0 writes), and the
+    resumed run, each with its launches and per-leaf digests."""
     import gc
 
     import torch
-    import torch.distributed as dist
 
     from repro_torch.launch import train as launch_train
 
-    torch.backends.cuda.matmul.allow_tf32 = False
     _deterministic(torch)
-    world = launch_train.init_distributed(
-        launch_train.parser().parse_args(argv).device)
 
     def setup(extra):
         args = launch_train.parser().parse_args(argv + extra)
         run = launch_train.setup(args, world)
-        _check_full_width(run.model.cfg, args.layers, "train_ring_ckpt")
+        _check_full_width(run.model.cfg, args.layers, what)
         return run
 
     def state_digest(trainer):
@@ -2629,73 +2698,85 @@ def _ckpt_ring_worker(argv: list[str], ckpt_dir: str) -> dict:
         return {p: params_digest([t])[0]
                 for p, t in _sharded_leaves(trainer).items()}
 
-    try:
-        run = setup([])
-        reset_launch_counters()
-        full = run.trainer.run()["history"]
-        counts_full = launch_counters()
-        full_digest = state_digest(run.trainer)
-        del run
-        gc.collect()
-        run = setup(["--ckpt-dir", ckpt_dir])
-        run.trainer.tcfg.steps = CKPT_STOP
-        stop_times = _timed_checkpoints(run.trainer)
-        reset_launch_counters()
-        stopped = run.trainer.run()["history"]
-        counts_stop = launch_counters()
-        saved = shard_digests(run.trainer)
-        del run
-        gc.collect()
-        run, restore_s = _timed_restore(lambda: setup(["--ckpt-dir",
-                                                       ckpt_dir]))
-        start = run.trainer.start_step
-        restored = shard_digests(run.trainer)
-        res_times = _timed_checkpoints(run.trainer)
-        reset_launch_counters()
-        resumed = run.trainer.run()["history"]
-        counts_res = launch_counters()
-        res_digest = state_digest(run.trainer)
-        record = run.trainer.step_fn.comm.record.as_dict()
-        return {"backend": world.backend, "start": start,
-                "losses": [h["loss"] for h in full],
-                "stopped_losses": [h["loss"] for h in stopped],
-                "resumed_losses": [h["loss"] for h in resumed],
-                "step_s": [h["sec"] for h in full],
-                "resumed_step_s": [h["sec"] for h in resumed],
-                "counts": {"unbroken": counts_full, "stopped": counts_stop,
-                           "resumed": counts_res},
-                "final_same": res_digest == full_digest,
-                "n_leaves": len(full_digest),
-                "shards_same": saved == restored, "sharded": sorted(saved),
-                "save_blocking_s": stop_times["save_s"][-1],
-                "async_write_s": stop_times["wait_s"][-1],
-                "restore_s": restore_s[0],
-                "resumed_save_blocking_s": res_times["save_s"][-1],
-                "resumed_async_write_s": res_times["wait_s"][-1],
-                "staging_s": record["staging_s"]}
-    finally:
-        dist.destroy_process_group()
+    run = setup([])
+    mesh = run.trainer.step_fn.mesh.sizes()
+    reset_launch_counters()
+    full = run.trainer.run()["history"]
+    counts_full = launch_counters()
+    full_digest = state_digest(run.trainer)
+    del run
+    gc.collect()
+    run = setup(["--ckpt-dir", ckpt_dir])
+    run.trainer.tcfg.steps = CKPT_STOP
+    stop_times = _timed_checkpoints(run.trainer)
+    reset_launch_counters()
+    stopped = run.trainer.run()["history"]
+    counts_stop = launch_counters()
+    saved = shard_digests(run.trainer)
+    layout = run.trainer.step_fn.state_layout(run.trainer.state)
+    rules = sorted({type(r).__name__ if not isinstance(r, str) else r
+                    for r in _layout_rules(layout)})
+    del run
+    gc.collect()
+    run, restore_s = _timed_restore(lambda: setup(["--ckpt-dir", ckpt_dir]))
+    start = run.trainer.start_step
+    restored = shard_digests(run.trainer)
+    res_times = _timed_checkpoints(run.trainer)
+    reset_launch_counters()
+    resumed = run.trainer.run()["history"]
+    counts_res = launch_counters()
+    res_digest = state_digest(run.trainer)
+    record = run.trainer.step_fn.comm.record.as_dict()
+    return {"backend": world.backend, "start": start, "mesh": mesh,
+            "losses": [h["loss"] for h in full],
+            "stopped_losses": [h["loss"] for h in stopped],
+            "resumed_losses": [h["loss"] for h in resumed],
+            "step_s": [h["sec"] for h in full],
+            "resumed_step_s": [h["sec"] for h in resumed],
+            "counts": {"unbroken": counts_full, "stopped": counts_stop,
+                       "resumed": counts_res},
+            "final_same": res_digest == full_digest,
+            "n_leaves": len(full_digest), "rules": rules,
+            "shards_same": saved == restored, "sharded": sorted(saved),
+            "save_blocking_s": stop_times["save_s"][-1],
+            "async_write_s": stop_times["wait_s"][-1],
+            "restore_s": restore_s[0],
+            "resumed_save_blocking_s": res_times["save_s"][-1],
+            "resumed_async_write_s": res_times["wait_s"][-1],
+            "staging_s": record["staging_s"]}
 
 
-def phase_train_ring_ckpt() -> dict:
-    """Two ranks on the card over gloo, zero1 over the int8 wire with the
-    int8 arena, full width at CKPT_LAYERS layers, deterministic: the
-    stop-and-resume check of train_ckpt, bitwise, with every rank's
-    restored arena, ``"ef"`` and moment shards equal to what it saved and
-    the launches a step of ``pack``, ``pack_quant``, ``quant`` and
-    ``reduce_add`` equal to the unbroken run's."""
-    import shutil
+def _layout_rules(layout) -> list:
+    from repro_torch.checkpoint.ckpt import flatten_with_path
+
+    return [rule for _, rule in flatten_with_path(layout)[0]]
+
+
+def _ckpt_ring_worker(argv: list[str], ckpt_dir: str) -> dict:
+    """One of the two ranks of train_ring_ckpt (:func:`_ckpt_runs`)."""
+    import torch
 
     from repro_torch.launch import train as launch_train
 
-    what = "train_ring_ckpt"
-    root, layers, disk = _ckpt_place("ckpt_ring_smoke", 2, what)
-    before = card_memory()
-    log(f"[{what}] before the ranks spawn: {before['card_used_mib']} of "
-        f"{before['card_total_mib']} MiB of the card in use")
-    argv = _argv_with(ZERO1_INT8_ARGS, layers=layers, steps=CKPT_STEPS)
-    ranks = launch_train.spawn(_ckpt_ring_worker, 2, argv, str(root),
-                               timeout=900)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = launch_train.init_distributed(
+        launch_train.parser().parse_args(argv).device)
+    return _ckpt_runs(argv, ckpt_dir, world, "train_ring_ckpt")
+
+
+def check_ckpt_ranks(ranks: list, what: str, root: Path, layers: int,
+                     disk: dict, int8: bool) -> dict:
+    """The checks of :func:`_ckpt_runs` over its ranks: zero1 (``int8``:
+    over the int8 wire with the int8 arena), full width at ``layers``
+    layers, deterministic: the stop-and-resume check of train_ckpt,
+    bitwise, with every rank's restored arena, ``"ef"`` and moment shards
+    equal to what it saved and the launches a step of ``pack``,
+    ``reduce_add`` and under the int8 wire ``pack_quant`` and ``quant``
+    equal to the unbroken run's (on a model axis, the parameters laid out
+    as model blocks); the step directory's bytes and times, then the
+    directory deleted."""
+    import shutil
+
     step_dir = root / f"step_{CKPT_STOP:08d}"
     written = _dir_bytes(step_dir)
     verify_s = _verify_seconds(step_dir)
@@ -2715,10 +2796,14 @@ def phase_train_ring_ckpt() -> dict:
         if not o["final_same"]:
             raise AssertionError(f"[{what}] rank {r}: the final state differs"
                                  f" from the unbroken run's")
-        if not o["shards_same"] or not {"['arena']", "['ef']"} <= set(
-                o["sharded"]):
+        flat = {"['arena']", "['ef']"} if int8 else {"['arena']"}
+        if not o["shards_same"] or not flat <= set(o["sharded"]):
             raise AssertionError(f"[{what}] rank {r}: restored shards "
                                  f"{o['sharded']} differ from what it saved")
+        model_axis = o["mesh"].get("model", 1) > 1
+        if model_axis and "Blocks" not in o["rules"]:
+            raise AssertionError(f"[{what}] rank {r}: no model-sharded leaf "
+                                 f"in the layout {o['rules']}")
         c = o["counts"]
         per = {name: _per_step(c[name], n, what) for name, n in (
             ("unbroken", CKPT_STEPS), ("stopped", CKPT_STOP),
@@ -2726,33 +2811,36 @@ def phase_train_ring_ckpt() -> dict:
         if not per["unbroken"] == per["stopped"] == per["resumed"]:
             raise AssertionError(f"[{what}] rank {r}: launches a step "
                                  f"differ: {per}")
-        for name in ("pack_read", "pack_quant_write", "pack_quant_read",
-                     "quantize", "dequantize", "reduce_add"):
+        for name in (("pack_read", "pack_quant_write", "pack_quant_read",
+                      "quantize", "dequantize", "reduce_add") if int8 else
+                     ("pack_write", "pack_read", "reduce_add")):
             if not per["unbroken"][name]:
                 raise AssertionError(f"[{what}] rank {r}: no {name} launch")
         o["launches_per_step"] = per["unbroken"]
-    if ranks[0]["losses"] != ranks[1]["losses"]:
+    if any(o["losses"] != ranks[0]["losses"] for o in ranks):
         raise AssertionError(f"[{what}] the ranks disagree on the loss")
     o = ranks[0]
-    log(f"[{what}] 2 ranks on one card over gloo, zero1, int8 wire, "
-        f"{layers} layers, deterministic: losses "
-        f"{', '.join(f'{x:.6f}' for x in o['losses'])}; stopped at "
+    log(f"[{what}] {len(ranks)} ranks on one card over gloo, mesh "
+        f"{o['mesh']}, zero1, {'int8' if int8 else 'fp32'} wire, {layers} "
+        f"layers, deterministic: "
+        f"losses {', '.join(f'{x:.6f}' for x in o['losses'])}; stopped at "
         f"{CKPT_STOP} and resumed: losses bitwise, final state "
-        f"{o['n_leaves']} leaves bitwise (digests) on both ranks, restored "
-        f"{', '.join(o['sharded'])} bitwise what each rank saved")
+        f"{o['n_leaves']} leaves bitwise (digests) on every rank, restored "
+        f"{', '.join(o['sharded'])} bitwise what each rank saved; layout "
+        f"rules {o['rules']}")
     log(f"[{what}] step directory {written} B ({written / 2**30:.2f} GiB, "
         f"global arrays): save blocking (host copy + gather to rank 0) "
-        f"{o['save_blocking_s']:.3f} / {ranks[1]['save_blocking_s']:.3f} s, "
+        f"{', '.join(f'{x['save_blocking_s']:.3f}' for x in ranks)} s, "
         f"async write {o['async_write_s']:.3f} s (rank 0); restore "
-        f"{o['restore_s']:.3f} / {ranks[1]['restore_s']:.3f} s (sha256 of "
+        f"{', '.join(f'{x['restore_s']:.3f}' for x in ranks)} s (sha256 of "
         f"every file {verify_s:.3f} s); free disk {disk['free_bytes']} B")
     log(f"[{what}] launches a step {o['launches_per_step']} in all three "
-        f"runs on both ranks; step wall unbroken "
+        f"runs on every rank; step wall unbroken "
         f"{', '.join(f'{x * 1e3:.0f}' for x in o['step_s'])} ms, resumed "
         f"{', '.join(f'{x * 1e3:.0f}' for x in o['resumed_step_s'])} ms")
     shutil.rmtree(root)
     return {"ranks": ranks, "layers": layers, "written_bytes": written,
-            "verify_s": verify_s, "disk": disk, "card_before": before}
+            "verify_s": verify_s, "disk": disk}
 
 
 # the paper's first workload: a QCD-sized local lattice, 32^4 sites of a
@@ -2814,57 +2902,52 @@ def _halo_worker() -> dict:
     from repro_torch.launch import train as launch_train
 
     world = launch_train.init_distributed("cuda")
-    try:
-        dev, rank = world.device, world.rank
-        comm = stencil_comm("psum")
-        specs = stencil_op().specs
-        n = STENCIL_LOCAL[0]
-        xg = stencil_field(dev, 25, (2 * n,) + STENCIL_LOCAL[1:])
-        x = _own_block(xg, rank).contiguous()
-        want = {}
-        for s in specs:
-            w = STENCIL_LOCAL[s.dim]
-            want[(s.axis, "-")] = _own_block(
-                torch.roll(xg, 1, dims=s.dim), rank).narrow(s.dim, 0, 1)
-            want[(s.axis, "+")] = _own_block(
-                torch.roll(xg, -1, dims=s.dim), rank).narrow(s.dim, w - 1, 1)
-        out = {"backend": world.backend, "schedules": {}}
-        for sched in HALO_SCHEDULES:
-            comm.record.reset()
-            got = comm.halo_exchange(x, specs, schedule=sched)
+    dev, rank = world.device, world.rank
+    comm = stencil_comm("psum")
+    specs = stencil_op().specs
+    n = STENCIL_LOCAL[0]
+    xg = stencil_field(dev, 25, (2 * n,) + STENCIL_LOCAL[1:])
+    x = _own_block(xg, rank).contiguous()
+    want = {}
+    for s in specs:
+        w = STENCIL_LOCAL[s.dim]
+        want[(s.axis, "-")] = _own_block(
+            torch.roll(xg, 1, dims=s.dim), rank).narrow(s.dim, 0, 1)
+        want[(s.axis, "+")] = _own_block(
+            torch.roll(xg, -1, dims=s.dim), rank).narrow(s.dim, w - 1, 1)
+    out = {"backend": world.backend, "schedules": {}}
+    for sched in HALO_SCHEDULES:
+        comm.record.reset()
+        got = comm.halo_exchange(x, specs, schedule=sched)
+        torch.cuda.synchronize(dev)
+        rec = comm.record.as_dict()
+        same = all(torch.equal(got[k], v) for k, v in want.items())
+        plan = comm.halo_plan(STENCIL_LOCAL, specs, schedule=sched)
+        sizes = dict(zip(plan.axes, plan.axis_sizes))
+        wire = [b for k, b in zip(plan.unit_keys, plan.unit_bytes)
+                if sizes[k.rstrip("+-#0123456789")] > 1]
+        times = []
+        comm.record.reset()
+        for _ in range(HALO_REPEATS):
+            dist.barrier()
             torch.cuda.synchronize(dev)
-            rec = comm.record.as_dict()
-            same = all(torch.equal(got[k], v) for k, v in want.items())
-            plan = comm.halo_plan(STENCIL_LOCAL, specs, schedule=sched)
-            sizes = dict(zip(plan.axes, plan.axis_sizes))
-            wire = [b for k, b in zip(plan.unit_keys, plan.unit_bytes)
-                    if sizes[k.rstrip("+-#0123456789")] > 1]
-            times = []
-            comm.record.reset()
-            for _ in range(HALO_REPEATS):
-                dist.barrier()
-                torch.cuda.synchronize(dev)
-                t0 = time.perf_counter()
-                comm.halo_exchange(x, specs, schedule=sched)
-                torch.cuda.synchronize(dev)
-                times.append(time.perf_counter() - t0)
-            out["schedules"][sched] = {
-                "bitwise": same, "sends": rec["sends"],
-                "send_bytes": rec["send_bytes"], "plan_sends": len(wire),
-                "plan_bytes": sum(wire), "plan_units": plan.n_units,
-                "median_s": statistics.median(times),
-                "staging_s": comm.record.staging_s / HALO_REPEATS}
-        return out
-    finally:
-        dist.destroy_process_group()
+            t0 = time.perf_counter()
+            comm.halo_exchange(x, specs, schedule=sched)
+            torch.cuda.synchronize(dev)
+            times.append(time.perf_counter() - t0)
+        out["schedules"][sched] = {
+            "bitwise": same, "sends": rec["sends"],
+            "send_bytes": rec["send_bytes"], "plan_sends": len(wire),
+            "plan_bytes": sum(wire), "plan_units": plan.n_units,
+            "median_s": statistics.median(times),
+            "staging_s": comm.record.staging_s / HALO_REPEATS}
+    return out
 
 
-def phase_halo() -> dict:
-    """Two ranks on the one card over gloo, mesh (2, 1, 1, 1), a 32^4 x 24
-    fp32 block a rank: the four halo schedules (chunks 2, channels 2)."""
-    from repro_torch.launch import train as launch_train
-
-    ranks = launch_train.spawn(_halo_worker, 2, timeout=600)
+def check_halo(ranks: list) -> dict:
+    """The checks of the halo phase (:func:`_halo_worker`'s results: two
+    ranks on the one card over gloo, mesh (2, 1, 1, 1), a 32^4 x 24 fp32
+    block a rank, the four halo schedules at chunks 2, channels 2)."""
     for r, o in enumerate(ranks):
         if o["backend"] != "gloo":
             raise AssertionError(f"[halo] rank {r} backend {o['backend']}")
@@ -2972,7 +3055,6 @@ def _stencil_cg_worker() -> dict:
     schedules and on ring_hier with the plain local add (bitwise), the
     unrolled ladder, and one profiled solve on rank 0."""
     import torch
-    import torch.distributed as dist
 
     from repro_torch.core.ring import _channel_slices
     from repro_torch.launch import train as launch_train
@@ -2981,89 +3063,86 @@ def _stencil_cg_worker() -> dict:
                                      predicted_reduction_collectives, solve)
 
     world = launch_train.init_distributed("cuda")
-    try:
-        dev, rank = world.device, world.rank
-        op = stencil_op()
-        comms = {t: stencil_comm(t.removesuffix("_plain"),
-                                 "plain" if t.endswith("_plain") else
-                                 "kernel")
-                 for t in ("psum", "ring_hier", "ring_hier_plain")}
-        n = STENCIL_LOCAL[0]
-        b = _own_block(stencil_field(dev, 28, (2 * n,) + STENCIL_LOCAL[1:]),
-                       rank).contiguous()
-        ring = comms["ring_hier"]
-        flat = ring.transport.flat_divisor(ring.axis_sizes)
-        adds = len(_channel_slices(flat // 2, ring.transport.ring_cfg))
-        torch.cuda.reset_peak_memory_stats(dev)
-        out = {"backend": world.backend, "solves": {}, "ladder": {},
-               "adds_per_all_reduce": adds}
-        for solver in SOLVERS:
-            for precond in PRECONDS:
-                kw = dict(solver=solver, precond=precond, **STENCIL_CG)
-                row = {}
-                sols = {}
-                for t in ("psum", "ring_hier"):
-                    solve(op, b, comms[t], **kw)         # warm, untimed
-                    reset_launch_counters()
-                    comms[t].record.reset()
-                    res, ms = _solve_timed(
-                        dev, lambda: solve(op, b, comms[t], **kw))
-                    row[t] = {"iters": res.iters, "ms": ms,
-                              "rel": float(res.rel_residual),
-                              "launches": launch_counters(),
-                              "record": comms[t].record.as_dict()}
-                    sols[t] = res.x
-                row["true_rel"] = _true_rel(op, sols["psum"], b,
-                                            comms["psum"])
-                same = {"ring_hier": torch.equal(sols["ring_hier"],
-                                                 sols["psum"])}
-                for sched in ("sequential", "concurrent", "chunked"):
-                    res = solve(op, b, comms["psum"],
-                                **{**kw, "schedule": sched})
-                    same[sched] = torch.equal(res.x, sols["psum"])
-                res = solve(op, b, comms["ring_hier_plain"], **kw)
-                same["ring_hier_plain"] = torch.equal(res.x,
-                                                      sols["ring_hier"])
-                row["bitwise"] = same
-                row["predicted_all_reduces"] = \
-                    predicted_reduction_collectives(
-                        solver, row["ring_hier"]["iters"], s=4)
-                out["solves"][f"{solver}/{precond}"] = row
-                comm = comms["psum"]
-                comm.record.reset()
-                solve(op, b, comm, **{**kw, "tol": None, "maxiter": 8})
-                rec = comm.record.as_dict()
-                out["ladder"][f"{solver}/{precond}"] = {
-                    "all_reduces": rec["all_reduces"], "sends": rec["sends"],
-                    "predicted_sends": 2 * predicted_halo_exchanges(
-                        solver, precond, 8, s=4)}
-        out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    dev, rank = world.device, world.rank
+    op = stencil_op()
+    comms = {t: stencil_comm(t.removesuffix("_plain"),
+                             "plain" if t.endswith("_plain") else
+                             "kernel")
+             for t in ("psum", "ring_hier", "ring_hier_plain")}
+    n = STENCIL_LOCAL[0]
+    b = _own_block(stencil_field(dev, 28, (2 * n,) + STENCIL_LOCAL[1:]),
+                   rank).contiguous()
+    ring = comms["ring_hier"]
+    flat = ring.transport.flat_divisor(ring.axis_sizes)
+    adds = len(_channel_slices(flat // 2, ring.transport.ring_cfg))
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {"backend": world.backend, "solves": {}, "ladder": {},
+           "adds_per_all_reduce": adds}
+    for solver in SOLVERS:
+        for precond in PRECONDS:
+            kw = dict(solver=solver, precond=precond, **STENCIL_CG)
+            row = {}
+            sols = {}
+            for t in ("psum", "ring_hier"):
+                solve(op, b, comms[t], **kw)         # warm, untimed
+                reset_launch_counters()
+                comms[t].record.reset()
+                res, ms = _solve_timed(
+                    dev, lambda: solve(op, b, comms[t], **kw))
+                row[t] = {"iters": res.iters, "ms": ms,
+                          "rel": float(res.rel_residual),
+                          "launches": launch_counters(),
+                          "record": comms[t].record.as_dict()}
+                sols[t] = res.x
+            row["true_rel"] = _true_rel(op, sols["psum"], b,
+                                        comms["psum"])
+            same = {"ring_hier": torch.equal(sols["ring_hier"],
+                                             sols["psum"])}
+            for sched in ("sequential", "concurrent", "chunked"):
+                res = solve(op, b, comms["psum"],
+                            **{**kw, "schedule": sched})
+                same[sched] = torch.equal(res.x, sols["psum"])
+            res = solve(op, b, comms["ring_hier_plain"], **kw)
+            same["ring_hier_plain"] = torch.equal(res.x,
+                                                  sols["ring_hier"])
+            row["bitwise"] = same
+            row["predicted_all_reduces"] = \
+                predicted_reduction_collectives(
+                    solver, row["ring_hier"]["iters"], s=4)
+            out["solves"][f"{solver}/{precond}"] = row
+            comm = comms["psum"]
+            comm.record.reset()
+            solve(op, b, comm, **{**kw, "tol": None, "maxiter": 8})
+            rec = comm.record.as_dict()
+            out["ladder"][f"{solver}/{precond}"] = {
+                "all_reduces": rec["all_reduces"], "sends": rec["sends"],
+                "predicted_sends": 2 * predicted_halo_exchanges(
+                    solver, precond, 8, s=4)}
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
 
-        def one():
-            solve(op, b, comms["ring_hier"], solver="cg", precond="none",
-                  **STENCIL_CG)
+    def one():
+        solve(op, b, comms["ring_hier"], solver="cg", precond="none",
+              **STENCIL_CG)
 
-        if rank == 0:
-            wall, by_name, _ = device_activity(one, 1, warm=False)
-            busy = sum(by_name.values())
-            out["profile"] = {"wall_ms": wall, "busy_ms": busy,
-                              "idle_share": 1 - busy / wall}
-        else:
-            one()
-        return out
-    finally:
-        dist.destroy_process_group()
+    if rank == 0:
+        wall, by_name, _ = device_activity(one, 1, warm=False)
+        busy = sum(by_name.values())
+        out["profile"] = {"wall_ms": wall, "busy_ms": busy,
+                          "idle_share": 1 - busy / wall}
+    else:
+        one()
+    return out
 
 
-def phase_stencil_cg(dev) -> dict:
+def phase_stencil_cg(dev, ranks: list) -> dict:
     """The CG family on one rank (global true residual through
-    ``apply_reference``) and on two ranks over gloo (psum and ring_hier,
+    ``apply_reference``), and the checks of its two ranks over gloo
+    (:func:`_stencil_cg_worker`'s results ``ranks``: psum and ring_hier,
     every schedule, ``reduce_add`` launches, the ladder)."""
     import torch
 
     from repro_torch.kernels.reduce_add import ops as ra
     from repro_torch.kernels.reduce_add import ref as ra_ref
-    from repro_torch.launch import train as launch_train
     from repro_torch.stencil import (PRECONDS, SOLVERS,
                                      predicted_reduction_collectives, solve)
 
@@ -3110,7 +3189,6 @@ def phase_stencil_cg(dev) -> dict:
     set_launch_counters(saved)
     torch.cuda.empty_cache()
 
-    ranks = launch_train.spawn(_stencil_cg_worker, 2, timeout=900)
     launched = 0
     for r, o in enumerate(ranks):
         if o["backend"] != "gloo":
@@ -4124,6 +4202,9 @@ TP_PREFILL_L2 = 1.25        # prefill_tp: relative L2 error at most this
 TP_SEQ_CACHE = 8192         # serve_contiguous_tp's sequence-sharded cache
 TP_SEQ_POS = 8000           # its decode position: both ranks' slots valid
 TP_SEQ_ATOL = 2e-2          # tests/test_distributed.py::SERVE_SCRIPT
+TP_SERVE_LONG_LEN = 64      # serve_tp's long requests (the serve phase's
+                            # 192 until train_tp_fsdp joined the script:
+                            # 210 decode steps, now 82)
 
 
 def _tp_mesh():
@@ -4250,36 +4331,25 @@ def _tp_train_worker(argv: list[str]) -> dict:
     import gc
 
     import torch
-    import torch.distributed as dist
 
     from repro_torch.launch import train as launch_train
 
     torch.backends.cuda.matmul.allow_tf32 = False
     world = launch_train.init_distributed("cuda")
-    try:
-        out = {"backend": world.backend}
-        for mode in ("replicated", "zero1"):
-            args = launch_train.parser().parse_args(argv +
-                                                    ["--dp-mode", mode])
-            out[mode] = _tp_train_run(args, world)
-            gc.collect()
-            torch.cuda.empty_cache()
-        out["gate"] = _tp_gate(world)
-        return out
-    finally:
-        dist.destroy_process_group()
+    out = {"backend": world.backend}
+    for mode in ("replicated", "zero1"):
+        args = launch_train.parser().parse_args(argv + ["--dp-mode", mode])
+        out[mode] = _tp_train_run(args, world)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["gate"] = _tp_gate(world)
+    return out
 
 
-def phase_train_tp() -> dict:
-    """Two ranks on the one card over gloo on a (1, 2) mesh: Megatron-style
-    TP training at full width, replicated then zero1, and the fp32 gate."""
-    from repro_torch.launch import train as launch_train
-
-    before = card_memory()
-    log(f"[train_tp] before the ranks spawn: {before['card_used_mib']} of "
-        f"{before['card_total_mib']} MiB of the card in use")
-    ranks = launch_train.spawn(_tp_train_worker, 2, TP_TRAIN_ARGS,
-                               timeout=900)
+def check_train_tp(ranks: list) -> dict:
+    """The checks of train_tp (:func:`_tp_train_worker`'s results: two
+    ranks on the one card over gloo on a (1, 2) mesh, Megatron-style TP
+    training at full width, replicated then zero1, and the fp32 gate)."""
     for r, out in enumerate(ranks):
         if out["backend"] != "gloo":
             raise AssertionError(f"[train_tp] rank {r} backend "
@@ -4349,7 +4419,7 @@ def phase_train_tp() -> dict:
         f"{norm_err:.3e} relative; replicated leaves bitwise equal on both "
         f"ranks")
     return {"ranks": ranks, "gate_loss_err": loss_err,
-            "gate_norm_err": norm_err, "card_before": before}
+            "gate_norm_err": norm_err}
 
 
 def _prefill_errors(got, ref) -> dict:
@@ -4445,7 +4515,7 @@ def _tp_contiguous(model, full, world) -> dict:
             fed.append(token.clone())
             return step(params, token, state, pos)
 
-        run.ctx = step.ctx
+        run.ctx, run.fsdp = step.ctx, step.fsdp
         return run
 
     def forced(*a, **kw):
@@ -4460,7 +4530,7 @@ def _tp_contiguous(model, full, world) -> dict:
                                  != fed[pos + 1]).sum())
             return logits, state
 
-        run.ctx = step.ctx
+        run.ctx, run.fsdp = step.ctx, step.fsdp
         return run
 
     serve.build_decode_step = recording
@@ -4559,9 +4629,9 @@ def _tp_paged(world) -> dict:
         kv_heads.add((q.shape[1], k.shape[1], v.shape[1]))
         return wrapper(q, k, v, valid)
 
-    args = serve.parser().parse_args(
-        [a if a != "both" else "continuous" for a in SERVE_ARGS]
-        + ["--model-parallel", "2"])
+    args = serve.parser().parse_args(_argv_with(
+        [a if a != "both" else "continuous" for a in SERVE_ARGS],
+        long_len=TP_SERVE_LONG_LEN, model_parallel=2))
     ops.flash_decode_stats = seen
     try:
         run = serve.setup_paged(args, dev)
@@ -4647,7 +4717,6 @@ def _tp_serve_worker() -> dict:
     import gc
 
     import torch
-    import torch.distributed as dist
 
     from repro_torch.configs import get_config
     from repro_torch.launch import train as launch_train
@@ -4655,37 +4724,32 @@ def _tp_serve_worker() -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     world = launch_train.init_distributed("cuda")
-    try:
-        model = build_model(get_config(ARCH))
-        _check_full_width(model.cfg, 16, "prefill_tp")
-        full = model.init(torch.Generator(device=world.device).manual_seed(0),
-                          world.device)
-        out, seconds = {"backend": world.backend}, {}
-        for name, fn in (("prefill_tp", lambda: _tp_prefill(model, full,
-                                                            world)),
-                         ("serve_contiguous_tp",
-                          lambda: _tp_contiguous(model, full, world))):
-            t0 = time.perf_counter()
-            out[name] = fn()
-            seconds[name] = time.perf_counter() - t0
-        del full
-        gc.collect()
-        torch.cuda.empty_cache()
+    model = build_model(get_config(ARCH))
+    _check_full_width(model.cfg, 16, "prefill_tp")
+    full = model.init(torch.Generator(device=world.device).manual_seed(0),
+                      world.device)
+    out, seconds = {"backend": world.backend}, {}
+    for name, fn in (("prefill_tp", lambda: _tp_prefill(model, full,
+                                                        world)),
+                     ("serve_contiguous_tp",
+                      lambda: _tp_contiguous(model, full, world))):
         t0 = time.perf_counter()
-        out["serve_tp"] = _tp_paged(world)
-        seconds["serve_tp"] = time.perf_counter() - t0
-        out["seconds"] = seconds
-        return out
-    finally:
-        dist.destroy_process_group()
+        out[name] = fn()
+        seconds[name] = time.perf_counter() - t0
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["serve_tp"] = _tp_paged(world)
+    seconds["serve_tp"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    return out
 
 
-def phase_serve_tp() -> dict:
-    """Two ranks on the one card over gloo on a (1, 2) mesh: prefill_tp,
-    serve_contiguous_tp and serve_tp, with their gates."""
-    from repro_torch.launch import train as launch_train
-
-    ranks = launch_train.spawn(_tp_serve_worker, 2, timeout=900)
+def check_serve_tp(ranks: list) -> dict:
+    """The checks of prefill_tp, serve_contiguous_tp and serve_tp
+    (:func:`_tp_serve_worker`'s results: two ranks on the one card over
+    gloo on a (1, 2) mesh), with their gates."""
     r0 = ranks[0]
     for r, out in enumerate(ranks):
         p = out["prefill_tp"]
@@ -4792,6 +4856,384 @@ def phase_serve_tp() -> dict:
     return {"ranks": ranks, "seconds": r0["seconds"]}
 
 
+# four ranks on a (2, 2) ("data", "model") mesh: fsdp, its fp32 gate, the
+# checkpoint and the gathered prefill, in one spawn
+TP_FSDP_ARGS = ["--arch", ARCH, "--dp-mode", "fsdp", "--transport",
+                "ring_hier", "--use-arena", "--seq", "256", "--batch", "8",
+                "--steps", "3", "--device", "cuda", "--seed", "0",
+                "--model-parallel", "2", "--layers", "4"]
+TP_FSDP_PREFILL_BATCH = 2    # the gathered prefill's B (one row a data rank)
+
+
+def tp_fsdp_model_all_reduces(layers: int, microbatches: int, steps: int
+                              ) -> int:
+    """The model axis's all-reduces of ``steps`` steps of the TP model
+    under ``remat="layer"``, from the code: per microbatch the forward's
+    embedding psum, two row-parallel psums a layer (``wo``, ``w_down``) and
+    the cross entropy's three (max, exp-sum, gold); the backward's two
+    fan-outs a layer (``ln1``, ``ln2``), the kv weights' two sums a layer
+    and the final norm's fan-out; the recomputed forward's ``wo`` psum a
+    layer (the recomputation stops once the last saved activation, the
+    ``w_down`` product's input, is made again, before the ``w_down``
+    psum); and a step's gradient norm (the same count whether the
+    parameters are resident or gathered fsdp shards: the gathers run on
+    the data axes)."""
+    per_mb = (1 + 2 * layers + 3) + (4 * layers + 1) + layers
+    return steps * (microbatches * per_mb + 1)
+
+
+def _tp_fsdp_train(world) -> dict:
+    """fsdp on the (2, 2) mesh, full width at 4 layers, native bf16
+    gathers, the arena on, 3 steps, deterministic; a profiled step; then
+    one step over the ring gather and its kernel step against its plain
+    step (each its own backward pass)."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.runtime.train_step import shard_batch
+
+    _deterministic(torch)
+    args = launch_train.parser().parse_args(TP_FSDP_ARGS)
+    run = launch_train.setup(args, world)
+    _check_full_width(run.model.cfg, args.layers, "train_tp_fsdp")
+    trainer = run.trainer
+    step = trainer.step_fn
+    if (step.model_size, step.data_world, step.cfg.dp_mode) != (2, 2,
+                                                                "fsdp"):
+        raise AssertionError(f"[train_tp_fsdp] mesh {step.mesh}, dp_mode "
+                             f"{step.cfg.dp_mode}")
+    plan = step.fsdp
+    predicted, wire = fsdp_expected(step, args.steps, step.data_world)
+    reset_launch_counters()
+    step.comm.record.reset()
+    step.model_record.reset()
+    hist = trainer.run()["history"]
+    counts, routes = launch_counters(), pack_routes()
+    record, model_rec = (step.comm.record.as_dict(),
+                         step.model_record.as_dict())
+    peak_run = torch.cuda.max_memory_allocated(world.device)
+    model_pred = tp_fsdp_model_all_reduces(
+        args.layers, step.schedule.microbatches, args.steps)
+    prof = step_profile(trainer, step.data_index, step.data_world,
+                        profiled=world.rank == 0)
+    out = {"losses": [h["loss"] for h in hist],
+           "grad_norms": [h["grad_norm"] for h in hist],
+           "step_s": [h["sec"] for h in hist], "counts": counts,
+           "predicted": predicted, "pack_routes": routes, "record": record,
+           "wire": wire, "model_record": model_rec,
+           "model_predicted": model_pred,
+           "n_buckets": sum(b.n_buckets for b in plan.plans.values()),
+           "shard_bytes": 4 * sum(n for sizes in plan.shard_sizes.values()
+                                  for n in sizes),
+           "local_params": sum(f.size for b in plan.plans.values()
+                               for f in b.fields),
+           "params": run.model.param_count(),
+           "peak_run_bytes": peak_run,
+           "peak_bytes": torch.cuda.max_memory_allocated(world.device),
+           "profile": prof}
+    trainer.state = None
+    del run, trainer, step, plan
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = launch_train.parser().parse_args(_argv_with(TP_FSDP_ARGS,
+                                                       steps=1))
+    run = launch_train.setup(args, world,
+                             step_overrides={"fsdp_gather": "ring"})
+    trainer, step = run.trainer, run.trainer.step_fn
+    rpred, rwire = fsdp_expected(step, 1, step.data_world)
+    reset_launch_counters()
+    step.comm.record.reset()
+    h = trainer.run()["history"][0]
+    out["ring"] = {"loss": h["loss"], "step_s": h["sec"],
+                   "counts": launch_counters(), "predicted": rpred,
+                   "wire": rwire, "record": step.comm.record.as_dict()}
+    state = trainer.state
+    batch = shard_batch(trainer.data.batch_at(state["step"]),
+                        step.data_index, step.data_world)
+    same = kernel_vs_plain_step(step, state, batch, world.device,
+                                shared=False)
+    out["ring"].update(bitwise=same["bitwise"], differ=same["differ"])
+    return out
+
+
+def _tp_fsdp_gate(world) -> dict:
+    """fsdp on the (2, 2) mesh at TP_GATE_LAYERS layers, fp32 compute and
+    fp32 gathers, against the one-rank replicated run (rank 0 alone, a
+    (1, 1) mesh): the same seed, batches and optimizer, 3 steps."""
+    import gc
+
+    import torch
+
+    from repro_torch.comm import CommConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.topology import RankMesh
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.models import build_model
+    from repro_torch.optim import OptimConfig
+    from repro_torch.runtime.train_loop import Trainer, TrainerConfig
+    from repro_torch.runtime.train_step import TrainStepConfig
+
+    model = build_model(get_config(ARCH).with_(num_layers=TP_GATE_LAYERS,
+                                               dtype="float32"))
+    data = SyntheticTokens(DataConfig(vocab_size=model.cfg.vocab_size,
+                                      seq_len=256, global_batch=8))
+    comm = CommConfig(transport="ring_hier", chunks=2)
+    optim = OptimConfig(base_lr=3e-4, warmup=1, total_steps=3)
+
+    def hist(mesh, cfg):
+        tr = Trainer(model, mesh, cfg, data, TrainerConfig(steps=3, seed=0),
+                     device=world.device, rank=world.rank,
+                     log=lambda msg: None)
+        h = tr.run()["history"]
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        return [x["loss"] for x in h], [x["grad_norm"] for x in h]
+
+    fsdp = hist(RankMesh(("data", "model"), (2, 2)), TrainStepConfig(
+        dp_mode="fsdp", comm=comm, optim=optim, gather_dtype="float32"))
+    one = hist(RankMesh(("data", "model"), (1, 1)), TrainStepConfig(
+        dp_mode="replicated", comm=comm, optim=optim)) \
+        if world.rank == 0 else None
+    return {"fsdp": fsdp, "one": one}
+
+
+def _tp_gathered_prefill(world) -> dict:
+    """``build_prefill(weight_mode="gathered")`` on the (2, 2) mesh, full
+    width, 16 layers, B=2, S=4096, bf16 (this rank's data shards of its
+    model block, gathered at the call) against the resident prefill of the
+    same weights on the same mesh: this rank's rows and vocab shard."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.topology import RankMesh
+    from repro_torch.models import build_model
+    from repro_torch.runtime.serve_step import build_prefill, serve_params
+
+    dev = world.device
+    mesh = RankMesh(("data", "model"), (2, 2))
+    model = build_model(get_config(ARCH))
+    _check_full_width(model.cfg, 16, "train_tp_fsdp")
+    layers = model.cfg.num_layers
+    b, seq = TP_FSDP_PREFILL_BATCH, PREFILL_CHECK_SEQ
+    shape = ShapeConfig("prefill_gathered_tp", seq, b, "prefill")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, model.cfg.vocab_size, (b, seq),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)}
+    resident = build_prefill(model, shape, device=dev, mesh=mesh)
+    gathered = build_prefill(model, shape, weight_mode="gathered",
+                             device=dev, mesh=mesh)
+    full = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    params = serve_params(resident, model, full, mesh)
+    groups = serve_params(gathered, model, full, mesh)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = resident(params, batch)
+    gathered(groups, batch)                               # warm
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counters()
+    t0 = time.perf_counter()
+    got = gathered(groups, batch)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    counts, routes = launch_counters(), attn_routes()
+    peak = torch.cuda.max_memory_allocated(dev)
+    t0 = time.perf_counter()
+    resident(params, batch)
+    torch.cuda.synchronize(dev)
+    wall_resident = time.perf_counter() - t0
+    diff = (got.float() - want.float()).abs()
+    out = {"layers": layers, "shape": tuple(got.shape), "counts": counts,
+           "routes": routes, "finite": bool(torch.isfinite(got).all()),
+           "max_abs_diff": diff.max().item(),
+           "rel_l2": (diff.norm() / want.float().norm()).item(),
+           "outside": int((diff > ENGINE_ATOL + ENGINE_RTOL
+                           * want.float().abs()).sum()),
+           "wall_ms": wall * 1e3, "resident_wall_ms": wall_resident * 1e3,
+           "peak_bytes": peak,
+           "shard_bytes": sum(t.numel() * t.element_size()
+                              for v in groups["groups"].values()
+                              for t in v)}
+    del params, groups, want, got, diff, resident, gathered
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_fsdp_ckpt(world, root: str, layers: int) -> dict:
+    """The checkpoint on the (2, 2) mesh: :func:`_ckpt_runs` of zero1 (the
+    arch's default) with the fp32 arena at ``layers`` layers."""
+    argv = _argv_with(ZERO1_ARGS, layers=layers, steps=CKPT_STEPS,
+                      model_parallel=2)
+    return _ckpt_runs(argv, root, world, "train_tp_fsdp")
+
+
+def _tp_fsdp_worker(root: str, ckpt_layers: int) -> dict:
+    """One of the four ranks of train_tp_fsdp: the fsdp run, the fp32 gate,
+    the checkpoint and the gathered prefill, each part's seconds beside
+    its result (the card's cache emptied between the parts)."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch import train as launch_train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = launch_train.init_distributed("cuda")
+    out = {"backend": world.backend, "seconds": {}}
+    for name, fn, args in (
+            ("fsdp", _tp_fsdp_train, ()), ("gate", _tp_fsdp_gate, ()),
+            ("ckpt", _tp_fsdp_ckpt, (root, ckpt_layers)),
+            ("prefill", _tp_gathered_prefill, ())):
+        torch.cuda.reset_peak_memory_stats(world.device)
+        t0 = time.perf_counter()
+        out[name] = fn(world, *args)
+        out["seconds"][name] = time.perf_counter() - t0
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = True
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_tp_fsdp() -> dict:
+    """Four ranks on the one card over gloo on a (2, 2) ``("data",
+    "model")`` mesh: fsdp at full width, its fp32 gate, the checkpoint of
+    model-sharded state and the gathered prefill (one spawn)."""
+    what = "train_tp_fsdp"
+    root, layers, disk = _ckpt_place("ckpt_tp_smoke", 4, what)
+    ranks, seconds = spawn_in_turn(what, 4, [(_tp_fsdp_worker,
+                                              (str(root), layers))])
+    ranks = ranks[0]
+    for r, o in enumerate(ranks):
+        if o["backend"] != "gloo":
+            raise AssertionError(f"[{what}] rank {r} backend {o['backend']}")
+        f = o["fsdp"]
+        if not all(math.isfinite(x) for x in f["losses"]):
+            raise AssertionError(f"[{what}] rank {r}: non-finite loss")
+        _check_launches(f"{what} rank {r}", f["counts"], f["predicted"],
+                        f["pack_routes"])
+        _check_wire(f"{what} rank {r}", f["record"], f["wire"])
+        if f["model_record"]["all_reduces"] != f["model_predicted"]:
+            raise AssertionError(
+                f"[{what}] rank {r}: {f['model_record']['all_reduces']} "
+                f"model-axis all-reduces, the code gives "
+                f"{f['model_predicted']}")
+        g = f["ring"]
+        _check_counts(f"{what} ring gather rank {r}", g["counts"],
+                      g["predicted"])
+        _check_wire(f"{what} ring gather rank {r}", g["record"], g["wire"])
+        if not g["counts"]["reduce_add"]:
+            raise AssertionError(f"[{what}] rank {r}: no reduce_add launch "
+                                 f"over the ring gather")
+        if not g["bitwise"]:
+            raise AssertionError(f"[{what}] rank {r}: ring gather kernel "
+                                 f"step and plain step differ: "
+                                 f"{g['differ']}")
+        p = o["prefill"]
+        layers16 = p["layers"]
+        if p["counts"] != dict(dict.fromkeys(p["counts"], 0),
+                               flash_attn=layers16) or \
+                p["routes"] != dict(dict.fromkeys(p["routes"], 0),
+                                    wgmma=layers16):
+            raise AssertionError(f"[{what}] rank {r}: gathered prefill "
+                                 f"launches {p['counts']}, by route "
+                                 f"{p['routes']}: expected {layers16} wgmma "
+                                 f"flash_attn and no other")
+        if not p["finite"] or p["outside"]:
+            raise AssertionError(f"[{what}] rank {r}: gathered prefill "
+                                 f"finite {p['finite']}, {p['outside']} "
+                                 f"logits outside rtol {ENGINE_RTOL} / atol "
+                                 f"{ENGINE_ATOL} of the resident prefill's")
+
+    def no_staging(rec):
+        return {k: v for k, v in rec.items() if k != "staging_s"}
+
+    f0 = ranks[0]["fsdp"]
+    for o in ranks[1:]:
+        if o["fsdp"]["losses"] != f0["losses"]:
+            raise AssertionError(f"[{what}] the ranks disagree on the loss")
+        if no_staging(o["fsdp"]["model_record"]) != \
+                no_staging(f0["model_record"]):
+            raise AssertionError(f"[{what}] the ranks' model-axis "
+                                 f"collectives differ")
+    gate = ranks[0]["gate"]
+    (fl, fn), (ol, on) = gate["fsdp"], gate["one"]
+    loss_err = max(abs(x - y) for x, y in zip(fl, ol))
+    norm_err = max(abs(x - y) / y for x, y in zip(fn, on))
+    if loss_err > TP_GATE_ATOL or norm_err > 1e-4:
+        raise AssertionError(f"[{what}] fp32 gate at {TP_GATE_LAYERS} "
+                             f"layers: losses {fl} vs one rank {ol} "
+                             f"({loss_err:.3e}), norms {fn} vs {on}")
+    if any(o["gate"]["fsdp"] != gate["fsdp"] for o in ranks[1:]):
+        raise AssertionError(f"[{what}] the ranks' gate runs disagree")
+    ckpt = check_ckpt_ranks([o["ckpt"] for o in ranks], what, root, layers,
+                            disk, int8=False)
+    n = len(f0["losses"])
+    rec, mrec, prof = f0["record"], f0["model_record"], f0["profile"]
+    log(f"[{what}] fsdp on (2, 2), 4 layers, native bf16 gathers, arena "
+        f"on, deterministic: {f0['local_params']} parameters a model block "
+        f"({f0['params']} in all), {f0['n_buckets']} group buckets, "
+        f"{f0['shard_bytes']} B of fp32 shards a rank: losses "
+        f"{', '.join(f'{x:.4f}' for x in f0['losses'])} on all four ranks; "
+        f"step wall {', '.join(f'{x * 1e3:.0f}' for x in f0['step_s'])} ms; "
+        f"peak {f0['peak_run_bytes'] / 2**30:.2f} GiB a rank "
+        f"({f0['peak_bytes'] / 2**30:.2f} with the profiled step)")
+    log(f"[{what}] a step: model-axis all-reduces {mrec['all_reduces'] / n:.0f}"
+        f" ({mrec['all_reduce_bytes'] / n / 2**20:.1f} MiB, staging "
+        f"{mrec['staging_s'] / n:.3f} s; == the code's "
+        f"{f0['model_predicted'] / n:.0f}, the same on every rank); data "
+        f"axis: gathers {rec['all_gathers'] / n:.0f} "
+        f"({rec['all_gather_bytes'] / n / 2**20:.1f} MiB), reduce-scatters "
+        f"{rec['reduce_scatters'] / n:.0f} "
+        f"({rec['reduce_scatter_bytes'] / n / 2**20:.1f} MiB), all-reduces "
+        f"{rec['all_reduces'] / n:.0f}, staging {rec['staging_s'] / n:.3f} "
+        f"s; launches {({k: v for k, v in f0['counts'].items() if v})} == "
+        f"expected, pack by route {f0['pack_routes']}")
+    log(f"[{what}] profiled fsdp step (rank 0): wall "
+        f"{prof['step_wall_ms']:.1f} ms, device busy "
+        f"{prof['step_device_ms']:.1f} ms, idle share "
+        f"{prof['idle_share']:.3f}")
+    g = f0["ring"]
+    log(f"[{what}] ring gather, 1 step: loss {g['loss']:.4f}, wall "
+        f"{g['step_s'] * 1e3:.0f} ms; launches "
+        f"{({k: v for k, v in g['counts'].items() if v})} == expected (the "
+        f"reduce-scatter's hops, fp32 + bf16); sends {g['record']['sends']}"
+        f" == expected; kernel step == plain step bitwise on all four "
+        f"ranks")
+    log(f"[{what}] gate, {TP_GATE_LAYERS} layers fp32, fp32 gathers: fsdp "
+        f"on (2, 2) {', '.join(f'{x:.6f}' for x in fl)} vs one replicated "
+        f"rank {', '.join(f'{x:.6f}' for x in ol)}: max |diff| "
+        f"{loss_err:.3e} (<= {TP_GATE_ATOL}), gradient norms within "
+        f"{norm_err:.3e} relative")
+    p0 = ranks[0]["prefill"]
+    log(f"[{what}] gathered prefill on (2, 2), 16 layers, B="
+        f"{TP_FSDP_PREFILL_BATCH} S={PREFILL_CHECK_SEQ}, bf16: local logits "
+        f"{p0['shape']} a rank, flash_attn {p0['counts']['flash_attn']} "
+        f"launches a rank (wgmma {p0['routes']['wgmma']}), no other kernel; "
+        f"vs the resident prefill on (2, 2): max |diff| "
+        f"{max(o['prefill']['max_abs_diff'] for o in ranks):.4e}, relative "
+        f"L2 {max(o['prefill']['rel_l2'] for o in ranks):.4e}, 0 outside "
+        f"rtol {ENGINE_RTOL} / atol {ENGINE_ATOL}; wall "
+        f"{p0['wall_ms']:.1f} ms (resident {p0['resident_wall_ms']:.1f} ms)"
+        f", peak {p0['peak_bytes'] / 2**30:.2f} GiB, shards "
+        f"{p0['shard_bytes']} B a rank")
+    parts = ranks[0]["seconds"]
+    log(f"[{what}] seconds (rank 0): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+    return {"ranks": ranks, "gate_loss_err": loss_err,
+            "gate_norm_err": norm_err, "ckpt": ckpt, "seconds": parts,
+            "spawn_s": seconds[0]}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -4817,14 +5259,49 @@ def main() -> None:
             phase_s[name] = time.perf_counter() - t0
             log(f"[phase] {name}: {phase_s[name]:.1f} s")
 
+    def in_turn(name: str, jobs: list) -> list:
+        """The two-rank train phases ``jobs`` ((phase, worker, args)) in
+        one spawn; each phase's seconds are rank 0's inside it."""
+        results, secs = run_phase(name, spawn_in_turn, name, 2,
+                                  [(w, a) for _, w, a in jobs])
+        for (phase, _, _), sec in zip(jobs, secs):
+            phase_s[phase] = sec
+            log(f"[phase] {phase}: {sec:.1f} s (rank 0, inside {name})")
+        return results
+
     run_phase("build", phase_build)
-    # first, while this process holds nothing on the card: the two ranks
-    # of the deepest phases get the whole of it
-    train_ring_zero1 = run_phase("train_ring_zero1", phase_train_ring,
-                                 ZERO1_RING_ARGS, "train_ring_zero1")
-    train_ring_fsdp = run_phase(
-        "train_ring_fsdp", phase_train_ring_fsdp, FSDP_RING_ARGS,
-        "train_ring_fsdp", "ring", train_ring_zero1["ranks"][0]["losses"])
+    # first, while this process holds nothing on the card: the two-rank
+    # train phases, zero1's and fsdp's (deterministic both) in one spawn,
+    # then the replicated and int8 ones in another
+    zero1_ranks, fsdp_ranks = in_turn("ring_ranks_deterministic", [
+        ("train_ring_zero1", _ring_worker, (ZERO1_RING_ARGS,)),
+        ("train_ring_fsdp", _fsdp_ring_worker, (FSDP_RING_ARGS, "ring"))])
+    train_ring_zero1 = check_train_ring(zero1_ranks, "train_ring_zero1")
+    train_ring_fsdp = check_train_ring_fsdp(
+        fsdp_ranks, "train_ring_fsdp", "ring",
+        train_ring_zero1["ranks"][0]["losses"])
+    ckpt_root, ckpt_layers, ckpt_disk = _ckpt_place(
+        "ckpt_ring_smoke", 2, "train_ring_ckpt")
+    ckpt_argv = _argv_with(ZERO1_INT8_ARGS, layers=ckpt_layers,
+                           steps=CKPT_STEPS)
+    ring_ranks, int8_ranks, zero1_int8_ranks, fsdp_int8_ranks, \
+        ckpt_ranks = in_turn("ring_ranks", [
+            ("train_ring", _ring_worker, (RING_ARGS,)),
+            ("train_ring_int8", _ring_worker, (RING_ARGS + INT8_ARGS,)),
+            ("train_ring_zero1_int8", _ring_worker, (ZERO1_INT8_ARGS,)),
+            ("train_ring_fsdp_int8", _fsdp_ring_worker, (FSDP_INT8_ARGS,
+                                                         "native")),
+            ("train_ring_ckpt", _ckpt_ring_worker, (ckpt_argv,
+                                                    str(ckpt_root)))])
+    train_ring = check_train_ring(ring_ranks, "train_ring")
+    train_ring_int8 = check_train_ring(int8_ranks, "train_ring_int8")
+    train_ring_zero1_int8 = check_train_ring(zero1_int8_ranks,
+                                             "train_ring_zero1_int8")
+    train_ring_fsdp_int8 = check_train_ring_fsdp(
+        fsdp_int8_ranks, "train_ring_fsdp_int8", "native")
+    train_ring_ckpt = check_ckpt_ranks(ckpt_ranks, "train_ring_ckpt",
+                                       ckpt_root, ckpt_layers, ckpt_disk,
+                                       int8=True)
     kernel_err = run_phase("kernel", phase_kernel, dev)
     kernels_train = run_phase("kernels_train", phase_kernels_train, dev)
     serve, run = run_phase("serve", phase_serve, dev)
@@ -4840,16 +5317,12 @@ def main() -> None:
                                  dev)
     timing_attn = run_phase("timing_attn", phase_timing_attn, dev)
     train, train_layout = run_phase("train", phase_train, dev)
-    train_ring = run_phase("train_ring", phase_train_ring, RING_ARGS,
-                           "train_ring")
     ring0 = train_ring["ranks"][0]
     timing_train = run_phase("timing_train", phase_timing_train, dev,
                              ring0["hop_widths"], train_layout)
     kernels_int8 = run_phase("kernels_int8", phase_kernels_int8, dev)
     train_int8 = run_phase("train_int8", phase_train_int8, dev,
                            train["losses"])
-    train_ring_int8 = run_phase("train_ring_int8", phase_train_ring,
-                                RING_ARGS + INT8_ARGS, "train_ring_int8")
     ring8 = train_ring_int8["ranks"][0]
     log(f"[train_ring_int8] host staging through pinned memory over 3 "
         f"steps, rank 0 / rank 1: int8 wire "
@@ -4864,32 +5337,39 @@ def main() -> None:
                             train_int8["block"])
     train_zero1 = run_phase("train_zero1", phase_train_zero1, dev,
                             train["losses"])
-    train_ring_zero1_int8 = run_phase("train_ring_zero1_int8",
-                                      phase_train_ring, ZERO1_INT8_ARGS,
-                                      "train_ring_zero1_int8")
     train_fsdp = run_phase("train_fsdp", phase_train_fsdp, dev,
                            train_zero1["replicated_losses"])
-    train_ring_fsdp_int8 = run_phase(
-        "train_ring_fsdp_int8", phase_train_ring_fsdp, FSDP_INT8_ARGS,
-        "train_ring_fsdp_int8", "native")
     prefill_gathered = run_phase("prefill_gathered", phase_prefill_gathered,
                                  dev)
     fsdp0 = train_ring_fsdp["ranks"][0]
     timing_fsdp = run_phase("timing_fsdp", phase_timing_fsdp, dev,
                             fsdp0["hop_widths"])
     train_ckpt = run_phase("train_ckpt", phase_train_ckpt, dev)
-    train_ring_ckpt = run_phase("train_ring_ckpt", phase_train_ring_ckpt)
     torch.cuda.empty_cache()
-    halo = run_phase("halo", phase_halo)
+    # the halo phase, stencil_cg's two ranks, train_tp and the TP serving
+    # phases share one spawn of two ranks
+    halo_ranks, cg_ranks, train_tp_ranks, serve_tp_ranks = in_turn(
+        "stencil_tp_ranks", [
+            ("halo", _halo_worker, ()),
+            ("stencil_cg_ranks", _stencil_cg_worker, ()),
+            ("train_tp", _tp_train_worker, (TP_TRAIN_ARGS,)),
+            ("serve_tp_ranks", _tp_serve_worker, ())])
+    halo = check_halo(halo_ranks)
     stencil = run_phase("stencil", phase_stencil, dev)
-    stencil_cg = run_phase("stencil_cg", phase_stencil_cg, dev)
+    stencil_cg = run_phase("stencil_cg", phase_stencil_cg, dev, cg_ranks)
     torch.cuda.empty_cache()
-    train_tp = run_phase("train_tp", phase_train_tp)
-    serve_tp = run_phase("serve_tp_ranks", phase_serve_tp)
+    train_tp = check_train_tp(train_tp_ranks)
+    serve_tp = check_serve_tp(serve_tp_ranks)
     for name, sec in serve_tp["seconds"].items():
         phase_s[name] = sec
-        log(f"[phase] {name}: {sec:.1f} s (rank 0, inside serve_tp_ranks)")
+        log(f"[phase] {name}: {sec:.1f} s (rank 0, inside "
+            f"stencil_tp_ranks)")
+    torch.cuda.empty_cache()
+    train_tp_fsdp = run_phase("train_tp_fsdp", phase_train_tp_fsdp)
+    for name, sec in train_tp_fsdp["seconds"].items():
+        phase_s[f"train_tp_fsdp.{name}"] = sec
     tp0, stp0 = train_tp["ranks"][0], serve_tp["ranks"][0]
+    tf0 = train_tp_fsdp["ranks"][0]
     # each kernel's launches a rank on the tensor-parallel paths: 3 steps of
     # train_tp in each mode, one prefill_tp, the whole serve_tp trace
     tp_launches = {name: {
@@ -4897,7 +5377,10 @@ def main() -> None:
         "train_tp_zero1": tp0["zero1"]["counts"][name],
         "prefill_tp": stp0["prefill_tp"]["counts"][name],
         "serve_contiguous_tp": stp0["serve_contiguous_tp"]["counts"][name],
-        "serve_tp": stp0["serve_tp"]["counts"][name]}
+        "serve_tp": stp0["serve_tp"]["counts"][name],
+        "train_tp_fsdp": tf0["fsdp"]["counts"][name],
+        "train_tp_fsdp_ring_step": tf0["fsdp"]["ring"]["counts"][name],
+        "prefill_gathered_tp": tf0["prefill"]["counts"][name]}
         for name in launch_counters()}
     z1, z8 = (train_ring_zero1["ranks"][0],
               train_ring_zero1_int8["ranks"][0])
@@ -4949,6 +5432,8 @@ def main() -> None:
     ckpt_launches = {name: {
         "train_ckpt": train_ckpt["launches_per_step"][name],
         "train_ring_ckpt": train_ring_ckpt["ranks"][0][
+            "launches_per_step"][name],
+        "train_tp_fsdp_ckpt": train_tp_fsdp["ckpt"]["ranks"][0][
             "launches_per_step"][name]}
         for name in list(launches) + ["flash_attn", "flash_decode"]}
     fsdp_launches = {name: {"train_fsdp": train_fsdp["launches"][name],
@@ -5046,6 +5531,7 @@ def main() -> None:
              "train_ring_ckpt": train_ring_ckpt, "halo": halo,
              "stencil": stencil, "stencil_cg": stencil_cg,
              "train_tp": train_tp, "serve_tp": serve_tp,
+             "train_tp_fsdp": train_tp_fsdp,
              "phase_s": phase_s,
              "torch": torch.__version__, "cuda": torch.version.cuda,
              "wall_s": time.perf_counter() - t_start}, indent=1))

@@ -17,12 +17,21 @@ is written with the ``'<V2'`` descr that ``np.save`` gives an ml_dtypes
 bfloat16 array and ``"bfloat16"`` in ``meta``, and read back bit for bit.
 
 **Global arrays.**  The reference saves *global* arrays.  In the port each
-rank holds its own shard of the leaves its :class:`TrainStep` marks
-:data:`SHARDED` (1-D, rank ``r`` of ``p`` holding elements ``[r*n,
-(r+1)*n)``); :class:`CheckpointManager` gathers them to rank 0 on the host
-in rank order, rank 0 writes, and on restore every rank reads the files
-and takes its own slice.  :data:`REPLICATED` leaves are written from rank
-0's copy.
+rank holds its own part of the leaves its :class:`TrainStep` lays out as
+
+* :data:`SHARDED`: a flat 1-D leaf, rank ``r`` of ``p`` holding elements
+  ``[r*n, (r+1)*n)`` (the reference's ``P(('data', 'model'))``: the device
+  at ``(d, m)`` holds block ``d * model_size + m``, its rank);
+  :class:`CheckpointManager` gathers them to rank 0 on the host in rank
+  order;
+* :class:`Blocks`: a leaf split over the mesh's model axis by its spec (a
+  tensor-parallel parameter or moment); rank 0 assembles the global array
+  from the blocks of the ranks that share its data coordinates
+  (:func:`~repro_torch.sharding.rules.global_from_shards`);
+* :data:`REPLICATED`: written from rank 0's copy.
+
+Rank 0 writes, and on restore every rank reads the files and takes its own
+part (:func:`~repro_torch.sharding.rules.shard_slices` for a block).
 
 Fault-tolerance contract: a crash mid-write leaves an uncommitted dir that
 restore skips; ``keep_n`` GC never deletes the newest committed step.
@@ -42,6 +51,9 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import _msgpack
+from repro_torch.core.topology import RankMesh
+from repro_torch.sharding.rules import (MODEL_AXIS, global_from_shards,
+                                        shard_slices, spec_axes)
 
 COMMIT_MARK = "COMMITTED"
 REPLICATED = "replicated"      # every rank holds the whole leaf
@@ -52,14 +64,31 @@ _HASH_THREADS = 8
 
 
 @dataclass(frozen=True)
+class Blocks:
+    """The layout rule of a leaf split over the model axis by ``spec`` (a
+    spec of :mod:`repro_torch.sharding.rules` naming no other axis): the
+    file holds the global array, each rank its block."""
+
+    spec: tuple
+
+
+@dataclass(frozen=True)
 class RankShards:
     """This process's place among the ranks that share one state: rank
-    ``rank`` of ``world``, and the host-side (gloo) process group the
-    checkpoint gathers and agrees over (``None``: the default group)."""
+    ``rank`` of ``world``, the host-side (gloo) process group the
+    checkpoint gathers and agrees over (``None``: the default group), and
+    the mesh the ranks form (``None``: data-only, no :class:`Blocks`)."""
 
     rank: int = 0
     world: int = 1
     group: Any = None
+    mesh: Any = None
+
+    def block_holders(self) -> list[int]:
+        """The ranks that share rank 0's data coordinates, in model order:
+        the ones whose blocks make a :class:`Blocks` leaf's global
+        array."""
+        return self.mesh.groups((MODEL_AXIS,))[0]
 
 
 ONE_RANK = RankShards()
@@ -306,7 +335,14 @@ def restore(like: Any, step: int, ckpt_dir: str, *, verify: bool = True,
         if rec["dtype"] == "bfloat16":
             arr = arr.view(np.int16)
         shape = _shape(leaf)
-        if rule == SHARDED and ranks.world > 1:
+        if isinstance(rule, Blocks):
+            arr = arr[shard_slices(arr.shape, rule.spec, ranks.mesh,
+                                   ranks.rank)]
+            if tuple(arr.shape) != shape:
+                raise ValueError(
+                    f"shape mismatch for {rec['path']}: this rank's block "
+                    f"of the ckpt is {arr.shape}, the state's {shape}")
+        elif rule == SHARDED and ranks.world > 1:
             if len(shape) != 1:
                 raise ValueError(f"sharded leaf {key} must be 1-D, got "
                                  f"{shape}")
@@ -359,6 +395,9 @@ def _host_global(state: Any, layout: Any = None,
 
     out = []
     for (key, leaf), rule in zip(flat, rules):
+        if isinstance(rule, Blocks):
+            out.append(_host_blocks(key, leaf, rule.spec, ranks))
+            continue
         if rule != SHARDED:
             out.append(_host_copy(leaf) if ranks.rank == 0 else None)
             continue
@@ -378,6 +417,44 @@ def _host_global(state: Any, layout: Any = None,
     if ranks.rank != 0:
         return None
     return _rebuild(state, iter(out))
+
+
+def _host_blocks(key: str, leaf, spec: tuple, ranks: RankShards):
+    """A :class:`Blocks` leaf's global array on rank 0 (``None`` on the
+    other ranks): the blocks of :meth:`RankShards.block_holders` sent to
+    rank 0 point to point in bounded messages, assembled in model order.
+    Collective: every rank calls it."""
+    import torch.distributed as dist
+
+    if ranks.mesh is None or set(spec_axes(spec)) - {MODEL_AXIS}:
+        raise ValueError(f"leaf {key}: blocks need the ranks' mesh and a "
+                         f"spec over the model axis alone, got {spec!r}")
+    holders = ranks.block_holders()
+    if holders[0] != 0:
+        raise ValueError(f"rank 0 is not the first of its model group "
+                         f"{holders}")
+    if ranks.rank not in holders:
+        return None
+    local = leaf.detach().to("cpu", copy=True).contiguous()
+
+    def chunks(n: int):
+        return [(lo, min(lo + _GATHER_CHUNK, n))
+                for lo in range(0, n, _GATHER_CHUNK)]
+
+    raw = local.view(-1).view(torch.uint8)
+    if ranks.rank != 0:
+        for lo, hi in chunks(raw.numel()):
+            dist.send(raw[lo:hi], dst=0, group=ranks.group)
+        return None
+    blocks = [local]
+    for r in holders[1:]:
+        blk = torch.empty_like(local)
+        buf = blk.view(-1).view(torch.uint8)
+        for lo, hi in chunks(buf.numel()):
+            dist.recv(buf[lo:hi], src=r, group=ranks.group)
+        blocks.append(blk)
+    return global_from_shards(blocks, spec,
+                              RankMesh((MODEL_AXIS,), (len(holders),)))
 
 
 class CheckpointManager:

@@ -20,7 +20,9 @@ on the CPU or for ranks sharing one card): with ``--paged`` each rank
 scores its slice of the page-table columns and the ranks merge the softmax
 statistics (page-parallel decode, weights replicated); the contiguous loop
 runs tensor-parallel (weights model-sharded, caches of 8192 slots or more
-sequence-sharded, the vocab shards gathered for the argmax).  Rank 0
+sequence-sharded, the vocab shards gathered for the argmax), with each
+rank's block resident or, where the arch's setting says ``gathered``, as
+fsdp shards gathered at every step.  Rank 0
 prints.  The reference's ``--production-mesh`` is not ported.  With
 ``--paged``, ``--obs-dir DIR`` instruments rank 0's engine and scheduler
 (``events.jsonl`` and ``trace.json`` under DIR, read with ``python -m
@@ -43,8 +45,7 @@ from repro_torch.launch.settings import settings_for
 from repro_torch.models import Model, build_model
 from repro_torch.obs import ObsConfig, make_obs
 from repro_torch.runtime.serve_step import (build_decode_step, gather_vocab,
-                                            init_decode_state,
-                                            resident_params)
+                                            init_decode_state, serve_params)
 from repro_torch.serve.engine import (PagedDecodeEngine,
                                       predicted_collectives_per_token,
                                       predicted_wire_bytes_per_token)
@@ -146,23 +147,26 @@ def run_paged(args, device=None) -> dict:
     return results
 
 
-def run_contiguous(args, device=None) -> dict:
+def run_contiguous(args, device=None, weight_mode: str | None = None
+                   ) -> dict:
     """Decodes ``--tokens`` tokens for ``--batch`` sequences against
     ``--cache``-slot caches, from position 0 with token 0, feeding back the
     greedy argmax, on the ``(1, --model-parallel)`` mesh; returns the wall
     time (device work included), tokens/s and the last logits (the whole
-    vocabulary, on the CPU)."""
+    vocabulary, on the CPU).  The weights are the arch's ``serve_weights``
+    at full size and resident with ``--reduced``, unless ``weight_mode``
+    says otherwise (the reference's CLI has no flag for it)."""
     dev = resolve_device(device if device is not None else args.device)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     model = build_model(cfg)
     mesh = serve_mesh(args.model_parallel)
     shape = ShapeConfig("serve", args.cache, args.batch, "decode")
-    wm = settings_for(args.arch).serve_weights if not args.reduced \
-        else "resident"
+    wm = weight_mode or (settings_for(args.arch).serve_weights
+                         if not args.reduced else "resident")
     step = build_decode_step(model, shape, weight_mode=wm, device=dev,
                              mesh=mesh)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = resident_params(model, model.init(gen, dev), mesh)
+    params = serve_params(step, model, model.init(gen, dev), mesh)
     state = init_decode_state(model, shape, mesh, device=dev)
     token = torch.zeros((args.batch,), dtype=torch.int32, device=dev)
     logits = None
@@ -176,7 +180,8 @@ def run_contiguous(args, device=None) -> dict:
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
     _log(f"{args.arch}: {args.tokens * args.batch / dt:.1f} tok/s "
-         f"(batch {args.batch}, cache {args.cache}) R={args.model_parallel}")
+         f"(batch {args.batch}, cache {args.cache}) R={args.model_parallel}"
+         f" weights={wm}")
     return {"wall_s": dt, "tokens_per_s": args.tokens * args.batch / dt,
             "logits": logits.cpu()}
 

@@ -16,9 +16,9 @@ one card), gloo on the CPU.  ::
 The ranks form the reference's host mesh, ``("data", "model")`` with a
 model axis of ``--model-parallel`` (2 by default) halved until it divides
 the rank count (``launch/mesh.py``): ``--nproc 2`` trains tensor-parallel
-on (1, 2), ``--nproc 4`` on (2, 2).  ``replicated`` and ``zero1`` run on a
-model axis; ``fsdp`` and ``--ckpt-dir`` need ``--model-parallel 1``
-(ROADMAP Queue 1 #6b).
+on (1, 2), ``--nproc 4`` on (2, 2).  Every ``--dp-mode`` and ``--ckpt-dir``
+run on a model axis (fsdp shards each rank's model block over the data
+axes; the checkpoint holds global arrays, as the reference's).
 
 It runs on ``cuda`` unless ``--device cpu`` is given.  ``--dp-mode`` is
 ``replicated``, ``zero1`` (llama3.2-1b's own default at full size) or
@@ -294,8 +294,7 @@ def parser() -> argparse.ArgumentParser:
                     help="torch device (default cuda)")
     ap.add_argument("--model-parallel", type=int, default=2,
                     help="model axis of the (data, model) host mesh, halved "
-                         "until it divides the rank count (1: data-only; "
-                         "fsdp and --ckpt-dir need it)")
+                         "until it divides the rank count (1: data-only)")
     ap.add_argument("--nproc", type=int, default=None,
                     help="spawn this many local ranks (else one rank, or "
                          "the world of torch.distributed's environment)")

@@ -10,10 +10,11 @@ place, which stands for the reference's donation of the state.
 * ``resident`` — every rank holds the whole parameter tree;
 * ``gathered`` — the parameters are FSDP flat shards
   (``{"groups": {name: [shards]}}``, :meth:`FsdpPlan.shard_state` of the
-  plan the step was built with, ``TrainStepConfig(dp_mode="fsdp")``), each
-  rank holding ``1/world`` of every bucket; the root groups are gathered in
-  bf16 at every call and each block as the model reaches it.  Decoder-only
-  stacks only, as in the reference.
+  plan the step was built with, ``TrainStepConfig(dp_mode="fsdp")``, the
+  step's ``fsdp``; :func:`serve_params` makes them), each rank holding
+  ``1/world`` of every bucket of its model block; the root groups are
+  gathered in bf16 at every call and each block as the model reaches it.
+  Decoder-only stacks only, as in the reference.
 
 A step built over a mesh of several ranks (``mesh``; one rank by
 default) takes the global batch and computes this rank's rows of it, as
@@ -22,9 +23,9 @@ it, else over ``data`` alone, else not at all; the decode state holds this
 rank's rows (:func:`local_batch`).  Under ``gathered`` every rank must
 call the step together: the gathers are collectives.
 
-On a mesh with a model axis above 1 (resident weights only; ``gathered``
-there is refused, ROADMAP Queue 1 #6b) the step runs tensor-parallel: the
-parameters are this rank's blocks (:func:`resident_params`), the decode
+On a mesh with a model axis above 1 the step runs tensor-parallel: the
+parameters are this rank's blocks (:func:`resident_params`; under
+``gathered`` its data shards of them, gathered over the data axes), the decode
 state is laid out by ``decode_state_specs`` (:func:`init_decode_state`:
 caches of 8192 slots or more are sequence-sharded over the model axis),
 and the logits are this rank's vocab shard; :func:`gather_vocab` gathers
@@ -46,8 +47,7 @@ from repro_torch.models import transformer
 from repro_torch.models.model_api import Model
 from repro_torch.models.parallel import ParallelCtx, make_ctx
 from repro_torch.runtime.train_step import (FsdpPlan, TrainStepConfig,
-                                            data_mesh, model_size_of,
-                                            require_data_only)
+                                            data_mesh, model_size_of)
 from repro_torch.sharding.rules import (decode_state_specs, local_shapes,
                                         local_shard, map_specs)
 
@@ -132,6 +132,16 @@ def init_decode_state(model: Model, shape_cfg: ShapeConfig,
         local_shapes(full, specs, mesh))
 
 
+def serve_params(step, model: Model, params, mesh: RankMesh | None = None):
+    """The parameters a built prefill or decode ``step`` takes, from the
+    full tree: this rank's blocks (``resident``), or this rank's fsdp
+    shards of them (``gathered``, the step's plan)."""
+    local = resident_params(model, params, mesh)
+    if step.fsdp is None:
+        return local
+    return {"groups": step.fsdp.shard_state(local)}
+
+
 def gather_vocab(ctx: ParallelCtx, logits: torch.Tensor) -> torch.Tensor:
     """The ranks' vocab shards of ``logits`` (last dimension) gathered into
     the whole vocabulary, on every rank (the identity at one rank)."""
@@ -142,14 +152,14 @@ def gather_vocab(ctx: ParallelCtx, logits: torch.Tensor) -> torch.Tensor:
 
 
 def _weights(model: Model, mesh: RankMesh, weight_mode: str, what: str):
-    """A function of the step's ``params`` that returns the tree and the
+    """``(fn, plan)``: ``fn`` maps the step's ``params`` to the tree and the
     keyword arguments the model is called with: the parameters as they are
-    (``resident``; this rank's blocks on a model axis), or the gathered
-    roots and the block resolver of an :class:`FsdpPlan` (``gathered``)."""
+    (``resident``, plan ``None``; this rank's blocks on a model axis), or
+    the gathered roots and the block resolver of the :class:`FsdpPlan`
+    ``plan`` (``gathered``; building it makes its process groups)."""
     _check_weight_mode(weight_mode)
     if weight_mode == "resident":
-        return lambda params: (params, {})
-    require_data_only(mesh, f"gathered {what} (weight_mode='gathered')")
+        return (lambda params: (params, {})), None
     _require_decoder_only(model.cfg, what)
     plan = FsdpPlan(model, mesh, TrainStepConfig(dp_mode="fsdp"))
 
@@ -158,7 +168,7 @@ def _weights(model: Model, mesh: RankMesh, weight_mode: str, what: str):
                                                   torch.bfloat16)
         return tree, {"block_resolver": resolver}
 
-    return gathered
+    return gathered, plan
 
 
 def build_prefill(model: Model, shape_cfg: ShapeConfig, *,
@@ -175,8 +185,8 @@ def build_prefill(model: Model, shape_cfg: ShapeConfig, *,
     reference's blockwise loop."""
     dev = resolve_device(device)
     mesh = mesh or data_mesh(1)
-    weights = _weights(model, mesh, weight_mode, "prefill")
-    ctx = make_ctx(mesh)
+    weights, plan = _weights(model, mesh, weight_mode, "prefill")
+    ctx = make_ctx(mesh)              # the model axis's groups come after
     want = (shape_cfg.global_batch, shape_cfg.seq_len)
     rows = _batch_rows(mesh, shape_cfg.global_batch)
 
@@ -191,7 +201,7 @@ def build_prefill(model: Model, shape_cfg: ShapeConfig, *,
                                  causal_skip=causal_skip, attn_impl=attn_impl,
                                  **kw)
 
-    prefill.ctx = ctx
+    prefill.ctx, prefill.fsdp = ctx, plan
     return prefill
 
 
@@ -206,8 +216,8 @@ def build_decode_step(model: Model, shape_cfg: ShapeConfig, *,
     counts, and its slots of a sequence-sharded cache)."""
     dev = resolve_device(device)
     mesh = mesh or data_mesh(1)
-    weights = _weights(model, mesh, weight_mode, "decode")
-    ctx = make_ctx(mesh)
+    weights, plan = _weights(model, mesh, weight_mode, "decode")
+    ctx = make_ctx(mesh)              # the model axis's groups come after
     seq_len = shape_cfg.seq_len
     rows = _batch_rows(mesh, shape_cfg.global_batch)
 
@@ -218,5 +228,5 @@ def build_decode_step(model: Model, shape_cfg: ShapeConfig, *,
             return model.decode_step(tree, token[rows], state, int(pos),
                                      ctx=ctx, seq_len=seq_len, **kw)
 
-    decode.ctx = ctx
+    decode.ctx, decode.fsdp = ctx, plan
     return decode

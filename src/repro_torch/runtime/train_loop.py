@@ -3,12 +3,12 @@
 Port of ``repro.runtime.train_loop``.  Data is stateless: step ``s`` trains
 on ``data.batch_at(s)``, of which this rank takes the rows of its data
 coordinate (the ranks of one model group take the same rows), so a resumed
-run replays the same batches.  A checkpoint on a model axis above 1 is
-refused (ROADMAP Queue 1 #6b).
+run replays the same batches.
 
 The fault-tolerance contract: every ``ckpt_every`` steps the full train
-state is saved (atomically, async; the sharded leaves gathered into global
-arrays on rank 0, in the reference's on-disk format), and on construction
+state is saved (atomically, async; the flat and the model-sharded leaves
+gathered into global arrays on rank 0, in the reference's on-disk format,
+:meth:`TrainStep.state_layout`), and on construction
 the trainer resumes from the newest committed step.
 
 Observability: with ``TrainerConfig.obs`` set, the trainer publishes onto
@@ -36,8 +36,7 @@ from repro_torch.models.model_api import Model
 from repro_torch.obs import ObsConfig, make_obs
 from repro_torch.runtime.ft import StragglerMonitor
 from repro_torch.runtime.train_step import (TrainStep, TrainStepConfig,
-                                            init_train_state,
-                                            require_data_only, shard_batch)
+                                            init_train_state, shard_batch)
 
 
 @dataclass
@@ -61,9 +60,6 @@ class Trainer:
         self.log = log
         self.rank = rank
         self.world = mesh.size
-        if tcfg.ckpt_dir:
-            # the format gathers model-sharded leaves into global arrays
-            require_data_only(mesh, "a checkpoint (ckpt_dir)")
         self.obs = make_obs(tcfg.obs)
         self.monitor = StragglerMonitor(bus=self.obs.bus)
         self.step_fn = TrainStep(model, mesh, step_cfg, device=device)

@@ -23,8 +23,9 @@ each rank holds its block of every parameter (:meth:`Model.param_specs`,
 the model code calls the model-axis collectives of :func:`make_ctx`'s
 context (Megatron-style), and the communicator reduces over the data axes
 only: over the ranks that share this rank's model index, whose local
-shards have the same shapes.  ``replicated`` and ``zero1`` run on a model
-axis; ``fsdp`` on one is refused (ROADMAP Queue 1 #6b).
+shards have the same shapes.  Every mode runs on a model axis: under
+``fsdp`` the flat buckets are those of this rank's block, sharded over the
+data axes, as the reference's.
 
 With
 ``use_arena`` the gradients pack into the page-aligned
@@ -51,7 +52,9 @@ shapes their accumulation over microbatches (the arena is then the
 accumulation buffer).  The shards are updated in place of the parameters.
 ``fsdp_gather="native"`` gathers with ``dist.all_gather_into_tensor``,
 ``"ring"`` with the transport's ring, whose reduce-scatter adds with the
-``reduce_add`` kernel; a wire codec is refused with the ring gather.
+``reduce_add`` kernel; a wire codec is refused with the ring gather.  On a
+model axis the gathered block is this rank's block of the layer, and the
+layer's model-axis collectives run inside the same recomputed function.
 """
 
 from __future__ import annotations
@@ -62,7 +65,7 @@ from typing import Sequence
 import torch
 
 from repro_torch import tree as tree_util
-from repro_torch.checkpoint import REPLICATED, SHARDED, RankShards
+from repro_torch.checkpoint import REPLICATED, SHARDED, Blocks, RankShards
 from repro_torch.comm.api import CommConfig, Communicator
 from repro_torch.comm.schedule import (SCHEDULE_POLICIES, CommSchedule,
                                        build_schedule)
@@ -73,14 +76,15 @@ from repro_torch.mem.arena import CommArena, QuantCommArena
 from repro_torch.mem.layout import (ArenaLayout, QuantArenaLayout, plan_arena,
                                     plan_quant_arena)
 from repro_torch.models.model_api import Model
-from repro_torch.models.parallel import ParallelCtx, make_ctx
+from repro_torch.models.parallel import make_ctx
 from repro_torch.models.transformer import init_params
 from repro_torch.optim import (OptimConfig, adamw_flat_update,
                                adamw_tree_update, clip_factor,
                                global_grad_norm, init_opt_state,
                                init_opt_state_flat, make_schedule)
 from repro_torch.sharding.rules import (MODEL_AXIS, is_model_sharded,
-                                        local_shard, spec_leaves)
+                                        local_shapes, local_shard, map_specs,
+                                        spec_leaves)
 
 DP_MODES = ("replicated", "zero1", "fsdp")
 FSDP_GATHERS = ("native", "ring")
@@ -140,14 +144,6 @@ def data_mesh(world: int) -> RankMesh:
 
 def model_size_of(mesh: RankMesh) -> int:
     return mesh.sizes().get(MODEL_AXIS, 1)
-
-
-def require_data_only(mesh: RankMesh, what: str) -> None:
-    """Refuses ``what`` on a model axis above 1 (not ported yet)."""
-    if model_size_of(mesh) > 1:
-        raise NotImplementedError(
-            f"{what} on a model axis of {model_size_of(mesh)} is not ported "
-            f"yet (ROADMAP Queue 1 #6b); use a mesh whose model axis is 1")
 
 
 def shard_batch(batch: dict, index: int, world: int) -> dict:
@@ -244,13 +240,17 @@ class FsdpPlan:
     """Per-group flat-bucket layout of ``fsdp``: every block (``blocks.i``)
     and each root entry (``root.embed``, ``root.final_norm``) is bucketed
     on its own, so that a layer gathers and releases its weights alone.
+    The buckets hold this rank's block of each group (the model-local
+    shapes of :meth:`Model.param_specs`; the whole group without a model
+    axis), sharded over the data axes.
 
     Owns the communicator of the fsdp collectives, with buckets of
     ``cfg.fsdp_bucket_bytes``; building it creates process groups, which is
     collective (every rank builds its plans in the same order).  Under
     ``use_arena`` the arena layout holds one segment per group-bucket shard,
     in the sorted-name order in which the gradient tree flattens: fp32, or
-    the int8 layout under a wire codec.
+    the int8 layout under a wire codec.  :attr:`norm_weights` holds, per
+    group, :func:`build_norm_weights` of its buckets.
     """
 
     def __init__(self, model: Model, mesh: RankMesh, cfg: TrainStepConfig,
@@ -271,7 +271,11 @@ class FsdpPlan:
                 f"'native' or a ring transport")
         self.dp_world = self.comm.world
         self.bucketer = self.comm.bucketer
-        local = abstract_params(model)
+        self.specs = model.param_specs(mesh)
+        full = abstract_params(model)
+        local = map_specs(lambda leaf, shape: torch.empty(
+            shape, dtype=leaf.dtype, device="meta"), full,
+            local_shapes(full, self.specs, mesh))
         self.block_keys = [k for k in ("blocks",) if k in local]
         self.groups: dict[str, object] = {}
         for k in sorted(local):
@@ -297,6 +301,12 @@ class FsdpPlan:
                 self.arena_layout = plan_arena(
                     sizes, page_bytes=self.comm.cfg.page_bytes,
                     dtype=torch.float32)
+        model_size = model_size_of(mesh)
+        self.norm_weights = {
+            name: build_norm_weights(
+                self.plans[name],
+                spec_leaves(self._group_of(self.specs, name)), model_size)
+            for name in self.groups}
 
     def _group_of(self, tree, name: str):
         kind, _, idx = name.partition(".")
@@ -365,7 +375,10 @@ class TrainStep:
     ``zero1`` it also holds the shard sizes of the optimizer state (one per
     bucket, or one per arena span) and, per shard, the ranges that count in
     the gradient norm (:func:`zero1_norm_ranges`).  Under ``fsdp`` it holds
-    the :class:`FsdpPlan` (:attr:`fsdp`), whose communicator is the step's.
+    the :class:`FsdpPlan` (:attr:`fsdp`), whose communicator is the step's,
+    and the same ranges of the plan's norm weights, per group-bucket shard
+    in sorted group order.  On a model axis the context's model-axis
+    collectives record into :attr:`model_record`.
 
     For checkpoints it holds :attr:`ranks` (this rank's place in the global
     arrays and, over several ranks, a gloo group of its own when the
@@ -376,8 +389,6 @@ class TrainStep:
     def __init__(self, model: Model, mesh: RankMesh, cfg: TrainStepConfig,
                  *, device: torch.device):
         require_ported(cfg.dp_mode)
-        if cfg.dp_mode == "fsdp":
-            require_data_only(mesh, "dp_mode='fsdp'")
         self.model = model
         self.mesh = mesh
         self.cfg = cfg
@@ -392,11 +403,15 @@ class TrainStep:
         self.norm_weights: list[list[float]] = []
         self.fsdp: FsdpPlan | None = None
         policy = cfg.schedule_policy
+        self.specs = model.param_specs(mesh)
+        self.model_record = CommRecord()
         if cfg.dp_mode == "fsdp":
             self.fsdp = FsdpPlan(model, mesh, cfg)
             self.comm = self.fsdp.comm
-            self.ctx = ParallelCtx(data=self.comm.transport.rails[0].joint)
-            self.specs = None
+            self.ranks = self._checkpoint_ranks()
+            # the model axis's own groups, made after the communicator's
+            self.ctx = make_ctx(mesh, self.comm.transport.rails[0].joint,
+                                self.model_record)
             self.plan = None
             lay = self.fsdp.arena_layout
             self.arena = (None if lay is None else
@@ -404,15 +419,16 @@ class TrainStep:
                           if isinstance(lay, QuantArenaLayout)
                           else CommArena(lay, impl=cfg.comm.local_op))
             self.schedule = _fsdp_schedule(self.fsdp, cfg.microbatches)
-            self.ranks = self._checkpoint_ranks()
+            rings = tuple(reversed(self.comm.transport.rails[0].axes))
+            self.norm_ranges, self.norm_weights = zero1_norm_ranges(
+                [w for name in sorted(self.fsdp.groups)
+                 for w in self.fsdp.norm_weights[name]], rings)
             return
         self.comm = Communicator(mesh, cfg.comm_config(("pod", "data")))
         self.ranks = self._checkpoint_ranks()
         # the model axis's own groups, made after the communicator's
-        self.model_record = CommRecord()
         self.ctx = make_ctx(mesh, self.comm.transport.rails[0].joint,
                             self.model_record)
-        self.specs = model.param_specs(mesh)
         local = self.local_params(abstract_params(model))
         self.plan = self.comm.plan(local)
         self.arena = self.comm.arena(local) if cfg.use_arena else None
@@ -456,7 +472,7 @@ class TrainStep:
         """This rank's block of a full parameter tree (``params`` itself
         without a model axis; a leaf split over the model axis is copied,
         so that the full tree can be freed)."""
-        if self.specs is None or self.model_size == 1:
+        if self.model_size == 1:
             return params
         rank = self.comm.rank
         local = local_shard(params, self.specs, self.mesh, rank)
@@ -465,42 +481,69 @@ class TrainStep:
             blk.device.type == "meta" else blk.clone(), local, params)
 
     def _checkpoint_ranks(self) -> RankShards:
-        """This rank's place in the global arrays of a checkpoint: its
-        index on the data axes, which must be its ring's ownership order
-        (rank ``r`` owns elements ``[r*n/p, (r+1)*n/p)`` of every
-        reduce-scatter), and the host-side group the checkpoint gathers
-        over.  Collective over several ranks."""
-        world = self.comm.world
-        if self.model_size > 1:
-            return None                   # refused by the Trainer (#6b)
-        if world == 1:
+        """This rank's place in the global arrays of a checkpoint and the
+        host-side group the checkpoint gathers over (over several ranks, a
+        gloo group of its own when the default group is not gloo).  A flat
+        leaf is split over every axis of the mesh (the reference's
+        ``P(('data', 'model'))``): the device at ``(d, m)`` holds block
+        ``d * model_size + m``, which must be its rank in the group, and its
+        shard must be block ``d`` of the data ring's ownership order (rank
+        ``r`` owns elements ``[r*n/p, (r+1)*n/p)`` of every
+        reduce-scatter).  Collective over several ranks."""
+        if self.mesh.size == 1:
             return RankShards()
         import torch.distributed as dist
 
         rank = dist.get_rank()
+        sizes = self.mesh.sizes()
+        coords = dict(zip(self.mesh.axis_names, self.mesh.coords(rank)))
+        block = data_block = 0
+        for a in self.mesh.axis_names:
+            block = block * sizes[a] + coords[a]
+            if a != MODEL_AXIS:
+                data_block = data_block * sizes[a] + coords[a]
         rings = tuple(reversed(self.comm.transport.rails[0].axes))
-        if world != dist.get_world_size() or \
-                _owned_range(world, rings) != (rank, rank + 1):
+        world = self.comm.world
+        if self.mesh.size != dist.get_world_size() or block != rank or \
+                _owned_range(world, rings) != (data_block, data_block + 1):
             raise NotImplementedError(
-                "checkpoints need a data-only mesh whose ring ownership "
-                "follows the rank order")
+                "checkpoints need the mesh laid out in rank order, with the "
+                "data ring's ownership following the data coordinate")
         group = (None if dist.get_backend() == "gloo"
                  else dist.new_group(backend="gloo"))
-        return RankShards(rank, world, group)
+        return RankShards(rank, self.mesh.size, group,
+                          self.mesh if self.model_size > 1 else None)
 
     def state_layout(self, state: dict) -> dict:
         """Per leaf of ``state``, :data:`~repro_torch.checkpoint.SHARDED`
-        where each rank holds its own 1-D shard of a global array (the
-        reference's flat ``P(('data', 'model'))`` leaves: the arena,
-        ``"ef"``, zero1's moment shards, fsdp's groups and their moments),
-        :data:`~repro_torch.checkpoint.REPLICATED` elsewhere (the
-        parameters, the replicated moments, ``step``)."""
-        sharded = {"arena", "ef"}
+        where each rank holds its own 1-D block of a flat global array (the
+        reference's ``P(('data', 'model'))`` leaves: the arena, ``"ef"``,
+        zero1's moment shards, fsdp's groups and their moments),
+        :class:`~repro_torch.checkpoint.Blocks` where it holds its block of
+        a leaf split over the model axis (a parameter, or a ``replicated``
+        AdamW moment, whose spec names ``"model"``),
+        :data:`~repro_torch.checkpoint.REPLICATED` elsewhere (the other
+        parameters and moments, ``step``)."""
+        flat = {"arena", "ef"}
         if self.cfg.dp_mode in ("zero1", "fsdp"):
-            sharded |= {"opt", "groups"}
-        return {k: tree_util.tree_map(
-            lambda _, rule=SHARDED if k in sharded else REPLICATED: rule, v)
-            for k, v in state.items()}
+            flat |= {"opt", "groups"}
+
+        def by_spec(tree):
+            return map_specs(
+                lambda _, spec: Blocks(spec) if self.model_size > 1 and
+                is_model_sharded(spec) else REPLICATED, tree, self.specs)
+
+        out = {}
+        for k, v in state.items():
+            if k in flat:
+                out[k] = tree_util.tree_map(lambda _: SHARDED, v)
+            elif k == "params":
+                out[k] = by_spec(v)
+            elif k == "opt":
+                out[k] = {m: by_spec(t) for m, t in v.items()}
+            else:
+                out[k] = tree_util.tree_map(lambda _: REPLICATED, v)
+        return out
 
     def _grad_fn(self, params, mb):
         """``(loss, grads)`` of one microbatch; under fsdp ``params`` is
@@ -601,13 +644,13 @@ class TrainStep:
             out, ())
         del out
         inv = 1.0 / self.fsdp.dp_world
-        sq = torch.zeros((), dtype=torch.float32, device=self.device)
-        for name in sorted(grads):
+        for name in grads:
             for g in grads[name]:          # step-local: scaled in place
                 g.mul_(inv)
-                # bucket padding has a zero gradient: every element weighs 1
-                sq = sq + torch.sum(torch.square(g))
-        gnorm = torch.sqrt(self.ctx.psum(self.ctx.psum_data(sq)))
+        # each shard weighed by its norm weights (1/model_size on the
+        # fields the model axis replicates)
+        gnorm = self._shard_norm([g for name in sorted(grads)
+                                  for g in grads[name]])
         factor = clip_factor(gnorm, self.cfg.optim.clip_norm)
         lr = self.lr_fn(state["step"])
         wd = 1 - lr * self.cfg.optim.weight_decay
@@ -655,9 +698,10 @@ def init_train_state(model: Model, step: TrainStep, *, params=None,
     ``"ef"``, both allocated here once) on the step's device: ``params``
     (the full tree) when given (e.g. bridged from the reference), else
     fresh ones drawn from ``generator``; on a model axis this rank keeps
-    its block of them (:meth:`TrainStep.local_params`).  Under ``zero1``, ``opt`` holds lists of this
-    rank's fp32 moment shards (:attr:`TrainStep.shard_sizes`).  Under
-    ``fsdp`` the parameters are this rank's shards instead:
+    its block of them (:meth:`TrainStep.local_params`).  Under ``zero1``,
+    ``opt`` holds lists of this rank's fp32 moment shards
+    (:attr:`TrainStep.shard_sizes`).  Under ``fsdp`` the parameters are
+    this rank's data shards of its block instead:
     ``{"groups": {name: [fp32 shards]}, "opt": {"mu", "nu"} of the same
     shape, "step"}``."""
     if params is None:

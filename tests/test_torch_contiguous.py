@@ -25,7 +25,6 @@ from torch_dist_util import run_ranks
 from repro_torch import bridge
 from repro_torch.configs import reduced_config
 from repro_torch.configs.base import ShapeConfig
-from repro_torch.core.topology import RankMesh
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import build_model
 from repro_torch.models.transformer import init_decode_state
@@ -78,14 +77,17 @@ def test_decode_refuses_what_is_not_ported():
     16) within 2e-2 of the unsharded one-rank decode (the reference's
     tolerance, ``tests/test_distributed.py::SERVE_SCRIPT``).  Without a
     model axis a short cache is refused; gathered weights build (fsdp,
-    test_torch_fsdp.py runs them) and are refused on a model axis."""
+    test_torch_fsdp.py runs them), and since ROADMAP Queue 1 #6b was ported
+    on a model axis too: the gathered decode step on a (1, 2) mesh decodes
+    a token into finite logits of this rank's vocab shard
+    (test_torch_tp_gathered.py holds it to the reference)."""
     model = build_model(reduced_config(ARCH))
     shape = ShapeConfig("serve", CACHE, BATCH, "decode")
     assert callable(build_decode_step(model, shape, weight_mode="gathered",
                                       device="cpu"))
-    with pytest.raises(NotImplementedError, match="Queue 1 #6b"):
-        build_decode_step(model, shape, weight_mode="gathered", device="cpu",
-                          mesh=RankMesh(("data", "model"), (1, 2)))
+    for out in run_ranks(tp_jobs.model_axis_builds_job, 2, "decode"):
+        assert out == {"logits": (2, model.cfg.vocab_size // 2),
+                       "finite": True}
     params = model.init(torch.Generator().manual_seed(0), "cpu")
     short = model.init_decode_state(BATCH, CACHE // 2, device="cpu")
     with pytest.raises(ValueError, match="not one of"):

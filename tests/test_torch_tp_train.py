@@ -30,8 +30,10 @@ the arena:
   an embedding, one a row-parallel output, two a cross entropy, their
   backward partners), and none went through the communicator.
 
-Also the refusals that stay: ``fsdp`` and a checkpoint on a model axis
-above 1 raise ``NotImplementedError`` naming ROADMAP Queue 1 #6b.
+And what ROADMAP Queue 1 #6b refused until it was ported builds on a
+(1, 2) mesh: ``fsdp`` steps and a Trainer that checkpoints
+(``test_torch_tp_fsdp.py`` and ``test_torch_tp_ckpt.py`` hold them to the
+reference).
 """
 
 import dataclasses
@@ -54,10 +56,7 @@ from repro.configs import reduced_config as jax_reduced_config
 from repro.models import build_model as jax_build_model
 from repro_torch.configs import reduced_config
 from repro_torch.core.topology import RankMesh
-from repro_torch.data import DataConfig, SyntheticTokens
 from repro_torch.models import build_model
-from repro_torch.runtime.train_loop import Trainer, TrainerConfig
-from repro_torch.runtime.train_step import TrainStep, TrainStepConfig
 from repro_torch.sharding.rules import spec_leaves
 
 STEPS = 3
@@ -294,14 +293,12 @@ def test_zero1_norm_ranges_weigh_as_build_norm_weights(arena, index):
 
 
 def test_what_stays_refused_on_a_model_axis(tmp_path):
-    model = build_model(reduced_config("llama3.2-1b"))
-    mesh = RankMesh(("data", "model"), (1, 2))
-    with pytest.raises(NotImplementedError, match="Queue 1 #6b"):
-        TrainStep(model, mesh, TrainStepConfig(dp_mode="fsdp"),
-                  device=torch.device("cpu"))
-    data = SyntheticTokens(DataConfig(vocab_size=model.cfg.vocab_size,
-                                      seq_len=8, global_batch=2))
-    with pytest.raises(NotImplementedError, match="Queue 1 #6b"):
-        Trainer(model, mesh, TrainStepConfig(), data,
-                TrainerConfig(steps=1, ckpt_dir=str(tmp_path)),
-                device=torch.device("cpu"))
+    """Nothing of #6b stays refused: on a (1, 2) mesh of two gloo ranks an
+    fsdp step trains (finite loss, equal on both ranks) and a Trainer with
+    ``ckpt_dir`` writes its step directory, with the parameters laid out as
+    model blocks and the rest replicated."""
+    outs = run_ranks(jobs.model_axis_builds_job, 2, "train", str(tmp_path))
+    assert np.isfinite(outs[0]["fsdp_loss"])
+    assert outs[0]["fsdp_loss"] == outs[1]["fsdp_loss"]
+    assert outs[0]["rules"] == ["Blocks", "replicated"]
+    assert os.listdir(tmp_path) == ["step_00000001"]

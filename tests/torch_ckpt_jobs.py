@@ -35,7 +35,8 @@ def step_config(case: dict, kw: dict = STEP_KW):
         fsdp_bucket_bytes=kw["fsdp_bucket_bytes"])
 
 
-def _trainer(rank: int, world: int, case: dict, ckpt_dir, steps: int):
+def _trainer(rank: int, world: int, case: dict, ckpt_dir, steps: int,
+             mesh=None):
     import torch
 
     from repro_torch.configs import reduced_config
@@ -48,7 +49,7 @@ def _trainer(rank: int, world: int, case: dict, ckpt_dir, steps: int):
     data = SyntheticTokens(DataConfig(vocab_size=model.cfg.vocab_size,
                                       seq_len=STEP_KW["seq"],
                                       global_batch=STEP_KW["batch"]))
-    return Trainer(model, data_mesh(world), step_config(case), data,
+    return Trainer(model, mesh or data_mesh(world), step_config(case), data,
                    TrainerConfig(steps=steps, ckpt_every=100,
                                  ckpt_dir=ckpt_dir, seed=0),
                    device=torch.device("cpu"), rank=rank,
@@ -125,4 +126,96 @@ def save_job(rank: int, world: int, dirs: dict) -> dict:
                      "full_losses": [h["loss"] for h in full_hist],
                      "resumed_losses": [h["loss"] for h in hist],
                      "final_bitwise": same}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# a (data, model) mesh of four ranks
+# ---------------------------------------------------------------------------
+
+# zero1 and fsdp with the fp32 arena on the (2, 2) mesh: the flat leaves and
+# the model-sharded parameters (zero1) or the groups (fsdp)
+TP_CASES = {"zero1": dict(dp_mode="zero1", wire_codec=None),
+            "fsdp": dict(dp_mode="fsdp", wire_codec=None)}
+
+
+def wait_for(path: str, failed: str, timeout: float = 300.0) -> None:
+    """Waits until the file ``path`` exists; raises if ``failed`` appears
+    first or ``timeout`` seconds pass."""
+    import time
+
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if os.path.exists(failed):
+            raise RuntimeError(f"the other side failed ({failed})")
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} did not appear in {timeout} s")
+        time.sleep(0.1)
+
+
+def tp_ckpt_job(rank: int, world: int, dirs: dict, marks: dict) -> dict:
+    """Per case of :data:`TP_CASES` on the (2, 2) mesh: an unbroken run of
+    ``SAVE_AT + 2`` steps; a run stopped at ``SAVE_AT`` that checkpoints
+    into ``dirs[case]["port"]`` (rank 0 copies it to ``"for_ref"``, what
+    the reference resumes from); a fresh Trainer resuming from ``"port"``.
+    Then (after ``marks["port"]`` is written and the reference's
+    ``marks["ref"]`` appears) a Trainer resuming from the reference's
+    ``"ref"`` directory, whose restored state is saved again into
+    ``"resave"`` and which runs to the end.  Returns the losses, the
+    resumes' start steps, this rank's saved leaves and whether the port's
+    resumed final state is the unbroken run's bitwise."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.topology import RankMesh
+
+    mesh = RankMesh(("data", "model"), (2, 2))
+    out = {}
+    try:
+        for name, case in TP_CASES.items():
+            d = dirs[name]
+            full = _trainer(rank, world, case, None, SAVE_AT + 2, mesh)
+            full_hist = full.run()["history"]
+            stopped = _trainer(rank, world, case, d["port"], SAVE_AT + 2,
+                               mesh)
+            stopped.tcfg.steps = SAVE_AT            # the run dies here
+            stopped.run()
+            saved = local_leaves(stopped)
+            dist.barrier()
+            if rank == 0:
+                shutil.copytree(d["port"], d["for_ref"])
+            dist.barrier()
+            resumed = _trainer(rank, world, case, d["port"], SAVE_AT + 2,
+                               mesh)
+            start = resumed.start_step
+            hist = resumed.run()["history"]
+            got, want = local_leaves(resumed), local_leaves(full)
+            same = (got.keys() == want.keys() and all(
+                got[k][1].dtype == want[k][1].dtype
+                and np.array_equal(bits(got[k][1]), bits(want[k][1]))
+                for k in got))
+            out[name] = {"saved": saved, "start": start,
+                         "full_losses": [h["loss"] for h in full_hist],
+                         "resumed_losses": [h["loss"] for h in hist],
+                         "final_bitwise": same}
+        dist.barrier()
+    except BaseException:
+        with open(marks["port_failed"], "w") as f:
+            f.write("failed\n")
+        raise
+    if rank == 0:
+        with open(marks["port"], "w") as f:
+            f.write("ok\n")
+    wait_for(marks["ref"], marks["ref_failed"])
+    for name, case in TP_CASES.items():
+        d = dirs[name]
+        tr = _trainer(rank, world, case, d["ref"], SAVE_AT + 2, mesh)
+        start = tr.start_step
+        mgr = CheckpointManager(d["resave"], async_save=False,
+                                ranks=tr.step_fn.ranks)
+        mgr.save(tr.state, SAVE_AT, layout=tr.step_fn.state_layout(tr.state))
+        mgr.wait()
+        hist = tr.run()["history"]
+        out[name]["from_ref"] = {"start": start,
+                                 "losses": [h["loss"] for h in hist]}
     return out

@@ -354,3 +354,214 @@ def seq_sharded_job(rank: int, world: int, batch: int, cache: int,
             tok = full_logits.argmax(-1).to(torch.int32)
         out.append(np.stack(logits))
     return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# fsdp on a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+
+def tp_model(kind: str):
+    """The reduced configs of the (2, 2) fsdp, gathered and checkpoint
+    tests: ``"base"`` (llama3.2-1b: 4 q heads padded to 16, all on model
+    rank 0), ``"heads"`` (16 q / 4 kv heads: model rank 1 holds real
+    ones) and ``"qwen"`` (qwen2-7b, fsdp by default, qkv biases)."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import build_model
+
+    if kind == "qwen":
+        return build_model(reduced_config("qwen2-7b"))
+    cfg = reduced_config(ARCH)
+    if kind == "heads":
+        cfg = cfg.with_(attn=dataclasses.replace(cfg.attn, num_heads=16,
+                                                 num_kv_heads=4))
+    return build_model(cfg)
+
+
+def tp_fsdp_config(case: dict, step_kw: dict):
+    return dataclasses.replace(tp_step_config("fsdp", case["arena"], step_kw),
+                      fsdp_gather=case["gather"],
+                      fsdp_bucket_bytes=step_kw["fsdp_bucket_bytes"])
+
+
+def full_params(model, leaves: list):
+    """The full parameter tree from the reference's leaves (JAX order)."""
+    from repro_torch import bridge
+    from repro_torch import tree as tree_util
+    from repro_torch.runtime.train_step import abstract_params
+
+    treedef = tree_util.flatten(abstract_params(model))[1]
+    return bridge.params_from_numpy(treedef.unflatten(leaves), "cpu")
+
+
+def fsdp_plan_record(plan) -> dict:
+    """An :class:`FsdpPlan`'s groups, bucket sizes, arena segments and
+    norm weights (each group's buckets' vectors, concatenated)."""
+    import torch
+
+    out = {"groups": sorted(plan.groups),
+           "sizes": {n: list(p.bucket_sizes) for n, p in plan.plans.items()},
+           "norm_weights": {n: torch.cat(w).numpy()
+                            for n, w in plan.norm_weights.items()}}
+    if plan.arena_layout is not None:
+        out["arena"] = np.array([[s.offset, s.size, s.padded]
+                                 for s in plan.arena_layout.segments])
+    return out
+
+
+def tp_fsdp_job(rank: int, world: int, leaves: dict, batch: dict,
+                cases: dict, steps: int, step_kw: dict) -> dict:
+    """Per case (``{"model", "gather", "arena"}``): fsdp on the (2, 2) mesh
+    from the full parameters ``leaves[model]``: the plan, this rank's
+    initial shards, the loss and gradient norm of every step, the final
+    shards and the records of the model axis and of the communicator."""
+    import torch
+
+    from repro_torch import bridge
+    from repro_torch.runtime.train_step import (TrainStep,
+                                                init_train_state,
+                                                shard_batch)
+
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    out = {}
+    for name, case in cases.items():
+        model = tp_model(case["model"])
+        step = TrainStep(model, _mesh((2, 2)), tp_fsdp_config(case, step_kw),
+                         device=torch.device("cpu"))
+        state = init_train_state(model, step, params=full_params(
+            model, leaves[case["model"]]))
+        res = {"plan": fsdp_plan_record(step.fsdp),
+               "init": {n: bridge.params_to_numpy(s)
+                        for n, s in state["groups"].items()},
+               "data_index": step.data_index,
+               "model_index": step.ctx.model_index()}
+        mine = shard_batch(tb, step.data_index, step.data_world)
+        step.comm.record.reset()
+        step.model_record.reset()
+        losses, norms = [], []
+        for _ in range(steps):
+            state, metrics = step(state, mine)
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+        res.update(loss=np.array(losses), grad_norm=np.array(norms),
+                   groups={n: bridge.params_to_numpy(s)
+                           for n, s in state["groups"].items()},
+                   model_record=step.model_record.as_dict(),
+                   record=step.comm.record.as_dict())
+        out[name] = res
+    return out
+
+
+# ---------------------------------------------------------------------------
+# gathered-weight serving on a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+
+def tp_gathered_job(rank: int, world: int, leaves: list,
+                    serve_kw: dict) -> dict:
+    """The 16 q / 4 kv head config on a ``(world // 2, 2)`` mesh: the
+    prefill and ``len(decode_tokens)`` decode steps (fp32 caches) with
+    gathered weights (this rank's fsdp shards of its model block), and the
+    same with resident weights rounded to bf16 as the gathers round them;
+    every output as this rank's rows of the whole vocabulary."""
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.runtime import serve_step
+
+    mesh = _mesh((world // 2, 2))
+    model = tp_model("heads")
+    full = full_params(model, leaves)
+    rounded = tree_util.tree_map(
+        lambda t: t.to(torch.bfloat16).to(t.dtype), full)
+    b, s, c = serve_kw["batch"], serve_kw["seq"], serve_kw["cache"]
+    tokens = torch.from_numpy(serve_kw["tokens"])
+    out = {"rows": serve_step._batch_rows(mesh, b)}
+    for mode, tree in (("gathered", full), ("resident", rounded)):
+        pre = serve_step.build_prefill(
+            model, ShapeConfig("t", s, b, "prefill"), weight_mode=mode,
+            device="cpu", mesh=mesh)
+        params = serve_step.serve_params(pre, model, tree, mesh)
+        if mode == "gathered":
+            out["groups"] = {n: [x.numpy() for x in v]
+                             for n, v in params["groups"].items()}
+        out[f"{mode}/prefill"] = serve_step.gather_vocab(
+            pre.ctx, pre(params, {"tokens": tokens})).numpy()
+        shape = ShapeConfig("t", c, b, "decode")
+        dec = serve_step.build_decode_step(model, shape, weight_mode=mode,
+                                           device="cpu", mesh=mesh)
+        params = serve_step.serve_params(dec, model, tree, mesh)
+        state = serve_step.init_decode_state(model, shape, mesh,
+                                             cache_dtype=torch.float32,
+                                             device="cpu")
+        steps = []
+        for pos, tok in enumerate(serve_kw["decode_tokens"]):
+            logits, state = dec(params, torch.from_numpy(tok), state, pos)
+            steps.append(serve_step.gather_vocab(dec.ctx, logits).numpy())
+        out[f"{mode}/decode"] = steps
+    if world == 2:
+        # the serve CLI's contiguous loop at R = 2, a dense arch gathered
+        from repro_torch.launch import serve as launch_serve
+
+        args = launch_serve.parser().parse_args(
+            ["--arch", ARCH, "--reduced", "--device", "cpu", "--batch", "2",
+             "--cache", "8", "--tokens", "1", "--model-parallel", "2"])
+        out["cli"] = {wm: launch_serve.run_contiguous(
+            args, "cpu", weight_mode=wm)["logits"].numpy()
+            for wm in ("gathered", "resident")}
+    return out
+
+
+def model_axis_builds_job(rank: int, world: int, what: str,
+                          ckpt_dir: str | None = None) -> dict:
+    """What ROADMAP Queue 1 #6b lifted, built and run once on the (1, 2)
+    mesh of the reduced llama3.2-1b: ``"train"``, an fsdp step and a
+    Trainer with ``ckpt_dir`` (one step, saved at the end, the leaves'
+    layout rules); ``"decode"``, the gathered decode step (one token)."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.runtime import serve_step
+    from repro_torch.runtime.train_loop import Trainer, TrainerConfig
+    from repro_torch.runtime.train_step import (TrainStep, TrainStepConfig,
+                                                init_train_state)
+
+    mesh = _mesh((1, 2))
+    model = tp_model("base")
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(0)
+    if what == "decode":
+        shape = ShapeConfig("serve", 8, 2, "decode")
+        dec = serve_step.build_decode_step(model, shape,
+                                           weight_mode="gathered",
+                                           device="cpu", mesh=mesh)
+        params = serve_step.serve_params(dec, model, model.init(gen, cpu),
+                                         mesh)
+        state = serve_step.init_decode_state(model, shape, mesh,
+                                             device="cpu")
+        logits, _ = dec(params, torch.zeros(2, dtype=torch.int32), state, 0)
+        return {"logits": tuple(logits.shape),
+                "finite": bool(torch.isfinite(logits).all())}
+    step = TrainStep(model, mesh, TrainStepConfig(dp_mode="fsdp"),
+                     device=cpu)
+    state = init_train_state(model, step, generator=gen)
+    batch = {"tokens": torch.zeros(2, 8, dtype=torch.int64),
+             "labels": torch.ones(2, 8, dtype=torch.int64)}
+    _, metrics = step(state, batch)
+    data = SyntheticTokens(DataConfig(vocab_size=model.cfg.vocab_size,
+                                      seq_len=8, global_batch=2))
+    tr = Trainer(model, mesh, TrainStepConfig(), data,
+                 TrainerConfig(steps=1, ckpt_dir=ckpt_dir), device=cpu,
+                 rank=rank, log=lambda msg: None)
+    tr.run()
+    rules = sorted({type(r).__name__ if not isinstance(r, str) else r
+                    for r in _leaves_of(tr.step_fn.state_layout(tr.state))})
+    return {"fsdp_loss": float(metrics["loss"]), "rules": rules}
+
+
+def _leaves_of(tree) -> list:
+    from repro_torch.checkpoint.ckpt import flatten_with_path
+
+    return [leaf for _, leaf in flatten_with_path(tree)[0]]
