@@ -263,7 +263,8 @@ Phases, each of which raises on a failed check (exit code != 0):
               solve's idle share on one and on two ranks;
 32. train_tp — tensor parallelism: two ranks on the card over gloo on a
               (1, 2) ``("data", "model")`` mesh (``launch.train``
-              ``--model-parallel 2``), full width, 16 layers, seq 256,
+              ``--model-parallel 2``), full width, 8 layers (16 until
+              the MoE phases joined the script), seq 256,
               batch 8, bf16 over fp32 masters, the arena on, 3 steps
               replicated then 3 zero1: losses finite and equal on both
               ranks, the leaves replicated over the model axis bitwise
@@ -322,6 +323,39 @@ Phases, each of which raises on a failed check (exit code != 0):
               launches a rank and no other kernel's, this rank's logits
               within the engine's bf16 tolerance of the resident prefill
               on the same mesh with the same weights.
+37. moe_serve — mixtral-8x7b at full width (d_model 4096, 32 q / 8 kv
+              heads of 128, a 4096 window, 8 experts top-2 of 14336,
+              capacity factor 1.25, vocab 32000, untied head), 2 layers,
+              one rank: ``build_prefill`` at B=1, S=8192 (the window
+              masks; 2560 slots an expert): 2 flash_attn launches, both
+              wgmma, and no other kernel's; the logits against the same
+              prefill on the plain (blockwise) attention: on every token
+              the router sends to the same experts in both, within the
+              engine tolerance (the tokens a bf16 near-tie reroutes are
+              counted and reported); the prefill's ``moe_drop_fraction``;
+              then the contiguous decode loop at the serve CLI's defaults
+              (batch 4, 512 slots, 16 tokens; no kernel launched) with
+              tokens/s and a profiled step's wall and idle share;
+38. moe_train — ``launch.train`` on mixtral at full width, 1 layer, one
+              rank, the arch's settings (fsdp, 4 microbatches,
+              ``ring_hier`` over 2 channels), the arena on, 3 steps:
+              losses finite, ``moe_drop_fraction`` a step, pack writes
+              and reads == :func:`fsdp_expected` (a write a segment a
+              microbatch, a read a step; all bulk), the peak, a profiled
+              step;
+39. moe_ep  — two ranks on the card over gloo on (1, 2), mixtral at full
+              width, 1 layer, its 8 experts sharded 4 a rank
+              (``parallelism="ep"`` through ``launch.train.setup``'s
+              ``model_overrides``), the arch's settings and its EP
+              communicator (``a2a`` over 2 rails), 3 steps: every step's
+              ``all_to_all_single`` calls and bytes and the model axis's
+              all-gathers == :func:`moe_ep_expected` (from the code and
+              ``A2APlan``), the model-axis all-reduces and the EP staging
+              printed, pack == :func:`fsdp_expected`, losses and drop
+              fractions equal on both ranks, a profiled step; one MoE
+              layer at full width forward and backward through ``ring``
+              and ``psum``: output and gradients equal the ``a2a`` run's;
+              the fp32 gate: EP losses within 5e-5 of one rank.
 
 The phases before train_tp run data-only (``--model-parallel 1``).  The
 two-rank train phases share two spawns, each running its phases' workers
@@ -330,7 +364,7 @@ build: ``ring_ranks_deterministic`` (train_ring_zero1, train_ring_fsdp)
 and ``ring_ranks`` (train_ring, train_ring_int8, train_ring_zero1_int8,
 train_ring_fsdp_int8, train_ring_ckpt); so do the later two-rank phases,
 in ``stencil_tp_ranks`` (halo, stencil_cg's two ranks, train_tp,
-prefill_tp, serve_contiguous_tp, serve_tp).  Until train_tp_fsdp joined
+prefill_tp, serve_contiguous_tp, serve_tp, moe_ep).  Until train_tp_fsdp joined
 the script each paid a spawn of its own: two ranks' start-up (the
 interpreters, the CUDA contexts, the kernels' loads, the full-width model
 built) took about 30 s of each phase's 35-106 s.  Every check of every
@@ -1823,9 +1857,9 @@ def fsdp_expected(step, steps: int, p: int) -> tuple[dict, dict]:
     receives (``reduce_add``, fp32 + bf16 -> fp32).  The native gather is
     one ``all_gather_into_tensor`` of the shard and one
     ``reduce_scatter_tensor`` of the ``n``-element cotangent, bf16.  The
-    arena (the accumulation buffer) packs each gradient shard once and
-    reads it once a step: ``pack``, or ``pack_quant`` under the int8
-    codec."""
+    arena (the accumulation buffer) packs each gradient shard once a
+    microbatch and reads it once a step (``pack``); the int8 arena, which
+    cannot accumulate, packs once a step (``pack_quant``)."""
     import torch
 
     from repro_torch.core.ring import _channel_slices
@@ -1839,10 +1873,12 @@ def fsdp_expected(step, steps: int, p: int) -> tuple[dict, dict]:
                           "all_gather_bytes", "reduce_scatters",
                           "reduce_scatter_bytes"), 0)
     if step.arena is not None:
-        names = (("pack_quant_write", "pack_quant_read")
-                 if comm.codec is not None else ("pack_write", "pack_read"))
-        for name in names:
-            counts[name] = plan.arena_layout.n_segments * steps
+        segs = plan.arena_layout.n_segments
+        if comm.codec is not None:
+            counts.update(pack_quant_write=segs * steps,
+                          pack_quant_read=segs * steps)
+        else:
+            counts.update(pack_write=segs * runs, pack_read=segs * steps)
     if p == 1:
         return counts, wire
     for name, bplan in plan.plans.items():
@@ -4194,7 +4230,7 @@ def phase_timing_attn(dev) -> dict:
 TP_TRAIN_ARGS = ["--arch", ARCH, "--transport", "ring_hier", "--use-arena",
                  "--seq", "256", "--batch", "8", "--steps", "3", "--device",
                  "cuda", "--seed", "0", "--model-parallel", "2", "--layers",
-                 "16"]
+                 "8"]       # 16 until the MoE phases joined the script
 TP_GATE_LAYERS = 4          # the fp32 gate's depth
 TP_GATE_ATOL = 5e-5         # the CPU tests' loss bound (test_torch_tp_train)
 TP_PREFILL_L2 = 1.25        # prefill_tp: relative L2 error at most this
@@ -5234,6 +5270,592 @@ def phase_train_tp_fsdp() -> dict:
             "spawn_s": seconds[0]}
 
 
+# ---------------------------------------------------------------------------
+# MoE and expert parallelism (mixtral-8x7b at full width, depth cut)
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "mixtral-8x7b"
+MOE_SERVE_LAYERS = 2        # moe_serve's depth: 3.165e9 fp32 parameters
+MOE_PREFILL_SEQ = 8192      # past the 4096 window, which then masks
+MOE_TRAIN_ARGS = ["--arch", MOE_ARCH, "--layers", "1", "--use-arena",
+                  "--seq", "256", "--batch", "8", "--steps", "3",
+                  "--device", "cuda", "--seed", "0", "--model-parallel", "1"]
+# moe_ep: two ranks on (1, 2), the experts sharded over the model axis
+MOE_EP_ARGS = MOE_TRAIN_ARGS[:-1] + ["2"]
+MOE_GATE_ATOL = 5e-5        # tests/test_torch_moe_train.py's loss bound
+
+
+def _check_moe_width(cfg, layers: int, what: str) -> None:
+    a, m = cfg.attn, cfg.moe
+    got = (cfg.num_layers, cfg.d_model, a.num_heads, a.num_kv_heads,
+           a.head_dim, a.window, m.num_experts, m.top_k, m.expert_ff,
+           m.capacity_factor, cfg.vocab_size, cfg.tie_embeddings)
+    if got != (layers, 4096, 32, 8, 128, 4096, 8, 2, 14336, 1.25, 32000,
+               False):
+        raise AssertionError(f"[{what}] not mixtral-8x7b at full width: "
+                             f"{got}")
+
+
+def _moe_ep_overrides() -> dict:
+    """mixtral's experts sharded over the model axis (it publishes
+    ``parallelism="tp"``, which never reaches the all-to-all)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return {"moe": dataclasses.replace(get_config(MOE_ARCH).moe,
+                                       parallelism="ep")}
+
+
+class _RouteSpy:
+    """Wraps the transformer's ``moe_apply``: records each call's routing
+    (the router's top-k, recomputed from the same inputs by the same
+    operations) and passes the call through.  ``routes`` holds one
+    ``(ids, keep)`` a call: the top-k experts of each token sorted, and
+    whether each of those pairs fits its expert's capacity (its place among
+    the row's pairs for that expert, in pair order, below the capacity: the
+    stable sort of the dispatch)."""
+
+    def __init__(self):
+        from repro_torch.models import transformer
+
+        self.mod, self.real = transformer, transformer.moe_apply
+        self.routes: list = []
+
+    def __enter__(self):
+        def spy(p, x, cfg, act, *, ctx, compute_dtype):
+            import torch
+            import torch.nn.functional as F
+
+            from repro_torch.models.moe import capacity
+
+            b, s, _ = x.shape
+            logits = (x.to(compute_dtype)
+                      @ p["router"]["w"].to(compute_dtype)).float()
+            ids = torch.topk(logits, cfg.top_k, dim=-1).indices
+            flat = ids.reshape(b, -1)
+            place = (F.one_hot(flat, cfg.num_experts).cumsum(1) - 1).gather(
+                2, flat[..., None])[..., 0]
+            keep = (place < capacity(s, cfg)).reshape(ids.shape)
+            ids, order = torch.sort(ids, dim=-1)
+            self.routes.append((ids, torch.gather(keep, -1, order)))
+            return self.real(p, x, cfg, act, ctx=ctx,
+                             compute_dtype=compute_dtype)
+
+        self.mod.moe_apply = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.moe_apply = self.real
+
+
+class _StepMetrics:
+    """A train step that keeps every call's metrics (the Trainer's history
+    holds no ``moe_drop_fraction``) and, with ``records``, calls it before
+    each step (which resets the records) and after it, keeping what it
+    returns then in :attr:`records`; attributes pass through."""
+
+    def __init__(self, step, records=None):
+        self._step, self._records = step, records
+        self.metrics: list[dict] = []
+        self.records: list = []
+
+    def __call__(self, state, batch):
+        if self._records is not None:
+            self._records()
+        state, m = self._step(state, batch)
+        self.metrics.append({k: float(v) for k, v in m.items()})
+        if self._records is not None:
+            self.records.append(self._records())
+        return state, m
+
+    def __getattr__(self, name):
+        return getattr(self._step, name)
+
+
+def phase_moe_serve(dev) -> dict:
+    """mixtral-8x7b at full width, 2 layers, one rank: the prefill at B=1,
+    S=8192 (``build_prefill``, ``flash_attn`` on the wgmma route on both
+    windowed layers) against the same prefill on the plain (blockwise)
+    attention, with the prefill's ``moe_drop_fraction``; then the
+    contiguous decode loop at the serve CLI's defaults (batch 4, 512 slots,
+    16 tokens) and one profiled decode step."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import build_model
+    from repro_torch.models.moe import capacity, dropped_fraction
+    from repro_torch.runtime.serve_step import (build_decode_step,
+                                                build_prefill,
+                                                init_decode_state)
+
+    model = build_model(get_config(MOE_ARCH).with_(
+        num_layers=MOE_SERVE_LAYERS))
+    cfg = model.cfg
+    _check_moe_width(cfg, MOE_SERVE_LAYERS, "moe_serve")
+    layers, e = cfg.num_layers, cfg.moe.num_experts
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    n_params = model.param_count()
+    shape = ShapeConfig("moe_prefill", MOE_PREFILL_SEQ, 1, "prefill")
+    tokens = torch.randint(0, cfg.vocab_size, (1, MOE_PREFILL_SEQ),
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(1), device=dev, dtype=torch.int32)
+    batch = {"tokens": tokens}
+    prefill = build_prefill(model, shape, device=dev)
+    plain = build_prefill(model, shape, attn_impl="blockwise", device=dev)
+
+    def kernel_prefill(what):
+        reset_launch_counters()
+        with _RouteSpy() as spy:
+            logits = prefill(params, batch)
+        torch.cuda.synchronize(dev)
+        counts, routes = launch_counters(), attn_routes()
+        if counts != dict(dict.fromkeys(counts, 0), flash_attn=layers) or \
+                routes != dict(dict.fromkeys(routes, 0), wgmma=layers):
+            raise AssertionError(f"[moe_serve] {what} prefill: launches "
+                                 f"{counts}, by route {routes}, expected "
+                                 f"{layers} wgmma flash_attn and no other")
+        return logits, spy.routes, routes
+
+    kernel_prefill("warm-up")
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    got, routes_k, timed_routes = kernel_prefill("timed")
+    wall = time.perf_counter() - t0
+    with _RouteSpy() as spy:
+        want = plain(params, batch)
+    torch.cuda.synchronize(dev)
+    if tuple(got.shape) != (1, MOE_PREFILL_SEQ, cfg.vocab_size):
+        raise AssertionError(f"[moe_serve] logits {tuple(got.shape)}")
+    if not (bool(torch.isfinite(got).all())
+            and bool(torch.isfinite(want).all())):
+        raise AssertionError("[moe_serve] non-finite prefill logits")
+    diff = (got.float() - want.float()).abs()
+    outside = diff > ENGINE_ATOL + ENGINE_RTOL * want.float().abs()
+    # a token is routed alike when every layer sends it to the same
+    # experts and keeps or drops each of its pairs alike
+    same_set = torch.ones(MOE_PREFILL_SEQ, dtype=torch.bool, device=dev)
+    same_route = same_set.clone()
+    for (ids_k, keep_k), (ids_p, keep_p) in zip(routes_k, spy.routes):
+        sets = (ids_k == ids_p).all(dim=-1)[0]
+        same_set &= sets
+        same_route &= sets & (keep_k == keep_p).all(dim=-1)[0]
+    check = {"max_abs_diff": diff.max().item(),
+             "rel_l2": (diff.norm() / want.float().norm()).item(),
+             "outside": int(outside.sum()),
+             "tokens_outside": int(outside[0].any(dim=-1).sum()),
+             "tokens_rerouted": int((~same_set).sum()),
+             "tokens_redropped": int((same_set & ~same_route).sum()),
+             "max_abs_diff_same_route": diff[0][same_route].max().item(),
+             "outside_same_route": int(outside[0][same_route].sum())}
+    cap = capacity(MOE_PREFILL_SEQ, cfg.moe)
+    drop = sum(float(dropped_fraction(ids, e, cap)) for ids, _ in routes_k
+               ) / layers
+    del got, want, diff, outside, spy, routes_k
+    gc.collect()
+    log(f"[moe_serve] mixtral-8x7b at full width, {layers} layers, "
+        f"{n_params / 1e9:.3f}e9 fp32 parameters; prefill B=1 "
+        f"S={MOE_PREFILL_SEQ} (window {cfg.attn.window}, capacity {cap} "
+        f"slots an expert): wall {wall * 1e3:.1f} ms "
+        f"({MOE_PREFILL_SEQ / wall:.0f} tokens/s), flash_attn launches "
+        f"{timed_routes}; moe_drop_fraction {drop:.6f}")
+    log(f"[moe_serve] kernel prefill vs plain-attention prefill (both "
+        f"bf16): max |diff| {check['max_abs_diff']:.4e}, relative L2 "
+        f"{check['rel_l2']:.4e}, {check['outside']} logits of "
+        f"{check['tokens_outside']} tokens outside rtol 2e-2 / atol 5e-2; "
+        f"of {MOE_PREFILL_SEQ} tokens {check['tokens_rerouted']} routed to "
+        f"another expert set and {check['tokens_redropped']} kept or dropped "
+        f"otherwise in some layer (a bf16 near-tie of the router, a "
+        f"capacity slot that moved); the tokens routed alike: max |diff| "
+        f"{check['max_abs_diff_same_route']:.4e}, "
+        f"{check['outside_same_route']} logits outside")
+    if check["outside_same_route"]:
+        raise AssertionError(f"[moe_serve] the kernel prefill differs from "
+                             f"the plain-attention prefill beyond the "
+                             f"engine tolerance on tokens routed alike: "
+                             f"{check}")
+
+    # the contiguous decode loop, as launch.serve.run_contiguous runs it
+    dshape = ShapeConfig("serve", 512, 4, "decode")
+    step = build_decode_step(model, dshape, device=dev)
+    state = init_decode_state(model, dshape, device=dev)
+    token = torch.zeros((4,), dtype=torch.int32, device=dev)
+    reset_launch_counters()
+    t0 = time.perf_counter()
+    for pos in range(16):
+        logits, state = step(params, token, state, pos)
+        token = torch.argmax(logits, -1).to(torch.int32)
+    torch.cuda.synchronize(dev)
+    dwall = time.perf_counter() - t0
+    if any(launch_counters().values()):
+        raise AssertionError(f"[moe_serve] decode launches "
+                             f"{launch_counters()}: the contiguous decode "
+                             f"runs no kernel")
+    if tuple(logits.shape) != (4, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError("[moe_serve] decode logits")
+    prof_wall, by_name, _ = device_activity(
+        lambda: step(params, token, state, 16), 1, warm=False)
+    if not by_name:
+        raise RuntimeError("[moe_serve] no device activity in a decode step")
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[moe_serve] contiguous decode, batch 4, cache 512, 16 tokens: "
+        f"{64 / dwall:.1f} tok/s ({dwall * 1e3:.0f} ms, first step "
+        f"included), logits finite, no kernel launched; profiled step: wall "
+        f"{prof_wall:.1f} ms, device busy {busy:.1f} ms, idle share "
+        f"{1 - busy / prof_wall:.3f}; peak {peak / 2**30:.2f} GiB")
+    for name, ms in top:
+        log(f"[moe_serve]   {ms:9.2f} ms/step  {name[:90]}")
+    del params, state, step, prefill, plain, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"params": n_params, "prefill_wall_ms": wall * 1e3,
+            "prefill_tokens_per_s": MOE_PREFILL_SEQ / wall,
+            "launches": timed_routes["wgmma"],
+            "launches_by_route": timed_routes, "check": check,
+            "moe_drop_fraction": drop, "capacity": cap,
+            "decode_tokens_per_s": 64 / dwall, "decode_wall_s": dwall,
+            "decode_profile": {"wall_ms": prof_wall, "device_ms": busy,
+                               "idle_share": 1 - busy / prof_wall,
+                               "top_device_ms": {k[:90]: v
+                                                 for k, v in top}},
+            "peak_bytes": peak}
+
+
+def phase_moe_train(dev) -> dict:
+    """``launch.train`` on mixtral-8x7b at full width, 1 layer, one rank,
+    the arch's settings (fsdp, 4 microbatches, ``ring_hier`` over 2
+    channels) with the arena on: 3 steps, their losses and
+    ``moe_drop_fraction``, pack's launches against ``fsdp_expected``, the
+    peak, one profiled step."""
+    import gc
+
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.launch import train as launch_train
+
+    args = launch_train.parser().parse_args(MOE_TRAIN_ARGS)
+    world = launch_train.init_distributed(args.device)
+    run = launch_train.setup(args, world)
+    _check_moe_width(run.model.cfg, 1, "moe_train")
+    trainer = run.trainer
+    step = trainer.step_fn
+    if (step.cfg.dp_mode, step.schedule.microbatches, step.moe_comm) != (
+            "fsdp", 4, None):
+        raise AssertionError(f"[moe_train] the step runs {step.cfg} on "
+                             f"{step.mesh}")
+    state_bytes = sum(t.numel() * t.element_size() for k, v in
+                      trainer.state.items() if k != "step"
+                      for t in tree_util.leaves(v))
+    expected, _ = fsdp_expected(step, args.steps, 1)
+    recorder = _StepMetrics(step)
+    trainer.step_fn = recorder
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counters()
+    hist = trainer.run()["history"]
+    counts, routes = launch_counters(), pack_routes()
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [h["loss"] for h in hist]
+    drops = [m["moe_drop_fraction"] for m in recorder.metrics]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[moe_train] non-finite loss: {losses}")
+    _check_launches("moe_train", counts, expected, routes)
+    prof = step_profile(trainer, 0, 1, profiled=True)
+    log(f"[moe_train] mixtral-8x7b at full width, 1 layer, "
+        f"{run.model.param_count() / 1e9:.3f}e9 parameters "
+        f"({run.model.active_param_count() / 1e9:.3f}e9 active a token), "
+        f"1 rank, fsdp, "
+        f"4 microbatches, arena on: state {state_bytes / 2**30:.2f} GiB; "
+        f"losses {', '.join(f'{x:.4f}' for x in losses)}; "
+        f"moe_drop_fraction {', '.join(f'{x:.6f}' for x in drops)}; step "
+        f"wall {', '.join(f'{h['sec'] * 1e3:.0f}' for h in hist)} ms; peak "
+        f"{peak / 2**30:.2f} GiB; launches "
+        f"{({k: v for k, v in counts.items() if v})} == fsdp_expected, "
+        f"pack by route {routes}")
+    log(f"[moe_train] profiled step: wall {prof['step_wall_ms']:.1f} ms, "
+        f"device busy {prof['step_device_ms']:.1f} ms, idle share "
+        f"{prof['idle_share']:.3f}")
+    for name, ms in prof["top_device_ms"].items():
+        log(f"[moe_train]   {ms:9.2f} ms/step  {name}")
+    out = {"losses": losses, "moe_drop_fraction": drops,
+           "step_s": [h["sec"] for h in hist], "launches": counts,
+           "expected": expected, "pack_routes": routes,
+           "state_bytes": state_bytes, "peak_bytes": peak,
+           "params": run.model.param_count(), "profile": prof}
+    del run, trainer, step, recorder
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_ep_expected(step, steps: int, batch: int, seq: int) -> dict:
+    """What ``steps`` steps of ``step`` put on the EP communicator and
+    the model axis's gathers, derived from the code.  Per MoE layer and
+    microbatch the forward exchanges the capacity buffer twice (dispatch,
+    combine), the backward twice more (their transposes) and, under
+    ``remat="layer"``, the backward's recomputation of the block twice
+    again; each exchange runs on ``a2a_rails`` rails, one
+    ``all_to_all_single`` a rail sending ``(p-1)/p`` of its stripe
+    (``A2APlan``).  The combined output is gathered over the model axis once
+    (``gather_replicated``): the recomputation stops at the last tensor the
+    backward needs (``torch.utils.checkpoint``'s early stop), which comes
+    before the gather, and the gather's backward is a slice."""
+    import torch
+
+    from repro_torch.models.moe import capacity
+    from repro_torch.models.transformer import moe_layer_count
+
+    cfg, comm = step.model.cfg, step.moe_comm
+    p = comm.axis_sizes[0]
+    m = step.schedule.microbatches
+    rows = batch // m // p
+    shape = (rows, cfg.moe.num_experts, capacity(seq, cfg.moe), cfg.d_model)
+    plan = comm.a2a_plan(shape, getattr(torch, cfg.dtype))
+    n_moe = moe_layer_count(cfg)
+    pairs = (3 if cfg.remat == "layer" else 2) * n_moe * m * steps
+    gathers = n_moe * m * steps
+    return {"all_to_alls": pairs * plan.n_units,
+            "all_to_all_bytes": int(pairs * plan.bytes_per_device),
+            "all_gathers": gathers,
+            "all_gather_bytes": gathers * rows * seq * cfg.d_model
+            * getattr(torch, cfg.dtype).itemsize,
+            "shape": shape, "rails": comm.a2a_rails(shape)}
+
+
+def _moe_layer_transports(world, cfg) -> dict:
+    """One MoE layer at full width, forward and backward at bf16 compute on
+    the same inputs, through the ``a2a``, ``ring`` and ``psum`` transports
+    (a communicator each, built in one order on both ranks): whether the
+    output and every gradient equal the ``a2a`` run's, and each
+    transport's record."""
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.models.moe import moe_apply, moe_init
+    from repro_torch.models.parallel import make_ctx
+    from repro_torch.runtime.train_step import (TrainStepConfig,
+                                                build_moe_comm)
+
+    dev = world.device
+    mesh = _tp_mesh()
+    r = world.rank
+    full = moe_init(torch.Generator(device=dev).manual_seed(5), cfg.moe,
+                    cfg.d_model, device=dev)
+    el = cfg.moe.num_experts // world.size
+    local = {"router": full["router"],
+             **{n: full[n][r * el:(r + 1) * el].clone()
+                for n in ("w_gate", "w_up", "w_down")}}
+    del full
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn((2, 256, cfg.d_model), generator=gen, device=dev)
+    w = torch.randn(x.shape, generator=gen, device=dev)
+    out, ref = {}, None
+    for t in ("a2a", "ring", "psum"):
+        comm = build_moe_comm(mesh, TrainStepConfig(moe_transport=t,
+                                                    moe_channels=2))
+        ctx = make_ctx(mesh, moe_comm=comm)
+        leaves, treedef = tree_util.flatten(local)
+        leaves = [l.detach().requires_grad_(True) for l in leaves]
+        xx = x.clone().requires_grad_(True)
+        y, aux, _ = moe_apply(treedef.unflatten(leaves), xx, cfg.moe,
+                              cfg.act, ctx=ctx, compute_dtype=torch.bfloat16)
+        grads = torch.autograd.grad(torch.sum(y.float() * w) + aux,
+                                    leaves + [xx])
+        res = [y.detach()] + [g.detach() for g in grads]
+        if ref is None:
+            ref = res
+        out[t] = {"equal": all(torch.equal(a, b) for a, b in zip(res, ref)),
+                  "record": comm.record.as_dict()}
+        del comm, ctx, leaves, xx, y, grads, res
+    return out
+
+
+def _moe_ep_gate(world) -> dict:
+    """EP on (1, 2) at fp32 compute, 1 layer at full width, against one
+    rank (rank 0 alone, a (1, 1) mesh): the same seed, batches and step
+    config, ``replicated``, 3 steps."""
+    import gc
+
+    import torch
+
+    from repro_torch.comm import CommConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.topology import RankMesh
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.models import build_model
+    from repro_torch.optim import OptimConfig
+    from repro_torch.runtime.train_loop import Trainer, TrainerConfig
+    from repro_torch.runtime.train_step import TrainStepConfig
+
+    model = build_model(get_config(MOE_ARCH).with_(
+        num_layers=1, dtype="float32", **_moe_ep_overrides()))
+    data = SyntheticTokens(DataConfig(vocab_size=model.cfg.vocab_size,
+                                      seq_len=256, global_batch=8))
+    step_cfg = TrainStepConfig(
+        dp_mode="replicated", comm=CommConfig(transport="ring_hier",
+                                              chunks=2),
+        optim=OptimConfig(base_lr=3e-4, warmup=1, total_steps=3),
+        moe_transport="a2a", moe_channels=2)
+
+    def hist(mesh):
+        tr = Trainer(model, mesh, step_cfg, data,
+                     TrainerConfig(steps=3, seed=0), device=world.device,
+                     rank=world.rank, log=lambda msg: None)
+        h = tr.run()["history"]
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        return [x["loss"] for x in h], [x["grad_norm"] for x in h]
+
+    ep = hist(_tp_mesh())
+    one = hist(RankMesh(("data", "model"), (1, 1))) if world.rank == 0 \
+        else None
+    return {"ep": ep, "one": one}
+
+
+def _moe_ep_worker(argv: list[str]) -> dict:
+    """One of the two ranks of moe_ep: mixtral at full width, 1 layer, its
+    experts sharded over the model axis of (1, 2), the arch's settings
+    (fsdp, 4 microbatches, the ``a2a`` transport over 2 rails): 3 steps
+    with each step's EP and model-axis records, one profiled step; then
+    one MoE layer through the three transports and the fp32 gate."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch import train as launch_train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = launch_train.init_distributed("cuda")
+    args = launch_train.parser().parse_args(argv)
+    torch.cuda.reset_peak_memory_stats(world.device)
+    run = launch_train.setup(args, world,
+                             model_overrides=_moe_ep_overrides())
+    _check_moe_width(run.model.cfg, 1, "moe_ep")
+    trainer = run.trainer
+    step = trainer.step_fn
+    comm = step.moe_comm
+    if (step.model_size, step.data_world, step.cfg.dp_mode,
+            comm.cfg.transport, comm.cfg.channels) != (2, 1, "fsdp", "a2a",
+                                                       2):
+        raise AssertionError(f"[moe_ep] the step runs {step.cfg} on "
+                             f"{step.mesh}")
+    expected = moe_ep_expected(step, 1, args.batch, args.seq)
+    launches, _ = fsdp_expected(step, args.steps, 1)
+
+    def records():
+        """The step's EP and model-axis records; resets both."""
+        out = (comm.record.as_dict(), step.model_record.as_dict())
+        comm.record.reset()
+        step.model_record.reset()
+        return out
+
+    recorder = _StepMetrics(step, records)
+    trainer.step_fn = recorder
+    reset_launch_counters()
+    hist = trainer.run()["history"]
+    counts, routes = launch_counters(), pack_routes()
+    peak = torch.cuda.max_memory_allocated(world.device)
+    trainer.step_fn = step
+    prof = step_profile(trainer, step.data_index, step.data_world,
+                        profiled=world.rank == 0)
+    out = {"losses": [h["loss"] for h in hist],
+           "drops": [m["moe_drop_fraction"] for m in recorder.metrics],
+           "step_s": [h["sec"] for h in hist],
+           "records": recorder.records, "expected": expected,
+           "counts": counts,
+           "launches_expected": launches, "pack_routes": routes,
+           "local_params": _leaf_count(trainer.state["groups"]),
+           "peak_bytes": peak, "profile": prof}
+    cfg = run.model.cfg
+    del run, trainer, step, recorder, records, comm
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["transports"] = _moe_layer_transports(world, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["gate"] = _moe_ep_gate(world)
+    return out
+
+
+def check_moe_ep(ranks: list) -> dict:
+    """The checks of moe_ep (:func:`_moe_ep_worker`'s results)."""
+    for r, out in enumerate(ranks):
+        if not all(math.isfinite(x) for x in out["losses"]):
+            raise AssertionError(f"[moe_ep] rank {r}: non-finite loss")
+        _check_launches(f"moe_ep rank {r}", out["counts"],
+                        out["launches_expected"], out["pack_routes"])
+        exp = out["expected"]
+        for i, (moe, model) in enumerate(out["records"]):
+            got = {"all_to_alls": moe["all_to_alls"],
+                   "all_to_all_bytes": moe["all_to_all_bytes"],
+                   "all_gathers": model["all_gathers"],
+                   "all_gather_bytes": model["all_gather_bytes"]}
+            if got != {k: exp[k] for k in got}:
+                raise AssertionError(f"[moe_ep] rank {r} step {i}: {got} != "
+                                     f"expected {exp}")
+            if moe["sends"] or moe["all_reduces"]:
+                raise AssertionError(f"[moe_ep] rank {r} step {i}: the EP "
+                                     f"communicator moved {moe}")
+        if len(out["records"]) != len(out["losses"]):
+            raise AssertionError(f"[moe_ep] rank {r}: {len(out['records'])} "
+                                 f"step records")
+        for t, res in out["transports"].items():
+            if not res["equal"]:
+                raise AssertionError(f"[moe_ep] rank {r}: the MoE layer "
+                                     f"through {t} differs from a2a")
+    a, b = ranks
+    if a["losses"] != b["losses"] or a["drops"] != b["drops"]:
+        raise AssertionError(f"[moe_ep] the ranks disagree: losses "
+                             f"{a['losses']} / {b['losses']}, drops "
+                             f"{a['drops']} / {b['drops']}")
+    gate = a["gate"]
+    (ep_l, ep_n), (one_l, one_n) = gate["ep"], gate["one"]
+    loss_err = max(abs(x - y) for x, y in zip(ep_l, one_l))
+    norm_err = max(abs(x - y) / y for x, y in zip(ep_n, one_n))
+    if loss_err > MOE_GATE_ATOL:
+        raise AssertionError(f"[moe_ep] fp32 gate: losses {ep_l} vs one "
+                             f"rank {one_l} ({loss_err:.3e})")
+    if b["gate"]["ep"] != gate["ep"]:
+        raise AssertionError("[moe_ep] the ranks' gate runs disagree")
+    exp, prof = a["expected"], a["profile"]
+    moe0, model0 = a["records"][0]
+    n = len(a["losses"])
+    staging = sum(m["staging_s"] for m, _ in a["records"]) / n
+    log(f"[moe_ep] mixtral-8x7b at full width, 1 layer, experts over "
+        f"(1, 2), {a['local_params'] / 1e9:.3f}e9 parameters a rank, fsdp, "
+        f"a2a over {exp['rails']} rails: losses "
+        f"{', '.join(f'{x:.4f}' for x in a['losses'])}; moe_drop_fraction "
+        f"{', '.join(f'{x:.6f}' for x in a['drops'])} (equal on both "
+        f"ranks); step wall {', '.join(f'{x * 1e3:.0f}' for x in a['step_s'])}"
+        f" ms; peak {a['peak_bytes'] / 2**30:.2f} GiB a rank")
+    log(f"[moe_ep] a step: {moe0['all_to_alls']} all-to-alls, "
+        f"{moe0['all_to_all_bytes']} B (expected {exp['all_to_alls']}, "
+        f"{exp['all_to_all_bytes']} B: buffer {exp['shape']} bf16), "
+        f"{model0['all_gathers']} model-axis all-gathers "
+        f"({exp['all_gathers']} expected), {model0['all_reduces']} model-axis"
+        f" all-reduces ({model0['all_reduce_bytes']} B), EP staging "
+        f"{staging:.3f} s a step; profiled step (rank 0): wall "
+        f"{prof['step_wall_ms']:.1f} ms, busy {prof['step_device_ms']:.1f} "
+        f"ms, idle {prof['idle_share']:.3f}")
+    log(f"[moe_ep] one MoE layer through ring and psum == through a2a "
+        f"(output and gradients), records "
+        f"{ {t: {k: v for k, v in res['record'].items() if v and k != 'staging_s'} for t, res in a['transports'].items()} }")
+    log(f"[moe_ep] fp32 gate, 1 layer: EP losses "
+        f"{', '.join(f'{x:.6f}' for x in ep_l)} vs one rank "
+        f"{', '.join(f'{x:.6f}' for x in one_l)}: max |diff| {loss_err:.3e} "
+        f"(<= {MOE_GATE_ATOL}); gradient norms within {norm_err:.3e}")
+    return {"ranks": ranks, "gate_loss_err": loss_err,
+            "gate_norm_err": norm_err}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -5346,14 +5968,19 @@ def main() -> None:
                             fsdp0["hop_widths"])
     train_ckpt = run_phase("train_ckpt", phase_train_ckpt, dev)
     torch.cuda.empty_cache()
-    # the halo phase, stencil_cg's two ranks, train_tp and the TP serving
-    # phases share one spawn of two ranks
-    halo_ranks, cg_ranks, train_tp_ranks, serve_tp_ranks = in_turn(
-        "stencil_tp_ranks", [
+    moe_serve = run_phase("moe_serve", phase_moe_serve, dev)
+    moe_train = run_phase("moe_train", phase_moe_train, dev)
+    torch.cuda.empty_cache()
+    # the halo phase, stencil_cg's two ranks, train_tp, the TP serving
+    # phases and moe_ep share one spawn of two ranks
+    halo_ranks, cg_ranks, train_tp_ranks, serve_tp_ranks, moe_ep_ranks = \
+        in_turn("stencil_tp_ranks", [
             ("halo", _halo_worker, ()),
             ("stencil_cg_ranks", _stencil_cg_worker, ()),
             ("train_tp", _tp_train_worker, (TP_TRAIN_ARGS,)),
-            ("serve_tp_ranks", _tp_serve_worker, ())])
+            ("serve_tp_ranks", _tp_serve_worker, ()),
+            ("moe_ep", _moe_ep_worker, (MOE_EP_ARGS,))])
+    moe_ep = check_moe_ep(moe_ep_ranks)
     halo = check_halo(halo_ranks)
     stencil = run_phase("stencil", phase_stencil, dev)
     stencil_cg = run_phase("stencil_cg", phase_stencil_cg, dev, cg_ranks)
@@ -5508,8 +6135,17 @@ def main() -> None:
                            timing_attn["max_abs_err"]),
         **{k: timing_attn[k] for k in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")}})
+    # and on the MoE paths (mixtral-8x7b): the timed S=8192 prefill
+    # (moe_serve; its decode loop launches nothing), 3 fsdp steps on one
+    # rank (moe_train) and 3 EP steps a rank (moe_ep)
+    ep0 = moe_ep["ranks"][0]
     for row in rows:
         row["launches_tp"] = tp_launches[row["name"]]
+        name = row["name"]
+        row["launches_moe"] = {
+            "moe_serve": moe_serve["launches"] if name == "flash_attn" else 0,
+            "moe_train": moe_train["launches"][name],
+            "moe_ep": ep0["counts"][name]}
     kernels = {"kernels": rows, "gpu": gpu}
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -5531,7 +6167,8 @@ def main() -> None:
              "train_ring_ckpt": train_ring_ckpt, "halo": halo,
              "stencil": stencil, "stencil_cg": stencil_cg,
              "train_tp": train_tp, "serve_tp": serve_tp,
-             "train_tp_fsdp": train_tp_fsdp,
+             "train_tp_fsdp": train_tp_fsdp, "moe_serve": moe_serve,
+             "moe_train": moe_train, "moe_ep": moe_ep,
              "phase_s": phase_s,
              "torch": torch.__version__, "cuda": torch.version.cuda,
              "wall_s": time.perf_counter() - t_start}, indent=1))

@@ -24,7 +24,9 @@ flat shards and all-gathers them back (:meth:`Communicator.reduce_scatter_tree`,
 shard and sums its gradient back into the shard with
 :meth:`Communicator.gather_flat`.  The Cartesian halo exchange shares the
 rails (:meth:`Communicator.halo_exchange`, :meth:`halo_plan`,
-:meth:`halo_schedule`).  The all-to-all arrives with its slice.
+:meth:`halo_schedule`).  A communicator over one axis (the model axis)
+runs the expert-parallel all-to-all on the same rails
+(:meth:`Communicator.all_to_all`, :meth:`a2a_plan`, :meth:`moe_schedule`).
 Collectives are eager; they run in the caller's process on its rank, over
 the world ``torch.distributed`` was initialised with.
 """
@@ -39,16 +41,18 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import tree as tree_util
-from repro_torch.comm.plan import (ChannelAssignment, CommPlan, HaloChannel,
-                                   HaloPlan, assign_channels)
+from repro_torch.comm.plan import (A2APlan, ChannelAssignment, CommPlan,
+                                   HaloChannel, HaloPlan, assign_channels)
 from repro_torch.comm.registry import Rail, Transport, get_transport
 from repro_torch.comm.schedule import (CommSchedule, build_halo_schedule,
-                                       build_schedule, halo_units)
+                                       build_moe_schedule, build_schedule,
+                                       halo_units)
 from repro_torch.comm.wire_codec import ErrorFeedback
 from repro_torch.core.bucketing import BucketPlan, GradientBucketer
 from repro_torch.core.halo import HaloSpec
 from repro_torch.core.halo import halo_exchange as _halo_exchange
-from repro_torch.core.p2p import CommRecord, axis_rings, joint_ring
+from repro_torch.core.p2p import (CommRecord, axis_rings,
+                                  differentiable_all_to_all, joint_ring)
 from repro_torch.core.ring import LOCAL_OPS, RingConfig
 from repro_torch.core.topology import RankMesh, reduce_axes_of
 
@@ -438,6 +442,119 @@ class Communicator:
             channels=chans,
             overlap_fraction=sched.overlap_fraction,
         )
+
+    # -- all-to-all (expert-parallel dispatch/combine) -----------------------
+
+    def _a2a_axis(self) -> str:
+        if len(self.axes) != 1:
+            raise ValueError(
+                f"all_to_all needs exactly one comm axis, got {self.axes}; "
+                f"construct the Communicator with data_axes=('model',) (or "
+                f"the single EP axis)")
+        if not self.spec.supports_a2a:
+            raise ValueError(
+                f"transport {self.cfg.transport!r} does not support "
+                f"all-to-all (supports_a2a=False); use 'a2a', a ring "
+                f"transport, or 'psum' (honest replicated fallback)")
+        return self.axes[0]
+
+    def a2a_rails(self, shape: Sequence[int]) -> int:
+        """Rails one all-to-all of ``shape`` splits into: the payload is
+        striped along its last (feature) dimension over ``cfg.channels``
+        rails when that divides it, else it rides one rail.  Each rail's
+        exchange runs on that rail's own process groups."""
+        c = self.cfg.channels
+        if c <= 1:
+            return 1
+        return c if int(shape[-1]) % c == 0 else 1
+
+    def all_to_all(self, x: torch.Tensor, *, split_axis: int,
+                   concat_axis: int) -> torch.Tensor:
+        """Channelized tiled all-to-all over the single comm axis
+        (``lax.all_to_all(tiled=True)``): ``x`` splits into ``R`` blocks
+        along ``split_axis``, block ``j`` travels to rank ``j``, and the
+        received blocks concatenate along ``concat_axis`` in source order.
+        Differentiable: the backward is the same transport's exchange with
+        the axes swapped, recorded like the forward's."""
+        self._a2a_axis()
+        if self.axis_sizes[0] == 1:
+            return x                   # one rank: nothing moves
+        return differentiable_all_to_all(self._all_to_all, x, split_axis,
+                                         concat_axis)
+
+    def _all_to_all(self, x: torch.Tensor, split_axis: int,
+                    concat_axis: int) -> torch.Tensor:
+        rails = self.a2a_rails(x.shape)
+        if rails <= 1:
+            return self.transport.all_to_all(x, split_axis, concat_axis)
+        parts = torch.chunk(x, rails, dim=-1)
+        return torch.cat([self.transport.all_to_all(part, split_axis,
+                                                    concat_axis, rail=c)
+                          for c, part in enumerate(parts)], dim=-1)
+
+    def all_to_all_ragged(self, payload: torch.Tensor, counts: torch.Tensor,
+                          *, split_axis: int, concat_axis: int
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+        """All-to-all of capacity-padded blocks plus their valid-row counts:
+        each of the ``R`` destination blocks along ``split_axis`` is padded
+        to the static capacity and ``counts`` (int32, ``(R,)``) says how
+        many leading rows of each are real.  Returns ``(recv_payload,
+        recv_counts)``: ``recv_counts[j]`` rows of source ``j``'s block are
+        real, the rest is pad for the caller to mask."""
+        self._a2a_axis()
+        r = self.axis_sizes[0]
+        if counts.shape[0] != r:
+            raise ValueError(
+                f"counts must have shape ({r},), got {tuple(counts.shape)}")
+        recv = self.all_to_all(payload, split_axis=split_axis,
+                               concat_axis=concat_axis)
+        counts = counts.to(torch.int32)
+        if r == 1:
+            return recv, counts
+        return recv, self.transport.all_to_all(counts, 0, 0)
+
+    def _a2a_sizes(self, shape: Sequence[int], dtype: torch.dtype
+                   ) -> tuple[int, int, int]:
+        n = 1
+        for d in shape:
+            n *= int(d)
+        return self.axis_sizes[0], n, torch.empty((), dtype=dtype
+                                                  ).element_size()
+
+    def moe_schedule(self, shape: Sequence[int],
+                     dtype: torch.dtype = torch.float32) -> CommSchedule:
+        """Issue slots for one EP dispatch + combine round-trip of a local
+        capacity buffer of ``shape``: per-rail dispatch slots ready early
+        and combine slots ready late (:func:`build_moe_schedule`)."""
+        self._a2a_axis()
+        r, n, itemsize = self._a2a_sizes(shape, dtype)
+        phase_bytes = self.transport.predicted_a2a_bytes_per_device(
+            n, r, itemsize)
+        return build_moe_schedule(phase_bytes, self.a2a_rails(shape))
+
+    def a2a_plan(self, shape: Sequence[int],
+                 dtype: torch.dtype = torch.float32) -> A2APlan:
+        """Predicted wire cost of one EP dispatch + combine round-trip of a
+        local capacity buffer of ``shape`` (:class:`A2APlan`)."""
+        axis = self._a2a_axis()
+        r, n, itemsize = self._a2a_sizes(shape, dtype)
+        rails = self.a2a_rails(shape)
+        sched = self.moe_schedule(shape, dtype)
+        by_channel: dict[int, list[int]] = {}
+        for slot in sched.slots:
+            by_channel.setdefault(slot.channel, []).extend(slot.bucket_ids)
+        chans = tuple(HaloChannel(c, tuple(sorted(u)), sum(
+            sched.bucket_sizes[i] for i in u)) for c, u in
+            sorted(by_channel.items()))
+        keys = tuple(f"{phase}#{c}" for phase in ("dispatch", "combine")
+                     for c in range(rails))
+        return A2APlan(
+            transport=self.cfg.transport, axis=axis, axis_size=r,
+            elems_per_device=n, itemsize=itemsize, unit_keys=keys,
+            unit_bytes=sched.bucket_sizes,
+            messages_per_unit=self.transport
+            .predicted_a2a_messages_per_device(r),
+            channels=chans, overlap_fraction=sched.overlap_fraction)
 
     # -- dependency-aware scheduled reduction --------------------------------
 

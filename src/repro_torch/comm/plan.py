@@ -8,7 +8,8 @@ and under the int8 wire codec the compressed bytes and their price
 (:meth:`CommPlan.codec_tradeoff`).  The recording wrapper of
 :mod:`repro_torch.core.p2p` counts the same two quantities on the wire, so a
 run can be held against its plan.  :class:`HaloPlan` is the same view of
-one Cartesian halo exchange.  ``A2APlan`` arrives with its slice.
+one Cartesian halo exchange, and :class:`A2APlan` of one expert-parallel
+dispatch and combine.
 """
 
 from __future__ import annotations
@@ -282,6 +283,84 @@ class HaloPlan:
             "channels": [{"channel": a.channel, "units": list(a.units),
                           "bytes": a.bytes} for a in self.channels],
             "bytes_per_device": self.bytes_per_device,
+            "messages_per_device": self.messages_per_device,
+            "channel_imbalance": self.channel_imbalance,
+            "overlap_fraction": self.overlap_fraction,
+        }
+
+
+@dataclass(frozen=True)
+class A2APlan:
+    """The all-to-all analogue of :class:`CommPlan`: predicted wire cost of
+    one expert-parallel dispatch + combine round-trip of a local capacity
+    buffer of ``elems_per_device`` elements.
+
+    ``units`` are the per-rail all-to-all payloads, ``dispatch#c`` /
+    ``combine#c`` per rail, and ``unit_bytes[i]`` the *wire* bytes that
+    rail puts in flight per exchange (already scaled by the transport:
+    ``(R-1)/R`` of the payload for the ring and native all-to-alls,
+    ``2(R-1)`` times it for the replicated-psum fallback).
+    """
+
+    transport: str
+    axis: str
+    axis_size: int
+    elems_per_device: int          # local capacity-buffer elements, one phase
+    itemsize: int
+    unit_keys: tuple[str, ...]     # "dispatch#c" / "combine#c"
+    unit_bytes: tuple[int, ...]
+    messages_per_unit: float       # hops per rail exchange (R-1 or 2(R-1))
+    channels: tuple[HaloChannel, ...]
+    overlap_fraction: float
+
+    @property
+    def n_units(self) -> int:
+        return len(self.unit_bytes)
+
+    @property
+    def bytes_per_device(self) -> float:
+        """Predicted wire bytes per device per dispatch+combine round-trip."""
+        return float(sum(self.unit_bytes))
+
+    @property
+    def messages_per_device(self) -> float:
+        """Sends per device: the hop count per rail, summed over units."""
+        return self.messages_per_unit * self.n_units
+
+    @property
+    def dispatch_bytes_per_device(self) -> float:
+        """Wire bytes of the dispatch half alone."""
+        return float(sum(b for k, b in zip(self.unit_keys, self.unit_bytes)
+                         if k.startswith("dispatch")))
+
+    def predicted_collective_seconds(self, model: LatencyModel = LatencyModel()
+                                     ) -> float:
+        """alpha * messages + bytes / bw for one dispatch+combine."""
+        return model.collective_seconds(self.messages_per_device,
+                                        self.bytes_per_device)
+
+    @property
+    def channel_imbalance(self) -> float:
+        """max/mean channel load (1.0 = perfectly striped)."""
+        loads = [a.bytes for a in self.channels]
+        mean = sum(loads) / max(len(loads), 1)
+        return max(loads) / mean if mean else 1.0
+
+    def describe(self) -> dict:
+        """JSON-friendly summary."""
+        return {
+            "transport": self.transport,
+            "axis": self.axis,
+            "axis_size": self.axis_size,
+            "elems_per_device": self.elems_per_device,
+            "itemsize": self.itemsize,
+            "n_units": self.n_units,
+            "units": [{"key": k, "bytes": b}
+                      for k, b in zip(self.unit_keys, self.unit_bytes)],
+            "channels": [{"channel": a.channel, "units": list(a.units),
+                          "bytes": a.bytes} for a in self.channels],
+            "bytes_per_device": self.bytes_per_device,
+            "dispatch_bytes_per_device": self.dispatch_bytes_per_device,
             "messages_per_device": self.messages_per_device,
             "channel_imbalance": self.channel_imbalance,
             "overlap_fraction": self.overlap_fraction,

@@ -9,13 +9,18 @@ fails when the :class:`~repro_torch.comm.api.Communicator` is built.
 ``ring``                  flat multi-channel bidirectional ring per axis
 ``ring_hier``             pod-aware hierarchical ring (RS inner, recurse outer)
 ``psum``                  ``dist.all_reduce`` over the joint group (vendor
-                          reference)
+                          reference); its all-to-all is the replicated
+                          emulation (the whole exchange matrix all-reduced)
+``a2a``                   ``dist.all_to_all_single`` (the vendor all-to-all,
+                          one call an exchange); its all-reduce the joint
+                          group's
 ========================  ====================================================
 
 A transport runs on one rail at a time: ``rails[c]`` holds the rings of
 rail ``c``'s process groups (:class:`Rail`), and the rings the halo
-exchange runs on along every mesh axis.  The ``a2a`` transport and
-every ``all_to_all`` arrive with the MoE slice.
+exchange runs on along every mesh axis.  :meth:`Transport.all_to_all` is
+the expert-parallel exchange over a communicator of one axis: the ring
+transports hop ``p - 1`` times (:func:`~repro_torch.core.ring.ring_all_to_all`).
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ from typing import Callable, Mapping, Sequence, Type
 import torch
 
 from repro_torch.core import ring as ring_lib
-from repro_torch.core.p2p import RingAxis
+from repro_torch.core.p2p import RingAxis, concat_blocks, split_blocks
 from repro_torch.core.ring import RingConfig
 
 WIRE_DTYPES_ANY = (None, "bfloat16", "float16", "float32")
@@ -130,6 +135,12 @@ class Transport:
                                "without process groups (connect=False)")
         return tuple(reversed(self.rails[rail].axes))
 
+    def _joint(self, rail: int) -> RingAxis:
+        """The rail's joint group over every comm axis."""
+        if not self.rails:
+            self._rings(rail)                 # raises: plan-only
+        return self.rails[rail].joint
+
     def flat_divisor(self, axis_sizes: Sequence[int]) -> int:
         return self.ring_cfg.flat_divisor(axis_sizes)
 
@@ -144,6 +155,13 @@ class Transport:
     def all_gather(self, shard: torch.Tensor, rail: int = 0) -> torch.Tensor:
         raise NotImplementedError(
             f"transport {self.spec.name!r} does not support all-gather")
+
+    def all_to_all(self, x: torch.Tensor, split_axis: int, concat_axis: int,
+                   rail: int = 0) -> torch.Tensor:
+        """Tiled all-to-all over the single comm axis (EP dispatch and
+        combine)."""
+        raise NotImplementedError(
+            f"transport {self.spec.name!r} does not support all-to-all")
 
     # -- analysis -----------------------------------------------------------
 
@@ -174,6 +192,18 @@ class Transport:
         ``(p-1)`` reduce-scatter plus ``(p-1)`` all-gather hops per axis."""
         return float(sum(2 * (p - 1) for p in axis_sizes))
 
+    def predicted_a2a_bytes_per_device(self, n_elems: int, axis_size: int,
+                                       itemsize: int = 4) -> float:
+        """Wire bytes per device for one all-to-all of a local ``n_elems``
+        payload: ``(p-1)/p`` of it leaves the device (its own block
+        stays)."""
+        p = max(int(axis_size), 1)
+        return (p - 1) / p * n_elems * itemsize
+
+    def predicted_a2a_messages_per_device(self, axis_size: int) -> float:
+        """Sends per device for one all-to-all: ``p - 1`` pairwise hops."""
+        return float(max(int(axis_size) - 1, 0))
+
 
 @register_transport(
     "ring", supports_rs=True, supports_codec=True, supports_a2a=True,
@@ -185,6 +215,11 @@ class RingTransport(Transport):
     def all_reduce(self, flat: torch.Tensor, rail: int = 0) -> torch.Tensor:
         rings = tuple(reversed(self._rings(rail)))       # mesh order
         return ring_lib.flat_all_reduce(flat, rings, self.ring_cfg)
+
+    def all_to_all(self, x: torch.Tensor, split_axis: int, concat_axis: int,
+                   rail: int = 0) -> torch.Tensor:
+        return ring_lib.ring_all_to_all(x, self._rings(rail)[0], split_axis,
+                                        concat_axis)
 
     def predicted_messages_per_device(self, axis_sizes: Sequence[int]
                                       ) -> float:
@@ -220,14 +255,31 @@ class HierRingTransport(RingTransport):
 @register_transport(
     "psum", supports_rs=False, wire_dtypes=(None,), supports_a2a=True,
     description="dist.all_reduce over the joint data group (vendor "
-                "reference point); no explicit schedule, no RS/AG")
+                "reference point); no explicit schedule, no RS/AG; "
+                "all_to_all is the honest replicated fallback (full-matrix "
+                "all-reduce)")
 class PsumTransport(Transport):
     """``dist.all_reduce`` over the data axes' joint group."""
 
     def all_reduce(self, flat: torch.Tensor, rail: int = 0) -> torch.Tensor:
-        if not self.rails:
-            self._rings(rail)                 # raises: plan-only
-        return self.rails[rail].joint.all_reduce(flat)
+        return self._joint(rail).all_reduce(flat)
+
+    def all_to_all(self, x: torch.Tensor, split_axis: int, concat_axis: int,
+                   rail: int = 0) -> torch.Tensor:
+        """Replicated emulation, the pre-all-to-all MoE dispatch: each rank
+        writes its row of the (source, destination) exchange matrix into a
+        zero-padded ``(p, p, ...)`` buffer, the whole matrix is all-reduced
+        and each rank slices its own column.  Every byte of the matrix
+        crosses the wire; kept so the A/B cost is measurable."""
+        joint = self._joint(rail)
+        p, i = joint.size, joint.index
+        if p == 1:
+            return x
+        blocks = split_blocks(x, p, split_axis)           # (p_dst, ...)
+        full = blocks.new_zeros((p,) + tuple(blocks.shape))
+        full[i] = blocks
+        full = joint.all_reduce(full)                     # (p_src, p_dst, ...)
+        return concat_blocks(full[:, i], concat_axis)
 
     def predicted_messages_per_device(self, axis_sizes: Sequence[int]
                                       ) -> float:
@@ -237,3 +289,29 @@ class PsumTransport(Transport):
         for p in axis_sizes:
             world *= p
         return float(2 * (world - 1)) if world > 1 else 0.0
+
+    def predicted_a2a_bytes_per_device(self, n_elems: int, axis_size: int,
+                                       itemsize: int = 4) -> float:
+        # the full (p, n) exchange matrix is all-reduced: 2(p-1)/p of
+        # p*n elements per device
+        p = max(int(axis_size), 1)
+        return 2 * (p - 1) * n_elems * itemsize
+
+    def predicted_a2a_messages_per_device(self, axis_size: int) -> float:
+        p = max(int(axis_size), 1)
+        return float(2 * (p - 1))
+
+
+@register_transport(
+    "a2a", supports_rs=False, wire_dtypes=(None,), supports_a2a=True,
+    description="dist.all_to_all_single (one vendor all-to-all per "
+                "exchange); all_reduce over the joint group")
+class NativeA2ATransport(Transport):
+    """The vendor all-to-all, the reference's ``lax.all_to_all``."""
+
+    def all_reduce(self, flat: torch.Tensor, rail: int = 0) -> torch.Tensor:
+        return self._joint(rail).all_reduce(flat)
+
+    def all_to_all(self, x: torch.Tensor, split_axis: int, concat_axis: int,
+                   rail: int = 0) -> torch.Tensor:
+        return self._rings(rail)[0].all_to_all(x, split_axis, concat_axis)

@@ -15,7 +15,8 @@ layer's gradients are ready first).  Policies (``SCHEDULE_POLICIES``):
 share of collective traffic that could hide under remaining compute.
 :func:`build_halo_schedule` gives one Cartesian halo exchange's issue slots
 (``HALO_SCHEDULES``, executed by :func:`repro_torch.core.halo.halo_exchange`)
-as a schedule of the same kind.  The MoE schedule arrives with its slice.
+as a schedule of the same kind, and :func:`build_moe_schedule` one
+expert-parallel dispatch and combine.
 """
 
 from __future__ import annotations
@@ -268,5 +269,34 @@ def build_halo_schedule(specs, local_shape: Sequence[int], *,
     sched = CommSchedule(policy=schedule, microbatches=1,
                          bucket_sizes=tuple(unit_bytes), channels=knob,
                          slots=slots)
+    sched.validate()
+    return sched
+
+
+def build_moe_schedule(phase_bytes: float, rails: int = 1) -> CommSchedule:
+    """Issue slots for one EP dispatch + combine all-to-all round-trip.
+
+    The units are per-rail all-to-all payloads: ``rails`` dispatch units
+    (the capacity buffer striped along its feature dimension) followed by
+    ``rails`` combine units of the same size.  Rail ``c`` carries dispatch
+    unit ``c`` and combine unit ``rails + c`` in FIFO order; the staggered
+    readiness models the rail pipeline (rail ``c``'s dispatch flies while
+    rail ``c - 1``'s expert GEMM runs, each combine overlaps the remaining
+    expert compute), so :attr:`CommSchedule.overlap_fraction` prices how
+    much of the exchange the GEMMs can hide.
+    """
+    rails = max(int(rails), 1)
+    n = 2 * rails
+    per = int(round(phase_bytes / rails))
+    slots = []
+    for c in range(rails):                     # dispatch rails, issued early
+        slots.append(IssueSlot(phase=0, bucket_ids=(c,), channel=c,
+                               ready=c / n))
+    for c in range(rails):                     # combine rails, after GEMM c
+        slots.append(IssueSlot(phase=0, bucket_ids=(rails + c,), channel=c,
+                               ready=(rails + c) / n))
+    sched = CommSchedule(policy="moe", microbatches=1,
+                         bucket_sizes=tuple(per for _ in range(n)),
+                         channels=rails, slots=tuple(slots))
     sched.validate()
     return sched

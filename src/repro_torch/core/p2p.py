@@ -22,7 +22,11 @@ through ``lax.psum``, ``lax.all_gather`` and ``lax.psum_scatter``:
 ``dist.all_reduce``, ``dist.all_gather_into_tensor`` and
 ``dist.reduce_scatter_tensor`` (FSDP's native weight gather and its
 transpose; ``all_gather_single`` and ``reduce_scatter_single`` where
-PyTorch has renamed them), staged and recorded alike.
+PyTorch has renamed them), and the tiled all-to-all the reference reaches
+through ``lax.all_to_all`` (``dist.all_to_all_single``, the expert-parallel
+dispatch and combine), staged and recorded alike.
+:func:`differentiable_all_to_all` gives any tiled all-to-all its inverse
+exchange as backward.
 """
 
 from __future__ import annotations
@@ -49,6 +53,9 @@ class CommRecord:
     all_gather_bytes: int = 0    # the bytes of the shards they gathered
     reduce_scatters: int = 0     # dist.reduce_scatter_tensor calls
     reduce_scatter_bytes: int = 0  # the bytes of the buffers they summed
+    all_to_alls: int = 0         # dist.all_to_all_single calls
+    all_to_all_bytes: int = 0    # the bytes they sent away: (p-1)/p of each
+                                 # payload (this rank's own block stays)
     staging_s: float = 0.0       # host time copying through pinned memory
 
     def reset(self) -> None:
@@ -56,6 +63,7 @@ class CommRecord:
         self.all_reduces = self.all_reduce_bytes = 0
         self.all_gathers = self.all_gather_bytes = 0
         self.reduce_scatters = self.reduce_scatter_bytes = 0
+        self.all_to_alls = self.all_to_all_bytes = 0
         self.staging_s = 0.0
 
     def as_dict(self) -> dict:
@@ -75,6 +83,44 @@ _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+def split_blocks(x: torch.Tensor, p: int, split_axis: int) -> torch.Tensor:
+    """``x`` cut into ``p`` equal blocks along ``split_axis``, stacked on a
+    new leading dimension (block ``j`` at ``[j]``), contiguous."""
+    n = x.shape[split_axis]
+    if n % p:
+        raise ValueError(f"all_to_all split dim {n} not divisible by axis "
+                         f"size {p}")
+    return torch.stack(torch.chunk(x, p, dim=split_axis)).contiguous()
+
+
+def concat_blocks(blocks: torch.Tensor, concat_axis: int) -> torch.Tensor:
+    """The blocks of a stacked ``(p, ...)`` tensor concatenated along
+    ``concat_axis`` in order (the inverse of :func:`split_blocks`)."""
+    return torch.cat(list(blocks.unbind(0)), dim=concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, fn, split_axis, concat_axis):
+        ctx.fn, ctx.split, ctx.concat = fn, split_axis, concat_axis
+        return fn(x, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # a tiled all-to-all is a permutation; its transpose is the inverse
+        # exchange, the same one with the split and concat axes swapped
+        return ctx.fn(grad.contiguous(), ctx.concat, ctx.split), None, None, \
+            None
+
+
+def differentiable_all_to_all(fn, x: torch.Tensor, split_axis: int,
+                              concat_axis: int) -> torch.Tensor:
+    """``fn(x, split_axis, concat_axis)`` (a tiled all-to-all) under
+    autograd: the backward runs ``fn`` on the cotangent with the axes
+    swapped, so its messages are recorded like the forward's."""
+    return _AllToAll.apply(x, fn, split_axis, concat_axis)
 
 
 class RingAxis:
@@ -188,6 +234,28 @@ class RingAxis:
         self.record.all_gathers += 1
         self.record.all_gather_bytes += _nbytes(t)
         return out
+
+    def all_to_all(self, x: torch.Tensor, split_axis: int,
+                   concat_axis: int) -> torch.Tensor:
+        """Tiled all-to-all over the axis (``lax.all_to_all(tiled=True)``):
+        ``x`` splits into ``size`` blocks along ``split_axis``, block ``j``
+        goes to the rank at index ``j``, and the blocks received (one per
+        source, in ring order) concatenate along ``concat_axis``.  One
+        ``dist.all_to_all_single``; records the bytes that leave the rank."""
+        if self.size == 1:
+            return x
+        blocks = split_blocks(x, self.size, split_axis)
+        staged = self.stage and x.is_cuda
+        src = self._stage_out([blocks])[0] if staged else blocks
+        out = torch.empty(src.shape, dtype=src.dtype, pin_memory=staged,
+                          device=None if staged else src.device)
+        dist.all_to_all_single(out, src, group=self.group)
+        self.record.all_to_alls += 1
+        self.record.all_to_all_bytes += (_nbytes(src) // self.size
+                                         * (self.size - 1))
+        if staged:
+            out = self._stage_in([out], x.device)[0]
+        return concat_blocks(out, concat_axis)
 
     def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
         """Sum of the flat ``t`` over the axis, this rank's ``1/size`` of it:

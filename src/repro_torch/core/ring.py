@@ -21,7 +21,8 @@ all-gather ring whose schedule the code controls, as in the reference:
 
 All functions take flat, pre-padded 1-D buffers (``core.bucketing``
 produces them) and the :class:`~repro_torch.core.p2p.RingAxis` of each mesh
-axis they reduce over.  ``ring_all_to_all`` arrives with the MoE slice.
+axis they reduce over.  :func:`ring_all_to_all` is the expert-parallel
+exchange built from ``p - 1`` pairwise hops.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from typing import Callable, Sequence
 
 import torch
 
-from repro_torch.core.p2p import RingAxis
+from repro_torch.core.p2p import RingAxis, concat_blocks, split_blocks
 
 LocalAdd = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 LOCAL_OPS = ("kernel", "plain")
@@ -202,3 +203,35 @@ def flat_all_reduce(x: torch.Tensor, axes: Sequence[RingAxis],
     for axis in axes:
         x = ring_all_reduce(x, axis, cfg)
     return x
+
+
+# ---------------------------------------------------------------------------
+# all-to-all (expert-parallel dispatch/combine)
+# ---------------------------------------------------------------------------
+
+
+def ring_all_to_all(x: torch.Tensor, axis: RingAxis, split_axis: int,
+                    concat_axis: int) -> torch.Tensor:
+    """Tiled all-to-all (``lax.all_to_all(tiled=True)``'s semantics) from
+    ``p - 1`` pairwise hops: ``x`` splits into ``p`` blocks along
+    ``split_axis``, block ``j`` travels to the rank at index ``j``, and the
+    received blocks concatenate along ``concat_axis`` in source order.
+
+    Hop ``s`` ships the block for ``(r + s) % p`` with
+    :meth:`RingAxis.start_shift` (direction ``s``) and receives the block
+    rank ``(r - s) % p`` holds for this rank, so each block crosses the wire
+    once: ``p - 1`` sends of ``(p - 1)/p`` of the payload in all.  Every
+    step moves data only, so the inverse exchange is its transpose."""
+    p, r = axis.size, axis.index
+    if x.shape[split_axis] % max(p, 1):
+        raise ValueError(f"all_to_all split dim {x.shape[split_axis]} not "
+                         f"divisible by axis size {p}")
+    if p == 1:
+        return x
+    blocks = split_blocks(x, p, split_axis)          # [j]: bound for rank j
+    recv = [None] * p
+    recv[r] = blocks[r]
+    for s in range(1, p):
+        got = axis.start_shift([blocks[(r + s) % p]], directions=[s]).wait()
+        recv[(r - s) % p] = got[0]
+    return concat_blocks(torch.stack(recv), concat_axis)

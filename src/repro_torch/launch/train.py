@@ -125,16 +125,20 @@ class TrainRun:
 
 
 def setup(args, world: World, *,
-          step_overrides: dict | None = None) -> TrainRun:
+          step_overrides: dict | None = None,
+          model_overrides: dict | None = None) -> TrainRun:
     """The model (random weights from ``--seed``), data, step config and
     trainer of one rank.  ``step_overrides`` replaces fields of the step
     config that the reference's CLI has no flag for either (e.g.
-    ``fsdp_gather``)."""
+    ``fsdp_gather``), ``model_overrides`` fields of the model config (e.g.
+    a MoE config whose experts shard over the model axis)."""
     dp_mode = resolve_dp_mode(args)
     st = settings_for(args.arch)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     if args.layers is not None:
         cfg = cfg.with_(num_layers=args.layers)
+    if model_overrides:
+        cfg = cfg.with_(**model_overrides)
     model = build_model(cfg)
     ccfg = st.comm_config(bucket_bytes=32 * 2**20)
     if args.transport:
@@ -150,7 +154,8 @@ def setup(args, world: World, *,
                           schedule=schedule, total_steps=args.steps),
         microbatches=1 if args.reduced else st.microbatches,
         schedule=args.accum_policy or "accumulate_then_reduce",
-        use_arena=args.use_arena, wire_codec=args.wire_codec)
+        use_arena=args.use_arena, wire_codec=args.wire_codec,
+        moe_transport=st.moe_transport, moe_channels=st.moe_channels)
     if step_overrides:
         step_cfg = dataclasses.replace(step_cfg, **step_overrides)
     data = SyntheticTokens(DataConfig(vocab_size=model.cfg.vocab_size,

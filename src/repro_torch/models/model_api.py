@@ -60,24 +60,28 @@ class Model:
 
     def loss_fn(self, params: dict, batch: dict, *,
                 ctx: ParallelCtx = SINGLE, causal_skip: bool = False,
-                block_resolver=None) -> torch.Tensor:
-        """Token-mean cross entropy of ``batch`` (the reference's
-        ``Model.loss_fn`` on one rank of the mesh ``ctx`` describes);
-        ``block_resolver`` gathers FSDP blocks
-        (:func:`transformer.forward`)."""
+                block_resolver=None,
+                stats_out: list | None = None) -> torch.Tensor:
+        """Token-mean cross entropy of ``batch`` plus the weighted MoE
+        load-balancing loss (the reference's ``Model.loss_fn`` on one rank
+        of the mesh ``ctx`` describes); ``block_resolver`` gathers FSDP
+        blocks (:func:`transformer.forward`); ``stats_out`` receives
+        ``{"moe_drop_fraction": ...}``."""
         return transformer.loss_fn(params, batch, self.cfg, ctx=ctx,
                                    causal_skip=causal_skip,
-                                   block_resolver=block_resolver)
+                                   block_resolver=block_resolver,
+                                   stats_out=stats_out)
 
     def forward(self, params: dict, batch: dict, *,
                 ctx: ParallelCtx = SINGLE, causal_skip: bool = False,
                 attn_impl: str = "blockwise",
                 block_resolver=None) -> torch.Tensor:
         """Logits over this rank's vocab shard (all of it on one rank)."""
-        return transformer.forward(params, batch["tokens"], self.cfg,
-                                   ctx=ctx, causal_skip=causal_skip,
-                                   attn_impl=attn_impl,
-                                   block_resolver=block_resolver)
+        logits, _, _ = transformer.forward(params, batch["tokens"], self.cfg,
+                                           ctx=ctx, causal_skip=causal_skip,
+                                           attn_impl=attn_impl,
+                                           block_resolver=block_resolver)
+        return logits
 
     def init_decode_state(self, batch: int, seq_len: int, *,
                           device: str | torch.device = "cuda") -> list:
@@ -98,6 +102,19 @@ class Model:
         """Element count of the tree, from shapes alone (nothing allocated)."""
         tree = transformer.init_params(None, self.cfg, torch.device("meta"))
         return sum(t.numel() for t in _leaves(tree))
+
+    def active_param_count(self) -> int:
+        """MoE: only ``top_k`` of ``num_experts`` expert stacks are active
+        per token; the count of the others is taken out."""
+        total = self.param_count()
+        moe = self.cfg.moe
+        if moe is None:
+            return total
+        tree = transformer.init_params(None, self.cfg, torch.device("meta"))
+        expert_leaf = sum(
+            bp["moe"][n].numel() for bp in tree["blocks"] if "moe" in bp
+            for n in ("w_gate", "w_up", "w_down"))
+        return int(total - expert_leaf * (1 - moe.top_k / moe.num_experts))
 
 
 def _leaves(tree):

@@ -17,7 +17,12 @@ the communicator's rails), and each collective with a custom gradient is a
   leading dimension, this rank's slice of the cotangent backward;
 * :func:`sum_grads_over_model` — identity forward, all-reduce backward, on
   the weights a rank uses in a rank-dependent way (the kv projections
-  under the GQA head gather).
+  under the GQA head gather);
+* :meth:`ParallelCtx.all_to_all` — the tiled all-to-all of expert
+  parallelism, through the EP communicator's transport when one is
+  attached (``a2a``), else ``dist.all_to_all_single`` on the model axis's
+  own group (the reference's ``lax.all_to_all`` default); its backward is
+  the inverse exchange.
 
 The data axes are one joint ring (``data``): ``psum_data`` is one
 ``dist.all_reduce`` over it.  ``ParallelCtx()`` is the single-rank
@@ -26,12 +31,14 @@ context: every collective is the identity.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Any
 
 import torch
 
 from repro_torch import tree as tree_util
-from repro_torch.core.p2p import CommRecord, RingAxis, joint_ring
+from repro_torch.core.p2p import (CommRecord, RingAxis,
+                                  differentiable_all_to_all, joint_ring)
 from repro_torch.core.topology import RankMesh
 from repro_torch.sharding.rules import MODEL_AXIS
 
@@ -74,6 +81,9 @@ class _GatherIdBwd(torch.autograd.Function):
 class ParallelCtx:
     data: RingAxis | None = None     # joint group of the data axes
     model: RingAxis | None = None    # the model axis (tensor parallelism)
+    # the EP communicator's all_to_all(x, *, split_axis, concat_axis)
+    # (differentiable); None -> the model ring's own all-to-all
+    a2a: Any = field(default=None, compare=False)
 
     # -- model-axis collectives ------------------------------------------
 
@@ -101,6 +111,20 @@ class ParallelCtx:
         model order; the backward returns this rank's slice."""
         return _GatherIdBwd.apply(x, self.model) if self._tp() else x
 
+    def all_to_all(self, x: torch.Tensor, *, split_axis: int,
+                   concat_axis: int) -> torch.Tensor:
+        """Tiled all-to-all over the model axis (EP dispatch and combine):
+        ``x`` splits into ``model_size`` blocks along ``split_axis``, block
+        ``j`` goes to model rank ``j``, the received blocks concatenate
+        along ``concat_axis`` in rank order.  The backward is the inverse
+        exchange."""
+        if not self._tp():
+            return x
+        if self.a2a is not None:
+            return self.a2a(x, split_axis=split_axis, concat_axis=concat_axis)
+        return differentiable_all_to_all(self.model.all_to_all, x,
+                                         split_axis, concat_axis)
+
     def model_size(self) -> int:
         return self.model.size if self.model is not None else 1
 
@@ -125,12 +149,20 @@ SINGLE = ParallelCtx()
 
 
 def make_ctx(mesh: RankMesh, data: RingAxis | None = None,
-             record: CommRecord | None = None) -> ParallelCtx:
+             record: CommRecord | None = None,
+             moe_comm=None) -> ParallelCtx:
     """The models' explicit-collective context on ``mesh``: ``data`` (the
-    communicator's joint ring of the data axes) and, when the mesh has a
-    model axis above 1, a ring over it on process groups of its own,
-    recording into ``record``.  Creating the groups is collective: every
-    rank calls this in the same order."""
+    communicator's joint ring of the data axes), the EP communicator
+    ``moe_comm`` (a :class:`~repro_torch.comm.api.Communicator` over the
+    model axis, whose ``all_to_all`` the context's exchanges go through)
+    and, when the mesh has a model axis above 1, a ring over it on process
+    groups of its own, recording into ``record``.
+
+    Creating groups is collective, and a mismatch in their order deadlocks
+    gloo, so every rank makes them in one order: the data communicator's
+    rails, then the EP communicator's rails over ``("model",)``
+    (:func:`~repro_torch.runtime.train_step.build_moe_comm`), then the
+    model axis's own ring, here."""
     model = None
     if mesh.sizes().get(MODEL_AXIS, 1) > 1:
         import torch.distributed as dist
@@ -138,7 +170,8 @@ def make_ctx(mesh: RankMesh, data: RingAxis | None = None,
         rank = dist.get_rank() if dist.is_initialized() else 0
         model = joint_ring(mesh, rank, (MODEL_AXIS,),
                            record if record is not None else CommRecord())
-    return ParallelCtx(data=data, model=model)
+    a2a = moe_comm.all_to_all if moe_comm is not None else None
+    return ParallelCtx(data=data, model=model, a2a=a2a)
 
 
 def sum_grads_over_model(tree, ctx: ParallelCtx):

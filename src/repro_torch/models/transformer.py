@@ -1,17 +1,21 @@
-"""Decoder-only transformer (dense family): parameters, forward, loss and
-single-token decode.
+"""Decoder-only transformer (dense and MoE families): parameters, forward,
+loss and single-token decode.
 
-Port of ``repro.models.transformer`` for dense stacks: the same tree
-(``embed``, ``blocks[i]`` with ``ln1``/``ln2``/``attn``/``mlp``,
-``final_norm``, optional ``lm_head``), the training / prefill forward and
-the decode step against a per-layer KV cache.  Gradients come from
+Port of ``repro.models.transformer`` for dense and MoE stacks: the same
+tree (``embed``, ``blocks[i]`` with ``ln1``/``ln2``/``attn`` and ``mlp``,
+or ``moe`` on the layers ``cfg.layer_kind`` makes MoE, ``final_norm``,
+optional ``lm_head``), the training / prefill forward and the decode step
+against a per-layer KV cache.  :func:`forward` also returns the MoE layers'
+summed load-balancing loss and their mean drop fraction; :func:`loss_fn`
+adds ``AUX_LOSS_WEIGHT`` times the former and reports the latter through
+``stats_out``.  Gradients come from
 autograd; with ``remat="layer"`` each block is recomputed in the backward
 pass (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``.
 Under FSDP ``params["blocks"][i]`` is the block's list of flat weight
 shards and ``block_resolver("blocks", i, shards)`` gathers it into the
 block's tree inside the recomputed function, so that the backward pass
 gathers again instead of keeping every gathered block alive.
-MoE, SSM and hybrid stacks arrive with their own slices of the port.
+SSM and hybrid stacks arrive with the remaining-families slice.
 """
 
 from __future__ import annotations
@@ -25,15 +29,28 @@ from repro_torch.models.attention import (attn_apply, attn_decode,
 from repro_torch.models.common import (dense, dense_init, embed, embed_init,
                                        glu_mlp, glu_mlp_init, rmsnorm,
                                        rmsnorm_init, softmax_xent, unembed)
+from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.parallel import SINGLE, ParallelCtx
+
+AUX_LOSS_WEIGHT = 0.01
 
 
 def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.moe is not None or cfg.family in ("moe", "ssm", "hybrid"):
+    """SSM and hybrid mixers are not ported; dense and MoE stacks are."""
+    if cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet (MoE "
-            f"arrives with the expert-parallel slice, SSM and hybrid with "
-            f"the remaining-families slice); the port covers dense stacks")
+            f"{cfg.name}: the {cfg.family!r} family is not ported yet (SSM "
+            f"and hybrid arrive with the remaining-families slice); the "
+            f"port covers dense and MoE stacks")
+
+
+def _is_moe(cfg: ModelConfig, i: int) -> bool:
+    return cfg.layer_kind(i)["mlp"] == "moe"
+
+
+def moe_layer_count(cfg: ModelConfig) -> int:
+    """How many of the stack's layers are MoE (0 for a dense stack)."""
+    return sum(1 for i in range(cfg.num_layers) if _is_moe(cfg, i))
 
 
 def block_init(generator, cfg: ModelConfig, i: int, dtype: torch.dtype,
@@ -43,10 +60,24 @@ def block_init(generator, cfg: ModelConfig, i: int, dtype: torch.dtype,
                "ln2": rmsnorm_init(cfg.d_model, dtype, device),
                "attn": attn_init(generator, cfg.attn, cfg.d_model,
                                  dtype=dtype, device=device)}
-    if cfg.d_ff > 0:
+    if _is_moe(cfg, i):
+        p["moe"] = moe_init(generator, cfg.moe, cfg.d_model, dtype=dtype,
+                            device=device)
+    elif cfg.d_ff > 0:
         p["mlp"] = glu_mlp_init(generator, cfg.d_model, cfg.d_ff,
                                 dtype=dtype, device=device)
     return p
+
+
+def layer_attn_impl(cfg: ModelConfig, i: int, attn_impl: str) -> str:
+    """The attention route of layer ``i`` under ``attn_impl``, fixed by the
+    layer's kind: the ``flash_attn`` kernel has no chunk mask, so a
+    chunked-local layer (llama4's) runs the blockwise loop, the
+    reference's own prefill attention, on every layer."""
+    if attn_impl == "kernel" and not _is_global(cfg, i) \
+            and cfg.attn.chunk is not None:
+        return "blockwise"
+    return attn_impl
 
 
 def init_params(generator, cfg: ModelConfig, device=None) -> dict:
@@ -68,52 +99,70 @@ def init_params(generator, cfg: ModelConfig, device=None) -> dict:
 def block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, i: int, *,
                 positions: torch.Tensor, causal_skip: bool,
                 attn_impl: str = "blockwise",
-                ctx: ParallelCtx = SINGLE) -> torch.Tensor:
+                ctx: ParallelCtx = SINGLE
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One block: ``(x, aux, drop)``, the last two the MoE layer's
+    load-balancing loss and drop fraction (zeros on a dense layer)."""
     cdt = getattr(torch, cfg.dtype)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
     h = ctx.fan_out(rmsnorm(p["ln1"], x, cfg.norm_eps))
-    mix = attn_apply(p["attn"], h, cfg.attn,
-                     is_global=cfg.layer_kind(i).get("attn_global", True),
+    mix = attn_apply(p["attn"], h, cfg.attn, is_global=_is_global(cfg, i),
                      ctx=ctx, positions=positions, compute_dtype=cdt,
-                     causal_skip=causal_skip, attn_impl=attn_impl)
+                     causal_skip=causal_skip,
+                     attn_impl=layer_attn_impl(cfg, i, attn_impl))
     x = x + mix.to(x.dtype)
+    if "moe" in p:        # moe places its own f-boundaries
+        h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+        y, aux, drop = moe_apply(p["moe"], h, cfg.moe, cfg.act, ctx=ctx,
+                                 compute_dtype=cdt)
+        return x + y.to(x.dtype), aux, drop
     if "mlp" not in p:
-        return x
+        return x, zero, zero
     h = ctx.fan_out(rmsnorm(p["ln2"], x, cfg.norm_eps))
     y = glu_mlp(p["mlp"], h, cfg.act, cdt, ctx, cfg.d_ff)
-    return x + y.to(x.dtype)
+    return x + y.to(x.dtype), zero, zero
 
 
 def _resolved_block_apply(raw, x: torch.Tensor, cfg: ModelConfig, i: int, *,
-                          block_resolver, **kw) -> torch.Tensor:
+                          block_resolver, **kw):
     bp = block_resolver("blocks", i, raw) if block_resolver else raw
     return block_apply(bp, x, cfg, i, **kw)
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
             ctx: ParallelCtx = SINGLE, causal_skip: bool = False,
-            attn_impl: str = "blockwise",
-            block_resolver=None) -> torch.Tensor:
-    """tokens: (B, S) -> logits (B, S, V_local) in the compute dtype: the
-    whole vocabulary on one rank, this rank's vocab shard under tensor
-    parallelism (``ctx``, the parameters this rank's shards).
-    ``attn_impl="kernel"`` runs every layer's attention through the
-    ``flash_attn`` kernel (the serving prefill; no gradient).
-    ``block_resolver`` (FSDP) turns a block's shard list into its tree, and
-    is called inside the checkpointed function."""
+            attn_impl: str = "blockwise", block_resolver=None
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """tokens: (B, S) -> ``(logits, aux_loss, drop_fraction)``: the logits
+    (B, S, V_local) in the compute dtype (the whole vocabulary on one rank,
+    this rank's vocab shard under tensor parallelism: ``ctx``, the
+    parameters this rank's shards), the MoE layers' summed load-balancing
+    loss and their mean drop fraction (zeros for a dense stack).
+    ``attn_impl="kernel"`` runs the attention through the ``flash_attn``
+    kernel (the serving prefill; no gradient) on every layer but the
+    chunked-local ones (:func:`layer_attn_impl`).  ``block_resolver``
+    (FSDP) turns a block's shard list into its tree, and is called inside
+    the checkpointed function."""
     _require_dense(cfg)
     cdt = getattr(torch, cfg.dtype)
     x = embed(params["embed"], tokens.long(), cdt, ctx, cfg.vocab_size)
     positions = torch.arange(x.shape[1], device=x.device)
     kw = dict(positions=positions, causal_skip=causal_skip,
               attn_impl=attn_impl, block_resolver=block_resolver, ctx=ctx)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    drop_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    n_moe = moe_layer_count(cfg)
     for i, raw in enumerate(params["blocks"]):
         if cfg.remat == "layer" and torch.is_grad_enabled():
-            x = checkpoint(_resolved_block_apply, raw, x, cfg, i, **kw,
-                           use_reentrant=False)
+            x, aux, drop = checkpoint(_resolved_block_apply, raw, x, cfg, i,
+                                      **kw, use_reentrant=False)
         else:
-            x = _resolved_block_apply(raw, x, cfg, i, **kw)
-    return _logits(params, ctx.fan_out(
+            x, aux, drop = _resolved_block_apply(raw, x, cfg, i, **kw)
+        aux_total = aux_total + aux
+        drop_total = drop_total + drop
+    logits = _logits(params, ctx.fan_out(
         rmsnorm(params["final_norm"], x, cfg.norm_eps)), cfg)
+    return logits, aux_total, drop_total / max(n_moe, 1)
 
 
 def _logits(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -126,13 +175,21 @@ def _logits(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *,
             ctx: ParallelCtx = SINGLE, causal_skip: bool = False,
-            block_resolver=None) -> torch.Tensor:
+            block_resolver=None,
+            stats_out: list | None = None) -> torch.Tensor:
     """batch: {"tokens": (B,S), "labels": (B,S), optional "mask"}; the
-    cross entropy is vocab-parallel under tensor parallelism."""
-    logits = forward(params, batch["tokens"], cfg, ctx=ctx,
-                     causal_skip=causal_skip, block_resolver=block_resolver)
-    return softmax_xent(logits, batch["labels"], batch.get("mask"), ctx,
+    cross entropy (vocab-parallel under tensor parallelism) plus
+    ``AUX_LOSS_WEIGHT`` times the MoE load-balancing loss.  ``stats_out``,
+    when given, receives one ``{"moe_drop_fraction": scalar}`` per call
+    (detached)."""
+    logits, aux, drop = forward(params, batch["tokens"], cfg, ctx=ctx,
+                                causal_skip=causal_skip,
+                                block_resolver=block_resolver)
+    loss = softmax_xent(logits, batch["labels"], batch.get("mask"), ctx,
                         cfg.vocab_size)
+    if stats_out is not None:
+        stats_out.append({"moe_drop_fraction": drop.detach()})
+    return loss + AUX_LOSS_WEIGHT * aux
 
 
 def _is_global(cfg: ModelConfig, i: int) -> bool:
@@ -181,7 +238,12 @@ def decode_step(params: dict, token: torch.Tensor, state: list, pos: int,
             is_global=_is_global(cfg, i), pos=pos, ctx=ctx,
             compute_dtype=cdt, cache_len_global=clen)
         x = x + mix.to(x.dtype)
-        if "mlp" in bp:
+        if "moe" in bp:
+            h = rmsnorm(bp["ln2"], x, cfg.norm_eps)
+            y, _, _ = moe_apply(bp["moe"], h, cfg.moe, cfg.act, ctx=ctx,
+                                compute_dtype=cdt)
+            x = x + y.to(x.dtype)
+        elif "mlp" in bp:
             h = rmsnorm(bp["ln2"], x, cfg.norm_eps)
             x = x + glu_mlp(bp["mlp"], h, cfg.act, cdt, ctx,
                             cfg.d_ff).to(x.dtype)

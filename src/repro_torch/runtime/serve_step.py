@@ -180,9 +180,11 @@ def build_prefill(model: Model, shape_cfg: ShapeConfig, *,
     batches of ``shape_cfg``'s (global_batch, seq_len) tokens; ``B`` is
     this rank's rows (all of them on one rank), ``V_local`` its vocab shard
     (all of it without a model axis).  With ``attn_impl="kernel"`` every
-    layer's attention runs the ``flash_attn`` kernel (its plain version for
-    CPU tensors) on this rank's real heads; ``"blockwise"`` runs the
-    reference's blockwise loop."""
+    global or windowed layer's attention runs the ``flash_attn`` kernel
+    (its plain version for CPU tensors) on this rank's real heads, and a
+    chunked-local layer the blockwise loop
+    (:func:`~repro_torch.models.transformer.layer_attn_impl`);
+    ``"blockwise"`` runs the reference's blockwise loop everywhere."""
     dev = resolve_device(device)
     mesh = mesh or data_mesh(1)
     weights, plan = _weights(model, mesh, weight_mode, "prefill")

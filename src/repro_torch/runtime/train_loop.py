@@ -131,6 +131,9 @@ class Trainer:
             obs.gauge("loss", loss)
             obs.gauge("grad_norm", float(metrics["grad_norm"]))
             obs.gauge("lr", float(metrics["lr"]))
+            if "moe_drop_fraction" in metrics:
+                obs.gauge("moe_drop_fraction",
+                          float(metrics["moe_drop_fraction"]))
             if self.drift is not None:
                 self.drift.update(step, dt)
             rec = {"step": step, "loss": loss,

@@ -55,6 +55,14 @@ accumulation buffer).  The shards are updated in place of the parameters.
 ``reduce_add`` kernel; a wire codec is refused with the ring gather.  On a
 model axis the gathered block is this rank's block of the layer, and the
 layer's model-axis collectives run inside the same recomputed function.
+
+MoE expert parallelism rides a communicator of its own
+(:func:`build_moe_comm`): ``moe_transport`` / ``moe_channels`` configure
+the one-axis all-to-all over ``"model"`` that the models reach through
+``ParallelCtx.all_to_all`` (the capacity buffer's dispatch and combine);
+its traffic records into that communicator's record (``step.moe_comm``).
+The routing's capacity drops surface as the ``moe_drop_fraction``
+metric, averaged over the data axes, next to the loss in every mode.
 """
 
 from __future__ import annotations
@@ -77,7 +85,7 @@ from repro_torch.mem.layout import (ArenaLayout, QuantArenaLayout, plan_arena,
                                     plan_quant_arena)
 from repro_torch.models.model_api import Model
 from repro_torch.models.parallel import make_ctx
-from repro_torch.models.transformer import init_params
+from repro_torch.models.transformer import init_params, moe_layer_count
 from repro_torch.optim import (OptimConfig, adamw_flat_update,
                                adamw_tree_update, clip_factor,
                                global_grad_norm, init_opt_state,
@@ -113,6 +121,12 @@ class TrainStepConfig:
     fsdp_bucket_bytes: int = 512 * 2**20
     fsdp_gather: str = "native"        # "native" (dist.all_gather_into_
                                        # tensor) | "ring" (the transport's)
+    moe_transport: str = "a2a"         # EP dispatch/combine over the model
+                                       # axis: "a2a" (all_to_all_single) |
+                                       # "ring" | "ring_hier" (p - 1 hops) |
+                                       # "psum" (replicated fallback)
+    moe_channels: int = 0              # stripe the EP payload's feature dim
+                                       # over N rails (0/1 = one)
 
     def comm_config(self, data_axes: tuple[str, ...]) -> CommConfig:
         ccfg = self.comm
@@ -135,6 +149,21 @@ class TrainStepConfig:
             raise ValueError(f"unknown schedule policy {self.schedule!r}; "
                              f"one of {SCHEDULE_POLICIES}")
         return self.schedule
+
+
+def build_moe_comm(mesh: RankMesh, cfg: TrainStepConfig
+                   ) -> Communicator | None:
+    """The EP communicator over the model axis whose ``all_to_all`` the
+    models' context carries (None without a model axis of two ranks or
+    more: nothing would move).  Building it makes process groups: every
+    rank builds it at the same point, after the data communicator and
+    before the model axis's own ring
+    (:func:`~repro_torch.models.parallel.make_ctx`)."""
+    if mesh.sizes().get(MODEL_AXIS, 1) < 2:
+        return None
+    return Communicator(mesh, CommConfig(
+        transport=cfg.moe_transport, data_axes=(MODEL_AXIS,),
+        channels=cfg.moe_channels))
 
 
 def data_mesh(world: int) -> RankMesh:
@@ -378,7 +407,10 @@ class TrainStep:
     the :class:`FsdpPlan` (:attr:`fsdp`), whose communicator is the step's,
     and the same ranges of the plan's norm weights, per group-bucket shard
     in sorted group order.  On a model axis the context's model-axis
-    collectives record into :attr:`model_record`.
+    collectives record into :attr:`model_record`, and the EP all-to-alls
+    of MoE layers into ``moe_comm.record`` (:attr:`moe_comm`, the
+    communicator :func:`build_moe_comm` makes for a MoE stack; None for a
+    dense one).
 
     For checkpoints it holds :attr:`ranks` (this rank's place in the global
     arrays and, over several ranks, a gloo group of its own when the
@@ -402,6 +434,8 @@ class TrainStep:
         self.norm_ranges: list[list[tuple[int, int]]] = []
         self.norm_weights: list[list[float]] = []
         self.fsdp: FsdpPlan | None = None
+        self._drops: list = []       # this step's microbatch drop fractions
+        self._n_moe = moe_layer_count(model.cfg)
         policy = cfg.schedule_policy
         self.specs = model.param_specs(mesh)
         self.model_record = CommRecord()
@@ -409,9 +443,12 @@ class TrainStep:
             self.fsdp = FsdpPlan(model, mesh, cfg)
             self.comm = self.fsdp.comm
             self.ranks = self._checkpoint_ranks()
-            # the model axis's own groups, made after the communicator's
+            # the EP communicator's (MoE stacks only) and the model axis's
+            # own groups, made after the data communicator's
+            self.moe_comm = build_moe_comm(mesh, cfg) if self._n_moe \
+                else None
             self.ctx = make_ctx(mesh, self.comm.transport.rails[0].joint,
-                                self.model_record)
+                                self.model_record, self.moe_comm)
             self.plan = None
             lay = self.fsdp.arena_layout
             self.arena = (None if lay is None else
@@ -426,9 +463,11 @@ class TrainStep:
             return
         self.comm = Communicator(mesh, cfg.comm_config(("pod", "data")))
         self.ranks = self._checkpoint_ranks()
-        # the model axis's own groups, made after the communicator's
+        # the EP communicator's (MoE stacks only) and the model axis's own
+        # groups, made after the data communicator's
+        self.moe_comm = build_moe_comm(mesh, cfg) if self._n_moe else None
         self.ctx = make_ctx(mesh, self.comm.transport.rails[0].joint,
-                            self.model_record)
+                            self.model_record, self.moe_comm)
         local = self.local_params(abstract_params(model))
         self.plan = self.comm.plan(local)
         self.arena = self.comm.arena(local) if cfg.use_arena else None
@@ -548,23 +587,37 @@ class TrainStep:
     def _grad_fn(self, params, mb):
         """``(loss, grads)`` of one microbatch; under fsdp ``params`` is
         the ``{group: [shards]}`` tree, gathered here, and the gradients
-        come back as shards (the gathers' backward reduce-scatters)."""
+        come back as shards (the gathers' backward reduce-scatters).  The
+        microbatch's drop fraction goes to :attr:`_drops`."""
         leaves, treedef = tree_util.flatten(params)
         leaves = [p.detach().requires_grad_(True) for p in leaves]
         tree, kw = treedef.unflatten(leaves), {}
         if self.fsdp is not None:
             tree, kw["block_resolver"] = self.fsdp.params_and_resolver(
                 tree, getattr(torch, self.cfg.gather_dtype))
+        stats: list = []
         loss = self.model.loss_fn(tree, mb, ctx=self.ctx,
-                                  causal_skip=self.cfg.causal_skip, **kw)
+                                  causal_skip=self.cfg.causal_skip,
+                                  stats_out=stats, **kw)
+        self._drops.append(stats[0]["moe_drop_fraction"])
         del tree
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, leaves)]
         return loss.detach(), treedef.unflatten(grads)
 
+    def _drop_metric(self) -> torch.Tensor:
+        """The step's ``moe_drop_fraction``: the microbatches' mean,
+        averaged over the data axes.  A dense stack's is 0 on every rank,
+        so it needs no all-reduce."""
+        drop = sum(self._drops) / max(len(self._drops), 1)
+        self._drops = []
+        drop = torch.as_tensor(drop, dtype=torch.float32, device=self.device)
+        return self.ctx.pmean_data(drop) if self._n_moe else drop
+
     def __call__(self, state: dict, batch: dict) -> tuple[dict, dict]:
         batch = {k: v.to(self.device) for k, v in batch.items()}
+        self._drops = []
         if self.fsdp is not None:
             return self._fsdp_step(state, batch)
         zero1 = self.cfg.dp_mode == "zero1"
@@ -623,7 +676,7 @@ class TrainStep:
         for key, buf in zip(("arena", "ef"), extra):
             new_state[key] = buf
         metrics = {"loss": self.ctx.pmean_data(loss), "grad_norm": gnorm,
-                   "lr": lr}
+                   "lr": lr, "moe_drop_fraction": self._drop_metric()}
         return new_state, metrics
 
     def _fsdp_step(self, state: dict, batch: dict) -> tuple[dict, dict]:
@@ -674,7 +727,7 @@ class TrainStep:
         for key, buf in zip(("arena", "ef"), extra):
             new_state[key] = buf
         metrics = {"loss": self.ctx.pmean_data(loss), "grad_norm": gnorm,
-                   "lr": lr}
+                   "lr": lr, "moe_drop_fraction": self._drop_metric()}
         return new_state, metrics
 
     def _shard_norm(self, shards: list) -> torch.Tensor:

@@ -24,6 +24,11 @@ against the paged KV cache:
   ``psum`` over the model axis): two collectives a layer a token, zero at
   one rank (:func:`predicted_collectives_per_token`).
 
+* **MoE layers** run :func:`~repro_torch.models.moe.moe_apply` on the
+  whole expert stacks (every rank holds every weight, so no all-to-all is
+  issued at any ``model_parallel``); only all-global-attention configs
+  reach the engine (the page table refuses windowed and chunked layers).
+
 Admission, eviction and page recycling are host-side numpy, as in the
 reference.  The host's page table and slot vectors travel to the device once
 per step, in one copy.
@@ -46,6 +51,7 @@ from repro_torch.models.attention import (_merge_heads, _split_heads,
                                           padded_heads)
 from repro_torch.models.common import (apply_rope, dense, embed, glu_mlp,
                                        rmsnorm, unembed)
+from repro_torch.models.moe import moe_apply
 from repro_torch.models.parallel import SINGLE, make_ctx
 from repro_torch.obs import NULL_OBS
 from repro_torch.serve.kv import KVArenaPlan, KVPageAllocator, PageTable
@@ -185,8 +191,6 @@ def build_paged_decode_step(model, plan: KVArenaPlan, *,
                                              channels=1))
         ctx = make_ctx(mesh, record=comm.record)
     rank = ctx.model_index()
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE decode is not ported yet")
     cdt = getattr(torch, cfg.dtype)
     hkv, hd = cfg.attn.num_kv_heads, cfg.attn.head_dim
     true_group = max(cfg.attn.num_heads // hkv, 1)
@@ -238,7 +242,15 @@ def build_paged_decode_step(model, plan: KVArenaPlan, *,
             _write_token_kv(pages, plan, i, table, slot_len, rows, k1, v1)
             o = attend(q, pages, i, table, slot_len, slot_valid)
             x = x + dense(pa["wo"], _merge_heads(o), cdt).to(x.dtype)
-            if "mlp" in bp:
+            if "moe" in bp:
+                # the weights are whole on every rank (no expert is
+                # sharded), so moe_apply takes its one-rank route and
+                # issues no collective, at any model_parallel
+                h2 = rmsnorm(bp["ln2"], x, cfg.norm_eps)
+                y, _, _ = moe_apply(bp["moe"], h2, cfg.moe, cfg.act, ctx=ctx,
+                                    compute_dtype=cdt)
+                x = x + y.to(x.dtype)
+            elif "mlp" in bp:
                 h2 = rmsnorm(bp["ln2"], x, cfg.norm_eps)
                 x = x + glu_mlp(bp["mlp"], h2, cfg.act, cdt).to(x.dtype)
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -257,15 +269,17 @@ def _compute_copy(tree, cdt: torch.dtype):
     cast once.  ``dense`` casts the fp32 master weight on every call; the
     copy holds the same bits, so the step computes the same numbers while
     reading the weights in bf16 once per step instead of fp32 plus a cast
-    (about 7.5 GB less traffic per llama3.2-1b step).  Norm scales stay fp32,
-    as the reference reads them."""
+    (about 7.5 GB less traffic per llama3.2-1b step).  The MoE expert
+    stacks, which ``moe_apply`` casts on every call too, are cast here as
+    well.  Norm scales stay fp32, as the reference reads them."""
     if isinstance(tree, list):
         return [_compute_copy(t, cdt) for t in tree]
     if not isinstance(tree, dict):
         return tree
     out = {}
     for k, v in tree.items():
-        if k in ("w", "b", "table") and isinstance(v, torch.Tensor):
+        if k in ("w", "b", "table", "w_gate", "w_up", "w_down") \
+                and isinstance(v, torch.Tensor):
             out[k] = v.to(cdt)
         else:
             out[k] = _compute_copy(v, cdt)
