@@ -356,6 +356,38 @@ Phases, each of which raises on a failed check (exit code != 0):
               layer at full width forward and backward through ``ring``
               and ``psum``: output and gradients equal the ``a2a`` run's;
               the fp32 gate: EP losses within 5e-5 of one rank.
+40. ssm_serve — falcon-mamba-7b at full width and depth (64 Mamba-1
+              blocks, d_inner 8192, state 16, dt_rank 256, vocab 65024),
+              one rank: at fp32 compute 64 decode steps from an empty state
+              against the prefill's logits at the same positions (rtol /
+              atol 1e-3, the reference's decode-vs-scan tolerance); at bf16
+              the prefill at B=2, S=2048 (wall, peak, a profiled prefill
+              with CUDA events around every ``selective_scan``: the scan's
+              share), 16 contiguous decode tokens (tok/s, a profiled
+              step's idle share); no kernel launched (the scan is plain
+              PyTorch, as the reference's is plain ``jnp``);
+41. hybrid_serve — hymba-1.5b at full width and depth (32 layers of
+              attention, 25 q / 5 kv heads of 64, 3 global and 29 windowed
+              at 1024, beside Mamba heads): the prefill at B=1, S=4096,
+              exactly 32 wgmma ``flash_attn`` launches and no other
+              kernel's, held against the fp32 and the bf16 blockwise
+              prefills as the prefill phase holds llama's; wall, peak, a
+              profiled prefill; 16 decode tokens at positions 1016-1031,
+              across the wrap of the 1024-slot rolling caches;
+42. encdec_serve — whisper-base at full size (6 + 6 layers, 1500 frames):
+              the decode state of B=4 (the encoder, 6 non-causal wgmma
+              ``flash_attn`` launches, then the cross k/v), the encoder's
+              output held against the fp32 and the bf16 blockwise
+              encoders; 32 decode tokens against the cross caches, tok/s;
+43. vlm_prefill — llava-next-34b at full width, 2 layers: the prefill at
+              B=1, S=4096 (576 patch embeddings and 3520 tokens), 2 wgmma
+              ``flash_attn`` launches, held against the blockwise
+              prefills;
+44. families_train — ``launch.train`` on hymba-1.5b at full width, 4
+              layers, one rank, its settings (zero1, 2 microbatches) with
+              the arena on, 3 steps: finite losses, pack writes == segments
+              x microbatches x steps and reads == segments x steps (all
+              bulk), the peak, a profiled step.
 
 The phases before train_tp run data-only (``--model-parallel 1``).  The
 two-rank train phases share two spawns, each running its phases' workers
@@ -5856,6 +5888,609 @@ def check_moe_ep(ranks: list) -> dict:
             "gate_norm_err": norm_err}
 
 
+# ---------------------------------------------------------------------------
+# the remaining families: SSM, hybrid, encoder-decoder, vision stub
+# ---------------------------------------------------------------------------
+
+SSM_ARCH, HYBRID_ARCH = "falcon-mamba-7b", "hymba-1.5b"
+ENCDEC_ARCH, VLM_ARCH = "whisper-base", "llava-next-34b"
+SSM_PREFILL = (2, 2048)      # ssm_serve's timed prefill: batch, length
+SSM_CHECK_TOKENS = 64        # decode steps held against the prefill
+# tests/test_models.py::test_ssm_decode_matches_full_scan's rtol and atol
+SSM_CHECK_TOL = 1e-3
+SSM_DECODE_TOKENS = 16
+HYBRID_PREFILL_SEQ = 4096
+# 16 decode positions across the wrap of the 1024-slot rolling caches
+HYBRID_DECODE_FROM, HYBRID_DECODE_TOKENS = 1016, 16
+ENCDEC_BATCH, ENCDEC_TOKENS, ENCDEC_CACHE = 4, 32, 448
+VLM_LAYERS, VLM_SEQ = 2, 4096
+FAMILIES_TRAIN_ARGS = ["--arch", HYBRID_ARCH, "--layers", "4", "--use-arena",
+                       "--steps", "3", "--device", "cuda", "--seed", "0",
+                       "--model-parallel", "1"]
+# each arch's published widths (the vocab padded to 128), which its phase
+# must run at
+FAMILY_WIDTHS = {
+    SSM_ARCH: dict(d_model=4096, d_ff=0, vocab_size=65024, attn=None,
+                   ssm=(16, 4, 2, 0)),
+    HYBRID_ARCH: dict(d_model=1600, d_ff=5504, vocab_size=32128,
+                      attn=(25, 5, 64, 1024, (0, 15, 31)), ssm=(16, 4, 2, 0)),
+    ENCDEC_ARCH: dict(d_model=512, d_ff=2048, vocab_size=51968,
+                      attn=(8, 8, 64, None, ()), ssm=None, enc_layers=6,
+                      enc_seq=1500),
+    VLM_ARCH: dict(d_model=7168, d_ff=20480, vocab_size=64000,
+                   attn=(56, 8, 128, None, ()), ssm=None, frontend_seq=576)}
+
+
+def _check_family_width(cfg, arch: str, layers: int, what: str) -> None:
+    want = dict(FAMILY_WIDTHS[arch], num_layers=layers)
+    a, s = cfg.attn, cfg.ssm
+    got = {k: getattr(cfg, k) for k in want if k not in ("attn", "ssm")}
+    got["attn"] = None if a is None else (a.num_heads, a.num_kv_heads,
+                                          a.head_dim, a.window,
+                                          a.global_layers)
+    got["ssm"] = None if s is None else (s.state_dim, s.conv_width,
+                                         s.expand, s.dt_rank)
+    if got != want:
+        raise AssertionError(f"[{what}] not {arch} at full width: {got}")
+
+
+def _no_launches(what: str) -> None:
+    if any(launch_counters().values()):
+        raise AssertionError(f"[{what}] launches {launch_counters()}: this "
+                             f"path runs no kernel")
+
+
+def _prefill_check(got, plain, want, what: str) -> dict:
+    """The bf16 kernel route's output ``got`` and the bf16 blockwise
+    route's ``plain``, each against the fp32 blockwise route's ``want``,
+    held as the prefill phase holds llama's: the kernel's relative L2 and
+    its count of misses of the engine's tolerance at most
+    ``PREFILL_BF16_L2_MARGIN`` and ``PREFILL_BF16_MISS_MARGIN`` times the
+    blockwise route's."""
+    import torch
+
+    def error(x):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"[{what}] non-finite output")
+        diff = (x.float() - want).abs()
+        return {"max_abs_diff": diff.max().item(),
+                "rel_l2": (diff.norm() / want.norm()).item(),
+                "outside": int((diff > ENGINE_ATOL + ENGINE_RTOL
+                                * want.abs()).sum())}
+
+    row = {"bf16_kernel": error(got), "bf16_blockwise": error(plain)}
+    for key, margin in (("rel_l2", PREFILL_BF16_L2_MARGIN),
+                        ("outside", PREFILL_BF16_MISS_MARGIN)):
+        k, b = row["bf16_kernel"][key], row["bf16_blockwise"][key]
+        if k > margin * b:
+            raise AssertionError(f"[{what}] the kernel route's {key} {k:.4e} "
+                                 f"is above {margin} x the blockwise "
+                                 f"route's {b:.4e}")
+    for name, e in row.items():
+        log(f"[{what}] {name} vs fp32 blockwise: max |diff| "
+            f"{e['max_abs_diff']:.4e}, relative L2 {e['rel_l2']:.4e}, "
+            f"{e['outside']} outside rtol 2e-2 / atol 5e-2")
+    return row
+
+
+def _attn_launches(fn, n: int, what: str):
+    """``fn()`` with the counters reset: exactly ``n`` flash_attn launches,
+    all on the wgmma route, and no other kernel's."""
+    import torch
+
+    reset_launch_counters()
+    out = fn()
+    torch.cuda.synchronize()
+    counts, routes = launch_counters(), attn_routes()
+    if counts != dict(dict.fromkeys(counts, 0), flash_attn=n) or \
+            routes != dict(dict.fromkeys(routes, 0), wgmma=n):
+        raise AssertionError(f"[{what}] launches {counts}, by route "
+                             f"{routes}, expected {n} wgmma flash_attn and "
+                             f"no other")
+    return out
+
+
+def _decode_profile(step, params, token, state, pos, what: str) -> dict:
+    """One profiled decode step: wall, device busy, idle share."""
+    wall, by_name, _ = device_activity(
+        lambda: step(params, token, state, pos), 1, warm=False)
+    if not by_name:
+        raise RuntimeError(f"[{what}] no device activity in a decode step")
+    busy = sum(by_name.values())
+    return {"wall_ms": wall, "device_ms": busy, "idle_share": 1 - busy / wall}
+
+
+def _tokens(dev, b: int, s: int, vocab: int, seed: int):
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, vocab, (b, s), generator=gen, device=dev,
+                         dtype=torch.int32)
+
+
+def phase_ssm_serve(dev) -> dict:
+    """falcon-mamba-7b at full width and depth (64 Mamba-1 blocks, d_inner
+    8192, state 16, dt_rank 256), one rank, seeded random weights: at fp32
+    compute, 64 decode steps from an empty state against the prefill's
+    logits at the same 64 positions (the reference's decode-vs-scan
+    tolerance); at bf16 compute the prefill at B=2, S=2048 (warm, timed,
+    profiled with CUDA events around every ``selective_scan``) and a
+    contiguous decode of 16 tokens with a profiled step.  No kernel runs on
+    this path (the reference's scan is plain ``jnp``)."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import build_model
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.runtime.serve_step import (build_decode_step,
+                                                build_prefill,
+                                                init_decode_state)
+
+    model = build_model(get_config(SSM_ARCH))
+    cfg = model.cfg
+    layers = cfg.num_layers
+    _check_family_width(cfg, SSM_ARCH, 64, "ssm_serve")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    n_params = model.param_count()
+
+    # the decode against the scan, at fp32 compute on the same weights
+    m32 = build_model(cfg.with_(dtype="float32"))
+    n = SSM_CHECK_TOKENS
+    toks = _tokens(dev, 1, n, cfg.vocab_size, 1)
+    reset_launch_counters()
+    want = build_prefill(m32, ShapeConfig("ssm_check", n, 1, "prefill"),
+                         device=dev)(params, {"tokens": toks})[0]
+    cshape = ShapeConfig("ssm_check", n, 1, "decode")
+    step32 = build_decode_step(m32, cshape, device=dev)
+    state = init_decode_state(m32, cshape, device=dev)
+    got = []
+    for pos in range(n):
+        logits, state = step32(params, toks[:, pos], state, pos)
+        got.append(logits[0])
+    got = torch.stack(got)
+    torch.cuda.synchronize(dev)
+    _no_launches("ssm_serve")
+    diff = (got - want).abs()
+    outside = int((diff > SSM_CHECK_TOL + SSM_CHECK_TOL * want.abs()).sum())
+    check = {"max_abs_diff": diff.max().item(),
+             "max_abs_logit": want.abs().max().item(), "outside": outside}
+    log(f"[ssm_serve] fp32: {n} decode steps from an empty state vs the "
+        f"prefill's logits at the same positions, {layers} layers: max "
+        f"|diff| {check['max_abs_diff']:.4e} (logits up to "
+        f"{check['max_abs_logit']:.3f}), {outside} outside rtol / atol "
+        f"{SSM_CHECK_TOL}")
+    if outside or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"[ssm_serve] decode vs prefill: {check}")
+    del want, got, state, step32, logits, diff
+    gc.collect()
+
+    b, s = SSM_PREFILL
+    shape = ShapeConfig("ssm_prefill", s, b, "prefill")
+    prefill = build_prefill(model, shape, device=dev)
+    batch = {"tokens": _tokens(dev, b, s, cfg.vocab_size, 2)}
+    prefill(params, batch)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counters()
+    t0 = time.perf_counter()
+    logits = prefill(params, batch)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    _no_launches("ssm_serve")
+    if tuple(logits.shape) != (b, s, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"[ssm_serve] prefill logits "
+                             f"{tuple(logits.shape)}")
+    del logits
+    gc.collect()
+    # the scan's share: CUDA events around each selective_scan call of a
+    # profiled prefill
+    spans: list = []
+    real = ssm_mod.selective_scan
+    inside = []              # the scan recurses through the module's name
+
+    def timed_scan(abar, bx):
+        if inside:
+            return real(abar, bx)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        inside.append(True)
+        e0.record()
+        try:
+            out = real(abar, bx)
+        finally:
+            inside.pop()
+        e1.record()
+        spans.append((e0, e1))
+        return out
+
+    ssm_mod.selective_scan = timed_scan
+    try:
+        prof_wall, by_name, _ = device_activity(
+            lambda: prefill(params, batch), 1, warm=False)
+    finally:
+        ssm_mod.selective_scan = real
+    if len(spans) != layers or not by_name:
+        raise AssertionError(f"[ssm_serve] {len(spans)} scans timed, "
+                             f"{len(by_name)} device activities")
+    scan_ms = sum(e0.elapsed_time(e1) for e0, e1 in spans)
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log(f"[ssm_serve] falcon-mamba-7b at full width, {layers} layers, "
+        f"{n_params / 1e9:.3f}e9 fp32 parameters (made in {init_s:.1f} s); "
+        f"bf16 prefill B={b} S={s}: wall {wall * 1e3:.1f} ms "
+        f"({b * s / wall:.0f} tokens/s), peak {peak / 2**30:.2f} GiB, "
+        f"logits finite, no kernel launched")
+    log(f"[ssm_serve] profiled prefill: wall {prof_wall:.1f} ms, device busy "
+        f"{busy:.1f} ms, idle share {1 - busy / prof_wall:.3f}; "
+        f"selective_scan {scan_ms:.1f} ms over {layers} calls "
+        f"({scan_ms / layers:.2f} ms a layer at (B, S, Din, N) = ({b}, {s}, "
+        f"8192, 16), CUDA events), {scan_ms / busy:.3f} of the device "
+        f"busy time")
+    for name, ms in top:
+        log(f"[ssm_serve]   {ms:9.2f} ms/prefill  {name[:90]}")
+    del prefill, batch, spans
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    dshape = ShapeConfig("serve", s, b, "decode")
+    step = build_decode_step(model, dshape, device=dev)
+    state = init_decode_state(model, dshape, device=dev)
+    token = torch.zeros((b,), dtype=torch.int32, device=dev)
+    reset_launch_counters()
+    t0 = time.perf_counter()
+    for pos in range(SSM_DECODE_TOKENS):
+        logits, state = step(params, token, state, pos)
+        token = torch.argmax(logits, -1).to(torch.int32)
+    torch.cuda.synchronize(dev)
+    dwall = time.perf_counter() - t0
+    _no_launches("ssm_serve")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("[ssm_serve] decode logits")
+    dprof = _decode_profile(step, params, token, state, SSM_DECODE_TOKENS,
+                            "ssm_serve")
+    tok_s = b * SSM_DECODE_TOKENS / dwall
+    log(f"[ssm_serve] contiguous decode, batch {b}, {SSM_DECODE_TOKENS} "
+        f"tokens: {tok_s:.1f} tok/s ({dwall * 1e3:.0f} ms, first step "
+        f"included), logits finite; profiled step: wall "
+        f"{dprof['wall_ms']:.1f} ms, device busy {dprof['device_ms']:.1f} "
+        f"ms, idle share {dprof['idle_share']:.3f}")
+    del params, state, step, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"params": n_params, "init_s": init_s, "check": check,
+            "prefill_wall_ms": wall * 1e3, "prefill_peak_bytes": peak,
+            "prefill_tokens_per_s": b * s / wall,
+            "prefill_profile": {"wall_ms": prof_wall, "device_ms": busy,
+                                "idle_share": 1 - busy / prof_wall,
+                                "top_device_ms": {k[:90]: v
+                                                  for k, v in top}},
+            "scan_ms": scan_ms, "scan_ms_per_layer": scan_ms / layers,
+            "scan_share": scan_ms / busy,
+            "decode_tokens_per_s": tok_s, "decode_wall_s": dwall,
+            "decode_profile": dprof}
+
+
+def phase_hybrid_serve(dev) -> dict:
+    """hymba-1.5b at full width and depth (32 layers of parallel attention,
+    25 q / 5 kv heads, and Mamba heads; 3 global layers, 29 windowed at
+    1024), one rank: the prefill at B=1, S=4096 through ``flash_attn``
+    (exactly 32 wgmma launches and no other kernel's) against the fp32 and
+    the bf16 blockwise prefills, timed and profiled; then 16 contiguous
+    decode tokens across the wrap of the windowed layers' 1024-slot
+    rolling caches, with a profiled step."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import build_model
+    from repro_torch.runtime.serve_step import (build_decode_step,
+                                                build_prefill,
+                                                init_decode_state)
+
+    model = build_model(get_config(HYBRID_ARCH))
+    cfg, a = model.cfg, model.cfg.attn
+    layers = cfg.num_layers
+    _check_family_width(cfg, HYBRID_ARCH, 32, "hybrid_serve")
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    s = HYBRID_PREFILL_SEQ
+    shape = ShapeConfig("hybrid_prefill", s, 1, "prefill")
+    batch = {"tokens": _tokens(dev, 1, s, cfg.vocab_size, 1)}
+    m32 = build_model(cfg.with_(dtype="float32"))
+    reset_launch_counters()
+    want = build_prefill(m32, shape, attn_impl="blockwise", device=dev)(
+        params, batch).float()
+    plain = build_prefill(model, shape, attn_impl="blockwise", device=dev)(
+        params, batch)
+    _no_launches("hybrid_serve")
+    prefill = build_prefill(model, shape, device=dev)
+    _attn_launches(lambda: prefill(params, batch), layers, "hybrid_serve")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    got = _attn_launches(lambda: prefill(params, batch), layers,
+                         "hybrid_serve")
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    if tuple(got.shape) != (1, s, cfg.vocab_size):
+        raise AssertionError(f"[hybrid_serve] logits {tuple(got.shape)}")
+    check = _prefill_check(got, plain, want, "hybrid_serve")
+    del got, plain, want
+    gc.collect()
+    reset_launch_counters()
+    prof_wall, by_name, counts = device_activity(
+        lambda: prefill(params, batch), 1, warm=False)
+    if attn_routes()["wgmma"] != layers or not by_name:
+        raise AssertionError(f"[hybrid_serve] profiled prefill: "
+                             f"{attn_routes()}")
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log(f"[hybrid_serve] hymba-1.5b at full width, {layers} layers, "
+        f"{model.param_count() / 1e9:.3f}e9 fp32 parameters; bf16 prefill "
+        f"B=1 S={s}: wall {wall * 1e3:.1f} ms ({s / wall:.0f} tokens/s), "
+        f"peak {peak / 2**30:.2f} GiB, flash_attn {layers} wgmma launches "
+        f"({a.num_heads} q heads over {a.num_kv_heads} kv heads; "
+        f"{len(a.global_layers)} global layers, "
+        f"{layers - len(a.global_layers)} windowed at {a.window}) and no "
+        f"other kernel's")
+    log(f"[hybrid_serve] profiled prefill: wall {prof_wall:.1f} ms, device "
+        f"busy {busy:.1f} ms, idle share {1 - busy / prof_wall:.3f}; the "
+        f"profiler recorded {port_kernels_seen(counts)} of the {layers} "
+        f"flash_attn launches")
+    for name, ms in top:
+        log(f"[hybrid_serve]   {ms:9.2f} ms/prefill  {name[:90]}")
+    del prefill, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    dshape = ShapeConfig("serve", s, 1, "decode")
+    step = build_decode_step(model, dshape, device=dev)
+    state = init_decode_state(model, dshape, device=dev)
+    slots = [st["kv"]["k"].shape[2] for st in state]
+    if sorted(set(slots)) != [cfg.attn.window, s] or \
+            slots.count(s) != len(cfg.attn.global_layers):
+        raise AssertionError(f"[hybrid_serve] cache slots by layer {slots}")
+    token = torch.zeros((1,), dtype=torch.int32, device=dev)
+    reset_launch_counters()
+    t0 = time.perf_counter()
+    for pos in range(HYBRID_DECODE_FROM,
+                     HYBRID_DECODE_FROM + HYBRID_DECODE_TOKENS):
+        logits, state = step(params, token, state, pos)
+        token = torch.argmax(logits, -1).to(torch.int32)
+    torch.cuda.synchronize(dev)
+    dwall = time.perf_counter() - t0
+    _no_launches("hybrid_serve")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("[hybrid_serve] decode logits")
+    dprof = _decode_profile(step, params, token, state,
+                            HYBRID_DECODE_FROM + HYBRID_DECODE_TOKENS,
+                            "hybrid_serve")
+    tok_s = HYBRID_DECODE_TOKENS / dwall
+    log(f"[hybrid_serve] contiguous decode, batch 1, positions "
+        f"{HYBRID_DECODE_FROM}..{HYBRID_DECODE_FROM + HYBRID_DECODE_TOKENS - 1}"
+        f" (the 1024-slot rolling caches wrap at 1024; caches filled by the "
+        f"decode alone): {tok_s:.1f} tok/s, logits finite, no kernel "
+        f"launched; profiled step: wall {dprof['wall_ms']:.1f} ms, idle "
+        f"share {dprof['idle_share']:.3f}")
+    del params, state, step, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"params": model.param_count(), "launches": layers,
+            "check": check, "prefill_wall_ms": wall * 1e3,
+            "prefill_peak_bytes": peak,
+            "prefill_profile": {"wall_ms": prof_wall, "device_ms": busy,
+                                "idle_share": 1 - busy / prof_wall,
+                                "top_device_ms": {k[:90]: v
+                                                  for k, v in top}},
+            "decode_tokens_per_s": tok_s, "decode_profile": dprof}
+
+
+def phase_encdec_serve(dev) -> dict:
+    """whisper-base at full size (6 encoder and 6 decoder layers, 1500
+    frames), one rank: the decode state of B=4 (the encoder once over the
+    frames, its self-attention through ``flash_attn``: 6 non-causal wgmma
+    launches and no other kernel's, then the cross k/v cached), the
+    encoder's output against the fp32 and the bf16 blockwise encoders;
+    then 32 decode tokens against the cross caches, with a profiled
+    step."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import build_model, encdec
+    from repro_torch.runtime.serve_step import (build_decode_step,
+                                                init_decode_state)
+
+    model = build_model(get_config(ENCDEC_ARCH))
+    cfg = model.cfg
+    _check_family_width(cfg, ENCDEC_ARCH, 6, "encdec_serve")
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    b, n_enc = ENCDEC_BATCH, cfg.enc_layers
+    gen = torch.Generator(device=dev).manual_seed(1)
+    frames = (torch.randn((b, cfg.enc_seq, cfg.d_model), generator=gen,
+                          device=dev) * 0.02).to(torch.bfloat16)
+    shape = ShapeConfig("serve", ENCDEC_CACHE, b, "decode")
+    _attn_launches(lambda: init_decode_state(
+        model, shape, params=params, frames=frames, device=dev), n_enc,
+        "encdec_serve")
+    t0 = time.perf_counter()
+    state = _attn_launches(lambda: init_decode_state(
+        model, shape, params=params, frames=frames, device=dev), n_enc,
+        "encdec_serve")
+    enc_wall = time.perf_counter() - t0
+    if tuple(state[0]["cross_k"].shape) != (b, cfg.attn.num_kv_heads,
+                                            cfg.enc_seq, cfg.attn.head_dim):
+        raise AssertionError(f"[encdec_serve] cross k "
+                             f"{tuple(state[0]['cross_k'].shape)}")
+    with torch.no_grad():
+        got = _attn_launches(lambda: encdec.encode(
+            params, frames, cfg, attn_impl="kernel"), n_enc, "encdec_serve")
+        reset_launch_counters()
+        plain = encdec.encode(params, frames, cfg)
+        want = encdec.encode(params, frames, cfg.with_(dtype="float32"))
+    _no_launches("encdec_serve")
+    check = _prefill_check(got, plain, want, "encdec_serve")
+    del got, plain, want
+    gc.collect()
+    step = build_decode_step(model, shape, device=dev)
+    token = torch.zeros((b,), dtype=torch.int32, device=dev)
+    reset_launch_counters()
+    t0 = time.perf_counter()
+    for pos in range(ENCDEC_TOKENS):
+        logits, state = step(params, token, state, pos)
+        token = torch.argmax(logits, -1).to(torch.int32)
+    torch.cuda.synchronize(dev)
+    dwall = time.perf_counter() - t0
+    _no_launches("encdec_serve")
+    if tuple(logits.shape) != (b, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError("[encdec_serve] decode logits")
+    dprof = _decode_profile(step, params, token, state, ENCDEC_TOKENS,
+                            "encdec_serve")
+    tok_s = b * ENCDEC_TOKENS / dwall
+    log(f"[encdec_serve] whisper-base at full size ({n_enc} + "
+        f"{cfg.num_layers} layers, {cfg.enc_seq} frames, "
+        f"{model.param_count() / 1e6:.1f}e6 fp32 parameters): encoder + "
+        f"cross caches for B={b} in {enc_wall * 1e3:.1f} ms, {n_enc} "
+        f"non-causal wgmma flash_attn launches and no other kernel's; "
+        f"decode of {ENCDEC_TOKENS} tokens against the cross caches: "
+        f"{tok_s:.1f} tok/s ({dwall * 1e3:.0f} ms), logits finite; "
+        f"profiled step: wall {dprof['wall_ms']:.1f} ms, idle share "
+        f"{dprof['idle_share']:.3f}")
+    del params, state, step, frames, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"params": model.param_count(), "launches": n_enc,
+            "check": check, "encode_wall_ms": enc_wall * 1e3,
+            "decode_tokens_per_s": tok_s, "decode_wall_s": dwall,
+            "decode_profile": dprof}
+
+
+def phase_vlm_prefill(dev) -> dict:
+    """llava-next-34b at full width (d_model 7168, 56 q / 8 kv heads of
+    128, d_ff 20480), 2 layers, one rank: the prefill at B=1, S=4096 (576
+    patch embeddings ahead of 3520 tokens) through ``flash_attn`` (2 wgmma
+    launches and no other kernel's) against the fp32 and the bf16 blockwise
+    prefills, timed."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import build_model
+    from repro_torch.runtime.serve_step import build_prefill
+
+    model = build_model(get_config(VLM_ARCH).with_(num_layers=VLM_LAYERS))
+    cfg = model.cfg
+    _check_family_width(cfg, VLM_ARCH, VLM_LAYERS, "vlm_prefill")
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    p, s = cfg.frontend_seq, VLM_SEQ
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {"tokens": _tokens(dev, 1, s - p, cfg.vocab_size, 2),
+             "extra_embeds": (torch.randn((1, p, cfg.d_model), generator=gen,
+                                          device=dev) * 0.02).to(
+                                              torch.bfloat16)}
+    shape = ShapeConfig("vlm_prefill", s, 1, "prefill")
+    reset_launch_counters()
+    want = build_prefill(build_model(cfg.with_(dtype="float32")), shape,
+                         attn_impl="blockwise", device=dev)(
+                             params, batch).float()
+    plain = build_prefill(model, shape, attn_impl="blockwise", device=dev)(
+        params, batch)
+    _no_launches("vlm_prefill")
+    prefill = build_prefill(model, shape, device=dev)
+    _attn_launches(lambda: prefill(params, batch), VLM_LAYERS, "vlm_prefill")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    got = _attn_launches(lambda: prefill(params, batch), VLM_LAYERS,
+                         "vlm_prefill")
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    if tuple(got.shape) != (1, s, cfg.vocab_size):
+        raise AssertionError(f"[vlm_prefill] logits {tuple(got.shape)}")
+    check = _prefill_check(got, plain, want, "vlm_prefill")
+    log(f"[vlm_prefill] llava-next-34b at full width, {VLM_LAYERS} layers, "
+        f"{model.param_count() / 1e9:.3f}e9 fp32 parameters; bf16 prefill "
+        f"B=1 S={s} ({p} patch embeddings + {s - p} tokens): wall "
+        f"{wall * 1e3:.1f} ms, peak {peak / 2**30:.2f} GiB, {VLM_LAYERS} "
+        f"wgmma flash_attn launches ({cfg.attn.num_heads} real q heads "
+        f"over {cfg.attn.num_kv_heads} kv heads) and no other kernel's")
+    del params, batch, prefill, got, plain, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"params": model.param_count(), "launches": VLM_LAYERS,
+            "check": check, "prefill_wall_ms": wall * 1e3,
+            "prefill_peak_bytes": peak}
+
+
+def phase_families_train(dev) -> dict:
+    """``launch.train`` on hymba-1.5b at full width, 4 layers, one rank,
+    the arch's settings (zero1, 2 microbatches, ``ring_hier``) with the
+    arena on: 3 steps, finite losses, pack's launches as the code makes
+    them (each microbatch packs every segment, each step reads every
+    segment of the delta spans back; all bulk), the peak, a profiled
+    step."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch import train as launch_train
+
+    args = launch_train.parser().parse_args(FAMILIES_TRAIN_ARGS)
+    world = launch_train.init_distributed(args.device)
+    run = launch_train.setup(args, world)
+    _check_family_width(run.model.cfg, HYBRID_ARCH, 4, "families_train")
+    trainer = run.trainer
+    step = trainer.step_fn
+    m = step.schedule.microbatches
+    if (step.cfg.dp_mode, m, step.arena is None) != ("zero1", 2, False):
+        raise AssertionError(f"[families_train] the step runs {step.cfg}")
+    segs = step.arena.layout.n_segments
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counters()
+    hist = trainer.run()["history"]
+    counts, routes = launch_counters(), pack_routes()
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [h["loss"] for h in hist]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[families_train] non-finite loss: {losses}")
+    expected = dict(dict.fromkeys(counts, 0),
+                    pack_write=segs * m * args.steps,
+                    pack_read=segs * args.steps)
+    _check_launches("families_train", counts, expected, routes)
+    prof = step_profile(trainer, 0, 1, profiled=True)
+    log(f"[families_train] hymba-1.5b at full width, 4 layers, "
+        f"{run.model.param_count() / 1e9:.3f}e9 parameters, 1 rank, zero1, "
+        f"{m} microbatches, arena on ({segs} segments): losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; step wall "
+        f"{', '.join(f'{h['sec'] * 1e3:.0f}' for h in hist)} ms; peak "
+        f"{peak / 2**30:.2f} GiB; pack writes {counts['pack_write']} == "
+        f"{segs} x {m} x {args.steps}, reads {counts['pack_read']} == "
+        f"{segs} x {args.steps}, by route {routes}")
+    log(f"[families_train] profiled step: wall {prof['step_wall_ms']:.1f} "
+        f"ms, device busy {prof['step_device_ms']:.1f} ms, idle share "
+        f"{prof['idle_share']:.3f}")
+    out = {"losses": losses, "step_s": [h["sec"] for h in hist],
+           "launches": counts, "expected": expected, "pack_routes": routes,
+           "n_segments": segs, "microbatches": m, "peak_bytes": peak,
+           "params": run.model.param_count(), "profile": prof}
+    del run, trainer, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -5970,6 +6605,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     moe_serve = run_phase("moe_serve", phase_moe_serve, dev)
     moe_train = run_phase("moe_train", phase_moe_train, dev)
+    torch.cuda.empty_cache()
+    ssm_serve = run_phase("ssm_serve", phase_ssm_serve, dev)
+    hybrid_serve = run_phase("hybrid_serve", phase_hybrid_serve, dev)
+    encdec_serve = run_phase("encdec_serve", phase_encdec_serve, dev)
+    vlm_prefill = run_phase("vlm_prefill", phase_vlm_prefill, dev)
+    families_train = run_phase("families_train", phase_families_train, dev)
     torch.cuda.empty_cache()
     # the halo phase, stencil_cg's two ranks, train_tp, the TP serving
     # phases and moe_ep share one spawn of two ranks
@@ -6146,6 +6787,17 @@ def main() -> None:
             "moe_serve": moe_serve["launches"] if name == "flash_attn" else 0,
             "moe_train": moe_train["launches"][name],
             "moe_ep": ep0["counts"][name]}
+        # and on the remaining families' paths: the timed prefills (hymba,
+        # llava), the encoder of whisper's decode state (its decode loop,
+        # like falcon-mamba's whole path, launches nothing) and 3 zero1
+        # steps of hymba
+        attn = name == "flash_attn"
+        row["launches_families"] = {
+            "ssm_serve": 0,
+            "hybrid_serve": hybrid_serve["launches"] if attn else 0,
+            "encdec_serve": encdec_serve["launches"] if attn else 0,
+            "vlm_prefill": vlm_prefill["launches"] if attn else 0,
+            "families_train": families_train["launches"][name]}
     kernels = {"kernels": rows, "gpu": gpu}
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -6169,6 +6821,9 @@ def main() -> None:
              "train_tp": train_tp, "serve_tp": serve_tp,
              "train_tp_fsdp": train_tp_fsdp, "moe_serve": moe_serve,
              "moe_train": moe_train, "moe_ep": moe_ep,
+             "ssm_serve": ssm_serve, "hybrid_serve": hybrid_serve,
+             "encdec_serve": encdec_serve, "vlm_prefill": vlm_prefill,
+             "families_train": families_train,
              "phase_s": phase_s,
              "torch": torch.__version__, "cuda": torch.version.cuda,
              "wall_s": time.perf_counter() - t_start}, indent=1))

@@ -158,6 +158,12 @@ def run_contiguous(args, device=None, weight_mode: str | None = None
     says otherwise (the reference's CLI has no flag for it)."""
     dev = resolve_device(device if device is not None else args.device)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    if cfg.family == "encdec":
+        # the reference's CLI exits here too: the loop starts from empty
+        # caches, and an encoder-decoder's state needs its frames encoded
+        raise SystemExit("enc-dec serving: build the decode state with "
+                         "runtime.serve_step.init_decode_state(params=, "
+                         "frames=) and decode with build_decode_step")
     model = build_model(cfg)
     mesh = serve_mesh(args.model_parallel)
     shape = ShapeConfig("serve", args.cache, args.batch, "decode")

@@ -160,7 +160,8 @@ def setup(args, world: World, *,
         step_cfg = dataclasses.replace(step_cfg, **step_overrides)
     data = SyntheticTokens(DataConfig(vocab_size=model.cfg.vocab_size,
                                       seq_len=args.seq,
-                                      global_batch=args.batch))
+                                      global_batch=args.batch),
+                           model_cfg=cfg)
     log = print if world.rank == 0 else (lambda msg: None)
     # one run directory: rank 0 instruments the run
     obs_cfg = (ObsConfig(run_dir=args.obs_dir)

@@ -1,7 +1,8 @@
 """GQA attention: parameters, head layout, the blockwise training path,
 the flash-kernel prefill and cached decode.
 
-Port of ``repro.models.attention`` for dense decoders: query heads are
+Port of ``repro.models.attention`` (self-attention, and the
+encoder-decoder's cross-attention over ``cross_kv``): query heads are
 zero-padded up to a multiple of ``HEAD_PAD_TO`` (the padded rows of ``wo``
 are zero, so padded heads never reach the output); q head ``h`` reads kv
 head ``h // true_group``.  Training uses :func:`blockwise_attention`, the
@@ -185,9 +186,13 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: AttnConfig, *, is_global: bool,
                positions: torch.Tensor | None = None,
                compute_dtype: torch.dtype = torch.bfloat16,
                causal: bool = True, causal_skip: bool = False,
+               cross_kv: torch.Tensor | None = None,
                block_q: int = 2048, block_k: int = 2048,
                attn_impl: str = "blockwise") -> torch.Tensor:
-    """Self-attention over a full sequence (train / prefill).  The weights
+    """Self (or cross) attention over a full sequence (train / prefill).
+    With ``cross_kv`` (B, Sk, d) k and v are its projections, no RoPE is
+    applied and the attention is non-causal (the encoder-decoder's
+    cross-attention).  The weights
     may be this rank's tensor-parallel shards (``wq`` by heads, ``wo`` by
     rows, ``wk``/``wv`` replicated, their gradients summed over the model
     axis); ``ctx.psum`` completes the row-parallel output.
@@ -196,7 +201,9 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: AttnConfig, *, is_global: bool,
     :func:`flash_attention` on this rank's real query heads and the kv
     heads they read (:func:`_kernel_heads`), and gives the padded heads
     zeros (their rows of ``wo`` are zero, so the output is the same); a
-    rank that holds only padded heads launches nothing.
+    rank that holds only padded heads launches nothing.  Cross-attention
+    (Sq != Sk, which the kernel does not take) runs the blockwise loop
+    under either ``attn_impl``: a route fixed by the call.
     """
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
@@ -210,15 +217,19 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: AttnConfig, *, is_global: bool,
         # TP-sharded q, replicated kv: each rank's use of them differs
         wk = sum_grads_over_model(wk, ctx)
         wv = sum_grads_over_model(wv, ctx)
-    k = _split_heads(dense(wk, x, compute_dtype), hkv)
-    v = _split_heads(dense(wv, x, compute_dtype), hkv)
-    pos = (positions if positions is not None
-           else torch.arange(s, device=x.device))
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k = apply_rope(k, pos, cfg.rope_theta)
+    kv_src = cross_kv if cross_kv is not None else x
+    k = _split_heads(dense(wk, kv_src, compute_dtype), hkv)
+    v = _split_heads(dense(wv, kv_src, compute_dtype), hkv)
+    if cross_kv is None:
+        pos = (positions if positions is not None
+               else torch.arange(s, device=x.device))
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    else:
+        causal = False
     window = None if is_global else cfg.window
     chunk = None if is_global else cfg.chunk
-    if attn_impl == "kernel":
+    if attn_impl == "kernel" and cross_kv is None:
         heads = _kernel_heads(q, k, v, cfg, ctx)
         if heads is None:
             o = q.new_zeros(q.shape)

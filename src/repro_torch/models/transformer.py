@@ -1,21 +1,27 @@
-"""Decoder-only transformer (dense and MoE families): parameters, forward,
-loss and single-token decode.
+"""Decoder-only transformer (dense, MoE, SSM and hybrid families):
+parameters, forward, loss and single-token decode.
 
-Port of ``repro.models.transformer`` for dense and MoE stacks: the same
-tree (``embed``, ``blocks[i]`` with ``ln1``/``ln2``/``attn`` and ``mlp``,
-or ``moe`` on the layers ``cfg.layer_kind`` makes MoE, ``final_norm``,
-optional ``lm_head``), the training / prefill forward and the decode step
-against a per-layer KV cache.  :func:`forward` also returns the MoE layers'
-summed load-balancing loss and their mean drop fraction; :func:`loss_fn`
-adds ``AUX_LOSS_WEIGHT`` times the former and reports the latter through
-``stats_out``.  Gradients come from
+Port of ``repro.models.transformer``: the same tree (``embed``,
+``blocks[i]`` with ``ln1``/``ln2`` and, by the layer's kind, ``attn``,
+``ssm`` (Mamba-1, :mod:`repro_torch.models.ssm`), both and ``beta`` on a
+hybrid layer, ``mlp`` or ``moe``, ``final_norm``, optional ``lm_head``),
+the training / prefill forward and the decode step against per-layer
+state (a KV cache, an SSM state, or both).  A pure-SSM stack (``d_ff ==
+0``) keeps ``ln2`` unused, as the reference does, so the leaves match its
+one for one (the gradient of ``ln2`` is zero).  A hybrid layer runs
+attention (windowed unless the layer is global) and the SSM heads on the
+same input and mixes them as ``0.5 * (a * beta[0] + s * beta[1])``.
+``extra_embeds`` (a modality stub's patch embeddings) are prepended to the
+token embeddings, and the loss is taken over the text positions only.
+:func:`forward` also returns the MoE layers' summed load-balancing loss and
+their mean drop fraction; :func:`loss_fn` adds ``AUX_LOSS_WEIGHT`` times the
+former and reports the latter through ``stats_out``.  Gradients come from
 autograd; with ``remat="layer"`` each block is recomputed in the backward
 pass (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``.
 Under FSDP ``params["blocks"][i]`` is the block's list of flat weight
 shards and ``block_resolver("blocks", i, shards)`` gathers it into the
 block's tree inside the recomputed function, so that the backward pass
 gathers again instead of keeping every gathered block alive.
-SSM and hybrid stacks arrive with the remaining-families slice.
 """
 
 from __future__ import annotations
@@ -31,17 +37,10 @@ from repro_torch.models.common import (dense, dense_init, embed, embed_init,
                                        rmsnorm_init, softmax_xent, unembed)
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.parallel import SINGLE, ParallelCtx
+from repro_torch.models.ssm import (init_ssm_state, ssm_apply, ssm_decode,
+                                    ssm_init)
 
 AUX_LOSS_WEIGHT = 0.01
-
-
-def _require_dense(cfg: ModelConfig) -> None:
-    """SSM and hybrid mixers are not ported; dense and MoE stacks are."""
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet (SSM "
-            f"and hybrid arrive with the remaining-families slice); the "
-            f"port covers dense and MoE stacks")
 
 
 def _is_moe(cfg: ModelConfig, i: int) -> bool:
@@ -53,13 +52,24 @@ def moe_layer_count(cfg: ModelConfig) -> int:
     return sum(1 for i in range(cfg.num_layers) if _is_moe(cfg, i))
 
 
+def _mixer(cfg: ModelConfig, i: int) -> str:
+    """``"attn"``, ``"ssm"`` or ``"hybrid"``: layer ``i``'s sequence mixer."""
+    return cfg.layer_kind(i)["mixer"]
+
+
 def block_init(generator, cfg: ModelConfig, i: int, dtype: torch.dtype,
                device=None) -> dict:
-    _require_dense(cfg)
+    mixer = _mixer(cfg, i)
     p: dict = {"ln1": rmsnorm_init(cfg.d_model, dtype, device),
-               "ln2": rmsnorm_init(cfg.d_model, dtype, device),
-               "attn": attn_init(generator, cfg.attn, cfg.d_model,
-                                 dtype=dtype, device=device)}
+               "ln2": rmsnorm_init(cfg.d_model, dtype, device)}
+    if mixer in ("attn", "hybrid"):
+        p["attn"] = attn_init(generator, cfg.attn, cfg.d_model, dtype=dtype,
+                              device=device)
+    if mixer in ("ssm", "hybrid"):
+        p["ssm"] = ssm_init(generator, cfg.ssm, cfg.d_model, dtype=dtype,
+                            device=device)
+    if mixer == "hybrid":
+        p["beta"] = torch.ones((2,), dtype=dtype, device=device)
     if _is_moe(cfg, i):
         p["moe"] = moe_init(generator, cfg.moe, cfg.d_model, dtype=dtype,
                             device=device)
@@ -81,7 +91,6 @@ def layer_attn_impl(cfg: ModelConfig, i: int, attn_impl: str) -> str:
 
 
 def init_params(generator, cfg: ModelConfig, device=None) -> dict:
-    _require_dense(cfg)
     dtype = getattr(torch, cfg.param_dtype)
     params = {
         "embed": embed_init(generator, cfg.vocab_size, cfg.d_model,
@@ -105,11 +114,18 @@ def block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, i: int, *,
     load-balancing loss and drop fraction (zeros on a dense layer)."""
     cdt = getattr(torch, cfg.dtype)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    mixer = _mixer(cfg, i)
     h = ctx.fan_out(rmsnorm(p["ln1"], x, cfg.norm_eps))
-    mix = attn_apply(p["attn"], h, cfg.attn, is_global=_is_global(cfg, i),
-                     ctx=ctx, positions=positions, compute_dtype=cdt,
-                     causal_skip=causal_skip,
-                     attn_impl=layer_attn_impl(cfg, i, attn_impl))
+    if mixer in ("attn", "hybrid"):
+        a = attn_apply(p["attn"], h, cfg.attn, is_global=_is_global(cfg, i),
+                       ctx=ctx, positions=positions, compute_dtype=cdt,
+                       causal_skip=causal_skip,
+                       attn_impl=layer_attn_impl(cfg, i, attn_impl))
+    if mixer in ("ssm", "hybrid"):
+        s = ssm_apply(p["ssm"], h, cfg.ssm, ctx=ctx, compute_dtype=cdt,
+                      d_model=cfg.d_model)
+    mix = a if mixer == "attn" else s if mixer == "ssm" else \
+        _hybrid_mix(p["beta"], a, s, cdt)
     x = x + mix.to(x.dtype)
     if "moe" in p:        # moe places its own f-boundaries
         h = rmsnorm(p["ln2"], x, cfg.norm_eps)
@@ -123,6 +139,14 @@ def block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, i: int, *,
     return x + y.to(x.dtype), zero, zero
 
 
+def _hybrid_mix(beta: torch.Tensor, a: torch.Tensor, s: torch.Tensor,
+                cdt: torch.dtype) -> torch.Tensor:
+    """A hybrid layer's parallel attention and SSM heads, mixed in the
+    compute dtype."""
+    beta = beta.to(cdt)
+    return 0.5 * (a * beta[0] + s * beta[1])
+
+
 def _resolved_block_apply(raw, x: torch.Tensor, cfg: ModelConfig, i: int, *,
                           block_resolver, **kw):
     bp = block_resolver("blocks", i, raw) if block_resolver else raw
@@ -130,11 +154,14 @@ def _resolved_block_apply(raw, x: torch.Tensor, cfg: ModelConfig, i: int, *,
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
-            ctx: ParallelCtx = SINGLE, causal_skip: bool = False,
-            attn_impl: str = "blockwise", block_resolver=None
+            ctx: ParallelCtx = SINGLE,
+            extra_embeds: torch.Tensor | None = None,
+            causal_skip: bool = False, attn_impl: str = "blockwise",
+            block_resolver=None
             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """tokens: (B, S) -> ``(logits, aux_loss, drop_fraction)``: the logits
-    (B, S, V_local) in the compute dtype (the whole vocabulary on one rank,
+    """tokens: (B, S_text), ``extra_embeds`` (B, P, d) prepended (the
+    modality stub) -> ``(logits, aux_loss, drop_fraction)``: the logits
+    (B, P + S_text, V_local) in the compute dtype (the whole vocabulary on one rank,
     this rank's vocab shard under tensor parallelism: ``ctx``, the
     parameters this rank's shards), the MoE layers' summed load-balancing
     loss and their mean drop fraction (zeros for a dense stack).
@@ -143,9 +170,10 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     chunked-local ones (:func:`layer_attn_impl`).  ``block_resolver``
     (FSDP) turns a block's shard list into its tree, and is called inside
     the checkpointed function."""
-    _require_dense(cfg)
     cdt = getattr(torch, cfg.dtype)
     x = embed(params["embed"], tokens.long(), cdt, ctx, cfg.vocab_size)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(cdt), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
     kw = dict(positions=positions, causal_skip=causal_skip,
               attn_impl=attn_impl, block_resolver=block_resolver, ctx=ctx)
@@ -177,14 +205,18 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *,
             ctx: ParallelCtx = SINGLE, causal_skip: bool = False,
             block_resolver=None,
             stats_out: list | None = None) -> torch.Tensor:
-    """batch: {"tokens": (B,S), "labels": (B,S), optional "mask"}; the
-    cross entropy (vocab-parallel under tensor parallelism) plus
+    """batch: {"tokens": (B,S), "labels": (B,S), optional "mask",
+    optional "extra_embeds" (B,P,d)}; the cross entropy over the text
+    positions (vocab-parallel under tensor parallelism) plus
     ``AUX_LOSS_WEIGHT`` times the MoE load-balancing loss.  ``stats_out``,
     when given, receives one ``{"moe_drop_fraction": scalar}`` per call
     (detached)."""
+    extra = batch.get("extra_embeds")
     logits, aux, drop = forward(params, batch["tokens"], cfg, ctx=ctx,
-                                causal_skip=causal_skip,
+                                extra_embeds=extra, causal_skip=causal_skip,
                                 block_resolver=block_resolver)
+    if extra is not None:
+        logits = logits[:, extra.shape[1]:]
     loss = softmax_xent(logits, batch["labels"], batch.get("mask"), ctx,
                         cfg.vocab_size)
     if stats_out is not None:
@@ -193,24 +225,36 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *,
 
 
 def _is_global(cfg: ModelConfig, i: int) -> bool:
-    return cfg.layer_kind(i).get("attn_global", True)
+    """Whether layer ``i``'s attention is global: an attention layer's is
+    unless its kind says otherwise, a hybrid layer's only where it says so
+    (hymba's windowed heads)."""
+    kind = cfg.layer_kind(i)
+    return kind.get("attn_global", kind["mixer"] == "attn")
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
                       cache_dtype: torch.dtype = torch.bfloat16,
                       device=None) -> list:
-    """One ``{"kv": {"k", "v"}}`` per layer, zeros."""
-    _require_dense(cfg)
-    return [{"kv": init_cache(cfg.attn, batch, seq_len,
-                              is_global=_is_global(cfg, i), dtype=cache_dtype,
-                              device=device)}
-            for i in range(cfg.num_layers)]
+    """Per layer, zeros: ``{"kv": {"k", "v"}}`` in ``cache_dtype`` where it
+    attends, ``{"ssm": {"h", "conv"}}`` in fp32 where it scans."""
+    state = []
+    for i in range(cfg.num_layers):
+        mixer, st = _mixer(cfg, i), {}
+        if mixer in ("attn", "hybrid"):
+            st["kv"] = init_cache(cfg.attn, batch, seq_len,
+                                  is_global=_is_global(cfg, i),
+                                  dtype=cache_dtype, device=device)
+        if mixer in ("ssm", "hybrid"):
+            st["ssm"] = init_ssm_state(cfg.ssm, cfg.d_model, batch,
+                                       dtype=torch.float32, device=device)
+        state.append(st)
+    return state
 
 
 def cache_len(cfg: ModelConfig, i: int, seq_len: int) -> int:
     """Global KV-cache length of layer ``i`` (mirrors ``init_cache``)."""
     c = seq_len
-    if not _is_global(cfg, i):
+    if not _is_global(cfg, i) and cfg.attn is not None:
         if cfg.attn.window is not None:
             c = min(c, cfg.attn.window)
         elif cfg.attn.chunk is not None:
@@ -224,19 +268,27 @@ def decode_step(params: dict, token: torch.Tensor, state: list, pos: int,
                 block_resolver=None) -> tuple[torch.Tensor, list]:
     """token: (B,) ints at position ``pos``; returns (logits (B, V_local),
     state) with every layer's cache written in place (a sequence-sharded
-    cache holds this rank's slots)."""
-    _require_dense(cfg)
+    cache holds this rank's slots) and every SSM state replaced."""
     cdt = getattr(torch, cfg.dtype)
     x = embed(params["embed"], token.long()[:, None], cdt, ctx,
               cfg.vocab_size)
     for i, raw in enumerate(params["blocks"]):
         bp = block_resolver("blocks", i, raw) if block_resolver else raw
+        mixer = _mixer(cfg, i)
         h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
-        clen = cache_len(cfg, i, seq_len) if seq_len else None
-        mix, state[i]["kv"] = attn_decode(
-            bp["attn"], h, cfg.attn, state[i]["kv"],
-            is_global=_is_global(cfg, i), pos=pos, ctx=ctx,
-            compute_dtype=cdt, cache_len_global=clen)
+        if mixer in ("attn", "hybrid"):
+            clen = cache_len(cfg, i, seq_len) if seq_len else None
+            a, state[i]["kv"] = attn_decode(
+                bp["attn"], h, cfg.attn, state[i]["kv"],
+                is_global=_is_global(cfg, i), pos=pos, ctx=ctx,
+                compute_dtype=cdt, cache_len_global=clen)
+        if mixer in ("ssm", "hybrid"):
+            s, state[i]["ssm"] = ssm_decode(bp["ssm"], h, cfg.ssm,
+                                            state[i]["ssm"], ctx=ctx,
+                                            compute_dtype=cdt,
+                                            d_model=cfg.d_model)
+        mix = a if mixer == "attn" else s if mixer == "ssm" else \
+            _hybrid_mix(bp["beta"], a, s, cdt)
         x = x + mix.to(x.dtype)
         if "moe" in bp:
             h = rmsnorm(bp["ln2"], x, cfg.norm_eps)

@@ -4,6 +4,11 @@ Port of ``repro.runtime.serve_step``.  The prefill returns logits and fills
 no cache, and the decode step decodes one token against the contiguous
 rolling caches, as in the reference.  The decode step writes the caches in
 place, which stands for the reference's donation of the state.
+Every family is served: a prefill batch carries a vision stub's
+``extra_embeds`` or an encoder-decoder's ``frames`` beside the tokens, an
+SSM or hybrid layer's decode state is its fp32 scan state, and an
+encoder-decoder's is made by running its encoder over the frames
+(:func:`init_decode_state` with ``params`` and ``frames``).
 
 ``weight_mode``:
 
@@ -45,7 +50,7 @@ from repro_torch.core.topology import RankMesh
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.model_api import Model
-from repro_torch.models.parallel import ParallelCtx, make_ctx
+from repro_torch.models.parallel import SINGLE, ParallelCtx, make_ctx
 from repro_torch.runtime.train_step import (FsdpPlan, TrainStepConfig,
                                             data_mesh, model_size_of)
 from repro_torch.sharding.rules import (decode_state_specs, local_shapes,
@@ -109,13 +114,25 @@ def resident_params(model: Model, params, mesh: RankMesh | None = None):
 
 def init_decode_state(model: Model, shape_cfg: ShapeConfig,
                       mesh: RankMesh | None = None, *,
+                      params=None, frames=None,
+                      ctx: ParallelCtx | None = None,
                       cache_dtype: torch.dtype = torch.bfloat16,
                       device: str | torch.device = "cuda") -> list:
-    """Zero decode state of this rank for ``shape_cfg`` (global batch and
-    cache length) on ``mesh``: its rows, and on a model axis above 1 its
-    slots of every sequence-sharded cache (``decode_state_specs``)."""
+    """Decode state of this rank for ``shape_cfg`` (global batch and cache
+    length) on ``mesh``: its rows, and on a model axis above 1 its slots of
+    every sequence-sharded cache and its ``d_inner`` channels of every SSM
+    state (``decode_state_specs``).  Zeros (KV caches in ``cache_dtype``,
+    SSM states fp32), except an encoder-decoder's: its encoder runs once
+    over this rank's rows of the global ``frames`` with ``params`` (the
+    step's parameters; on a model axis this rank's blocks, with the step's
+    ``ctx``), its self-attention on the ``flash_attn`` kernel as the
+    prefill's, and the cross k/v it caches sit beside empty
+    self-attention caches."""
     mesh = mesh or data_mesh(1)
     dev = resolve_device(device)
+    if model.is_encdec:
+        return _encdec_state(model, shape_cfg, mesh, params, frames, ctx,
+                             cache_dtype, dev)
     full = transformer.init_decode_state(model.cfg, shape_cfg.global_batch,
                                          shape_cfg.seq_len,
                                          cache_dtype=cache_dtype,
@@ -130,6 +147,26 @@ def init_decode_state(model: Model, shape_cfg: ShapeConfig,
     return map_specs(lambda leaf, shape: torch.zeros(
         shape, dtype=leaf.dtype, device=dev), full,
         local_shapes(full, specs, mesh))
+
+
+def _encdec_state(model: Model, shape_cfg: ShapeConfig, mesh: RankMesh,
+                  params, frames, ctx, cache_dtype: torch.dtype,
+                  dev: torch.device) -> list:
+    """:func:`init_decode_state` of an encoder-decoder: its self caches are
+    never sequence-sharded (its decode step scores the whole cache)."""
+    if params is None or frames is None:
+        raise ValueError(f"{model.cfg.name}: an encoder-decoder's decode "
+                         f"state runs the encoder: pass params and frames")
+    if model_size_of(mesh) > 1 and shape_cfg.seq_len >= 8192:
+        raise NotImplementedError(
+            f"{model.cfg.name}: a cache of {shape_cfg.seq_len} slots would "
+            f"be sequence-sharded, which the encoder-decoder's decode step "
+            f"does not score")
+    rows = _batch_rows(mesh, shape_cfg.global_batch)
+    frames = torch.as_tensor(frames, device=dev)[rows]
+    return model.init_decode_state(
+        frames.shape[0], shape_cfg.seq_len, params=params, frames=frames,
+        ctx=ctx or SINGLE, cache_dtype=cache_dtype, attn_impl="kernel")
 
 
 def serve_params(step, model: Model, params, mesh: RankMesh | None = None):
@@ -177,19 +214,29 @@ def build_prefill(model: Model, shape_cfg: ShapeConfig, *,
                   device: str | torch.device = "cuda",
                   mesh: RankMesh | None = None):
     """Returns ``prefill(params, batch) -> logits (B, S, V_local)`` for
-    batches of ``shape_cfg``'s (global_batch, seq_len) tokens; ``B`` is
-    this rank's rows (all of them on one rank), ``V_local`` its vocab shard
-    (all of it without a model axis).  With ``attn_impl="kernel"`` every
-    global or windowed layer's attention runs the ``flash_attn`` kernel
-    (its plain version for CPU tensors) on this rank's real heads, and a
-    chunked-local layer the blockwise loop
-    (:func:`~repro_torch.models.transformer.layer_attn_impl`);
-    ``"blockwise"`` runs the reference's blockwise loop everywhere."""
+    batches of ``shape_cfg``'s global_batch and seq_len; ``B`` is this
+    rank's rows (all of them on one rank), ``V_local`` its vocab shard (all
+    of it without a model axis).  The batch holds the tokens and the
+    arch's stub inputs, as ``Model.input_specs`` gives them in the
+    reference: a vision stub's ``extra_embeds`` (B, P, d) ahead of
+    ``seq_len - P`` tokens (the logits cover all ``seq_len`` positions), an
+    encoder-decoder's ``frames`` (B, F, d) beside ``seq_len`` tokens.  With
+    ``attn_impl="kernel"`` every global or windowed layer's
+    self-attention runs the ``flash_attn`` kernel (its plain version for
+    CPU tensors) on this rank's real heads, and a chunked-local layer and
+    every cross-attention the blockwise loop
+    (:func:`~repro_torch.models.transformer.layer_attn_impl`,
+    :mod:`~repro_torch.models.encdec`); ``"blockwise"`` runs the
+    reference's blockwise loop everywhere."""
     dev = resolve_device(device)
     mesh = mesh or data_mesh(1)
     weights, plan = _weights(model, mesh, weight_mode, "prefill")
     ctx = make_ctx(mesh)              # the model axis's groups come after
-    want = (shape_cfg.global_batch, shape_cfg.seq_len)
+    cfg = model.cfg
+    text = shape_cfg.seq_len
+    if cfg.frontend == "vision_stub" and cfg.frontend_seq:
+        text -= cfg.frontend_seq
+    want = (shape_cfg.global_batch, text)
     rows = _batch_rows(mesh, shape_cfg.global_batch)
 
     def prefill(params: dict, batch: dict) -> torch.Tensor:
@@ -197,9 +244,13 @@ def build_prefill(model: Model, shape_cfg: ShapeConfig, *,
         if tuple(tokens.shape) != want:
             raise ValueError(f"prefill built for tokens {want}, got "
                              f"{tuple(tokens.shape)}")
+        mine = {"tokens": tokens[rows]}
+        for k in ("extra_embeds", "frames"):
+            if k in batch:
+                mine[k] = torch.as_tensor(batch[k], device=dev)[rows]
         with torch.no_grad():
             tree, kw = weights(params)
-            return model.forward(tree, {"tokens": tokens[rows]}, ctx=ctx,
+            return model.forward(tree, mine, ctx=ctx,
                                  causal_skip=causal_skip, attn_impl=attn_impl,
                                  **kw)
 

@@ -85,7 +85,7 @@ from repro_torch.mem.layout import (ArenaLayout, QuantArenaLayout, plan_arena,
                                     plan_quant_arena)
 from repro_torch.models.model_api import Model
 from repro_torch.models.parallel import make_ctx
-from repro_torch.models.transformer import init_params, moe_layer_count
+from repro_torch.models.transformer import moe_layer_count
 from repro_torch.optim import (OptimConfig, adamw_flat_update,
                                adamw_tree_update, clip_factor,
                                global_grad_norm, init_opt_state,
@@ -190,7 +190,7 @@ def shard_batch(batch: dict, index: int, world: int) -> dict:
 
 def abstract_params(model: Model) -> dict:
     """The parameter tree on the ``meta`` device (shapes and dtypes only)."""
-    return init_params(None, model.cfg, torch.device("meta"))
+    return model.abstract_params()
 
 
 def build_norm_weights(plan: BucketPlan, specs_flat: Sequence | None = None,
@@ -287,6 +287,11 @@ class FsdpPlan:
         if cfg.fsdp_gather not in FSDP_GATHERS:
             raise ValueError(f"fsdp_gather must be one of {FSDP_GATHERS}, "
                              f"got {cfg.fsdp_gather!r}")
+        if model.is_encdec:
+            # the reference's Model.loss_fn refuses the block resolver
+            raise NotImplementedError(
+                f"{model.cfg.name}: FSDP block_resolver is decoder-only; "
+                f"enc-dec archs use tp/zero1 sharding")
         self.model = model
         self.mesh = mesh
         self.gather_impl = cfg.fsdp_gather

@@ -1,9 +1,10 @@
 """repro_torch contiguous-cache decode against the JAX reference, on the
 CPU.
 
-Reduced llama3.2-1b, parameters made by the reference's ``Model.init`` and
-bridged.  The port's ``build_decode_step`` against the reference's
-``Model.decode_step``: 12 tokens into an 8-slot cache, so the rolling
+Reduced llama3.2-1b, qwen2-7b, phi3-medium-14b and minicpm-2b, parameters
+made by the reference's ``Model.init`` and bridged.  The port's
+``build_decode_step`` against the reference's ``Model.decode_step``: 12
+tokens into an 8-slot cache, so the rolling
 write wraps and the oldest positions leave the softmax; the logits within
 1e-4 at an fp32 cache and fp32 compute (only the order of the sums
 differs), and the greedy next tokens equal.  Then the serve CLI's
@@ -31,13 +32,15 @@ from repro_torch.models.transformer import init_decode_state
 from repro_torch.runtime.serve_step import build_decode_step
 
 ARCH = "llama3.2-1b"
+DENSE_ARCHS = (ARCH, "qwen2-7b", "phi3-medium-14b", "minicpm-2b")
 BATCH, CACHE, TOKENS = 3, 8, 12
 
 
-def test_decode_step_matches_reference_through_a_cache_wrap():
-    jmodel = jax_build_model(jax_reduced_config(ARCH))
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_decode_step_matches_reference_through_a_cache_wrap(arch):
+    jmodel = jax_build_model(jax_reduced_config(arch))
     jparams = jmodel.init(jax.random.PRNGKey(0))
-    model = build_model(reduced_config(ARCH))
+    model = build_model(reduced_config(arch))
     params = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams),
                                       "cpu")
     jstate = jax_init_decode_state(jmodel.cfg, BATCH, CACHE,

@@ -1,7 +1,8 @@
 """repro_torch paged serving against the JAX reference, end to end on CPU.
 
-Reduced llama3.2-1b, params made by the reference's ``Model.init`` and
-bridged: the port's paged engine (``device="cpu"``, so the flash-decode
+Reduced llama3.2-1b (and, for the engine against the contiguous decode,
+qwen2-7b, phi3-medium-14b and minicpm-2b), params made by the reference's
+``Model.init`` and bridged: the port's paged engine (``device="cpu"``, so the flash-decode
 wrapper runs its plain version) against the reference model's contiguous
 ``decode_step``, token for token across a page boundary — the oracle the
 reference's own paged-engine test uses; the scheduler's statistics under
@@ -14,6 +15,8 @@ in some processes, exact in others), while the port and the contiguous
 decode agree to 1.2e-7 in every process.  Its Pallas kernel is held against
 the port in ``test_torch_flash_decode.py``, where it is stable.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -44,17 +47,23 @@ from repro_torch.serve import (PagedDecodeEngine, ServeScheduler,
 from repro_torch.serve.engine import _gather_local_kv
 
 ARCH = "llama3.2-1b"
+DENSE_ARCHS = (ARCH, "qwen2-7b", "phi3-medium-14b", "minicpm-2b")
 PLAN_KW = dict(page_tokens=8, page_bytes=4096, max_seqs=4, max_seq_len=64)
+
+
+@functools.cache
+def _models(arch):
+    """(jax model, jax params, port model, port params) — one init, bridged."""
+    jmodel = jax_build_model(jax_reduced_config(arch))
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    np_params = jax.tree.map(np.asarray, jparams)
+    model = build_model(reduced_config(arch))
+    return jmodel, jparams, model, bridge.params_from_numpy(np_params, "cpu")
 
 
 @pytest.fixture(scope="module")
 def models():
-    """(jax model, jax params, port model, port params) — one init, bridged."""
-    jmodel = jax_build_model(jax_reduced_config(ARCH))
-    jparams = jmodel.init(jax.random.PRNGKey(0))
-    np_params = jax.tree.map(np.asarray, jparams)
-    model = build_model(reduced_config(ARCH))
-    return jmodel, jparams, model, bridge.params_from_numpy(np_params, "cpu")
+    return _models(ARCH)
 
 
 def _jax_engine(jmodel, attn_impl, cache_dtype):
@@ -69,14 +78,15 @@ def _port_engine(model, attn_impl, cache_dtype):
     return PagedDecodeEngine(model, plan, attn_impl=attn_impl, device="cpu")
 
 
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
 @pytest.mark.parametrize("cache,rtol,atol", [
     # fp32 cache and fp32 compute: only the summation order differs
     ("float32", 1e-4, 1e-4),
     # bf16 cache: a 1-ulp fp32 difference can flip one bf16 rounding of K/V;
     # the reference's own paged-vs-contiguous tolerance
     ("bfloat16", 2e-2, 2e-3)])
-def test_engine_matches_jax_decode(models, cache, rtol, atol):
-    jmodel, jparams, model, params = models
+def test_engine_matches_jax_decode(arch, cache, rtol, atol):
+    jmodel, jparams, model, params = _models(arch)
     eng = _port_engine(model, "kernel", getattr(torch, cache))
     live = [0, 1, 3]                         # slot 2 stays free
     for s in live:

@@ -1,6 +1,7 @@
 """repro_torch training against the JAX reference.
 
-* Loss and gradients of the reduced llama3.2-1b at fp32 compute, from
+* Loss and gradients of the reduced dense archs (llama3.2-1b, qwen2-7b,
+  phi3-medium-14b, minicpm-2b) at fp32 compute, from
   bridged parameters: rtol 1e-5 on the loss and rtol/atol 1e-4 on the
   gradients, because autograd and XLA sum the same terms in different
   orders (attention softmax, matmul reductions, the tied embedding's two
@@ -44,6 +45,9 @@ from repro_torch.launch import train as launch_train
 from repro_torch.models import build_model
 
 ARCH = "llama3.2-1b"
+# the dense archs: llama3.2-1b's GQA, qwen2-7b's qkv bias and rope theta,
+# phi3-medium-14b's 40 / 10 heads, minicpm-2b's tied embeddings
+DENSE_ARCHS = (ARCH, "qwen2-7b", "phi3-medium-14b", "minicpm-2b")
 STEPS = 3
 STEP_KW = {"comm": dict(transport="ring_hier", chunks=2, channels=2,
                         bucket_bytes=64 * 1024, page_bytes=8192),
@@ -106,18 +110,18 @@ def reference():
             return dict(f)
 
 
-@pytest.fixture(scope="module")
-def models():
-    jmodel = jax_build_model(jax_reduced_config(ARCH))
+def _models(arch):
+    jmodel = jax_build_model(jax_reduced_config(arch))
     jparams = jmodel.init(jax.random.PRNGKey(1))
-    model = build_model(reduced_config(ARCH))
+    model = build_model(reduced_config(arch))
     params = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams),
                                       "cpu")
     return jmodel, jparams, model, params
 
 
-def test_loss_and_grads_match_reference_at_fp32(models):
-    jmodel, jparams, model, params = models
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_loss_and_grads_match_reference_at_fp32(arch):
+    jmodel, jparams, model, params = _models(arch)
     batch = JaxSyntheticTokens(JaxDataConfig(
         vocab_size=jmodel.cfg.vocab_size, seq_len=32,
         global_batch=2)).batch_at(0)
