@@ -388,14 +388,36 @@ Phases, each of which raises on a failed check (exit code != 0):
               the arena on, 3 steps: finite losses, pack writes == segments
               x microbatches x steps and reads == segments x steps (all
               bulk), the peak, a profiled step.
+45. tune_probe — the measured auto-tuner (``tune.probe.probe_rank``) on
+              two ranks over gloo: ``allreduce`` (``all_reduce_tree``) and
+              ``arena`` over ring_hier and psum, channels 1 and 2, pages
+              4096 and 2 MiB, 2^14, 2^18 and 2^22 elements, then one small
+              ``halo`` (ring_hier) and one small ``cg`` (psum) group: every
+              cell's predicted messages and bytes == what its recorded
+              call put on the wire (``comm.plan.record_wire`` of its
+              ``CommRecord``), ``reduce_add`` launches == hops x reduced
+              buffers on ring_hier and 0 on psum, ``pack`` writes and reads
+              == the arena's segments; rank 0 fits every group, writes the
+              DB under ``build/tune_smoke/``, loads it again, and
+              ``resolve_settings`` picks one of its records; each group's
+              α, bandwidth and mean/max relative error printed;
+46. tuned_train — the train CLI's setup on the same two ranks with
+              ``--tuned`` (that DB) and ``--obs-predict``: llama3.2-1b at
+              full width, 4 layers, zero1, the arena on, the data ring
+              (``--model-parallel 1``), 3 steps: the ``tuned:`` line names
+              a record of the probe, a ``prediction`` event with source
+              ``tuned`` and no ``predict_failed``, a drift sample and a
+              ``model_error`` gauge every step, every step's wire (all its
+              records) == the predicted messages and bytes, the predicted
+              step against the measured ones.
 
 The phases before train_tp run data-only (``--model-parallel 1``).  The
 two-rank train phases share two spawns, each running its phases' workers
 in turn on one process group (:func:`spawn_in_turn`), right after the
 build: ``ring_ranks_deterministic`` (train_ring_zero1, train_ring_fsdp)
 and ``ring_ranks`` (train_ring, train_ring_int8, train_ring_zero1_int8,
-train_ring_fsdp_int8, train_ring_ckpt); so do the later two-rank phases,
-in ``stencil_tp_ranks`` (halo, stencil_cg's two ranks, train_tp,
+train_ring_fsdp_int8, train_ring_ckpt, tune_probe, tuned_train); so do
+the later two-rank phases, in ``stencil_tp_ranks`` (halo, stencil_cg's two ranks, train_tp,
 prefill_tp, serve_contiguous_tp, serve_tp, moe_ep).  Until train_tp_fsdp joined
 the script each paid a spawn of its own: two ranks' start-up (the
 interpreters, the CUDA contexts, the kernels' loads, the full-width model
@@ -416,6 +438,7 @@ import functools
 import itertools
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -6491,6 +6514,299 @@ def phase_families_train(dev) -> dict:
     return out
 
 
+TUNE_DIR = REPO / "build" / "tune_smoke"   # the probe's DB, tuned_train's
+TUNE_DB = TUNE_DIR / "tuning.json"          # run directory (gitignored)
+TUNE_MATRIX = dict(benches=("allreduce", "arena"),
+                   transports=("ring_hier", "psum"), channels=(1, 2),
+                   pages=(4096, 2 * 2**20), sizes=(1 << 14, 1 << 18, 1 << 22),
+                   mesh=(2,), warmup=1, iters=5)
+# one small group each, on sizes of their own (local lattices of 6^3 to
+# 16^3 x 16 fp32, mesh 2x1x1): the halo on ring_hier, the solve on psum, one
+# rail, recorded under the arch "stencil" (the QCD workload), so that a
+# model's resolution ranks the gradient path's records
+TUNE_HALO = dict(benches=("halo",), transports=("ring_hier",), channels=(1,),
+                 pages=(4096,), sizes=(1 << 12, 1 << 14, 1 << 16), mesh=(2,),
+                 warmup=1, iters=5, arch="stencil")
+TUNE_CG = dict(TUNE_HALO, benches=("cg",), transports=("psum",), cg_iters=8)
+# tuned_train: llama3.2-1b at full width, 4 layers, its own settings (zero1
+# at full size, ring_hier, channels 0: the tuner's soft sentinel, which
+# --tuned resolves from the probe's DB), the data ring of two ranks
+TUNED_TRAIN_ARGS = ["--arch", ARCH, "--layers", "4", "--use-arena", "--seq",
+                    "256", "--batch", "8", "--steps", "3", "--device", "cuda",
+                    "--seed", "0", "--model-parallel", "1", "--tuned",
+                    str(TUNE_DB), "--obs-predict", "--obs-dir",
+                    str(TUNE_DIR / "obs")]
+
+
+def _tune_expected(cell: dict, check: dict, ring_cfg_of) -> dict:
+    """The kernels one call of a probe cell launches, from the code: on a
+    ring transport every reduced length runs ``p - 1`` reduce-scatter hops,
+    each adding every channel slice (``reduce_add``); psum adds nothing;
+    the arena packs and unpacks each segment once (``pack``)."""
+    from repro_torch.core.ring import _channel_slices
+
+    p = 2
+    adds = 0
+    if cell["transport"] != "psum":
+        ring_cfg = ring_cfg_of(cell)
+        adds = sum(len(_channel_slices(n // p, ring_cfg)) * (p - 1)
+                   for n in check["reduced"])
+    return {"reduce_add": adds, "pack_write": check["segments"],
+            "pack_read": check["segments"]}
+
+
+def _tune_probe_worker(db_path: str) -> dict:
+    """One of two ranks of tune_probe: the measured probe on the card
+    (``tune.probe.probe_rank``: :data:`TUNE_MATRIX`, then one small halo
+    and one small cg group), each cell's wire and launches beside what the
+    plan and the code give; rank 0 fits every group, writes the DB, loads
+    it again and resolves llama3.2-1b's settings from it."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.comm import CommConfig
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.settings import ArchSettings, settings_for
+    from repro_torch.tune import TuningDB, probe
+    from repro_torch.tune.resolve import resolve_settings
+
+    world = launch_train.init_distributed("cuda")
+
+    def ring_cfg_of(cell):
+        return CommConfig(transport=cell["transport"], chunks=2,
+                          channels=cell["channels"]).ring_config()
+
+    reset_launch_counters()
+    t0 = time.perf_counter()
+    parts = {name: probe.probe_rank(probe.probe_config(**m), world.device)
+             for name, m in (("matrix", TUNE_MATRIX), ("halo", TUNE_HALO),
+                             ("cg", TUNE_CG))}
+    probe_s = time.perf_counter() - t0
+    counts = launch_counters()
+    rows = []
+    for name, part in parts.items():
+        for cell, check in zip(part["cells"], part["checks"]):
+            rows.append({"part": name, "cell": cell, "check": check,
+                         "expected": _tune_expected(cell, check,
+                                                    ring_cfg_of)})
+    out = {"backend": world.backend, "rows": rows, "counts": counts,
+           "probe_s": probe_s}
+    if world.rank == 0:
+        db = TuningDB()
+        fits = {}
+        for part in parts.values():
+            cells = [probe.ProbeCell.from_dict(c) for c in part["cells"]]
+            fits.update({k: f.as_dict() for k, f in
+                         probe.fit_and_store(cells, db).items()})
+        db.save(db_path)
+        again = TuningDB.load(db_path)
+        resolved, info = resolve_settings(settings_for(ARCH), ARCH,
+                                          mesh_label="2x1", db=again)
+        auto, auto_info = resolve_settings(
+            ArchSettings("zero1", 1, "resident", transport="auto",
+                         page_bytes="auto"), ARCH, mesh_label="2x1",
+            db=again)
+        out.update(fits=fits, keys=sorted(again.records),
+                   resolved={"info": info, "channels": resolved.channels,
+                             "transport": resolved.transport,
+                             "page_bytes": resolved.page_bytes},
+                   auto={"info": auto_info, "transport": auto.transport,
+                         "channels": auto.channels,
+                         "page_bytes": auto.page_bytes})
+    dist.barrier()        # tuned_train reads the DB on both ranks
+    torch.cuda.synchronize(world.device)
+    return out
+
+
+def check_tune_probe(ranks: list) -> dict:
+    """tune_probe's checks: every cell's predicted messages and bytes equal
+    what its recorded call put on the wire, its launches the code's count;
+    the DB loads again with every group and resolution picks one of its
+    records."""
+    for r, out in enumerate(ranks):
+        for row in out["rows"]:
+            cell, check = row["cell"], row["check"]
+            what = (f"[tune_probe] rank {r} {cell['bench']} "
+                    f"{cell['transport']} ch{cell['channels']} "
+                    f"p{cell['page_bytes']} {cell['elems']}")
+            if (cell["messages"], cell["nbytes"]) != (check["messages"],
+                                                      check["nbytes"]):
+                raise AssertionError(
+                    f"{what}: plan {cell['messages']} messages, "
+                    f"{cell['nbytes']} B; recorded {check['messages']}, "
+                    f"{check['nbytes']} B")
+            if check["launches"] != row["expected"]:
+                raise AssertionError(f"{what}: launches {check['launches']}"
+                                     f" != {row['expected']}")
+            if not cell["seconds"] > 0:
+                raise AssertionError(f"{what}: no time")
+    o = ranks[0]
+    if sorted(o["fits"]) != o["keys"]:
+        raise AssertionError(f"[tune_probe] the DB holds {o['keys']}, the "
+                             f"fit wrote {sorted(o['fits'])}")
+    for res in (o["resolved"], o["auto"]):
+        if res["info"]["source"] != "db" or \
+                res["info"]["key"] not in o["keys"]:
+            raise AssertionError(f"[tune_probe] resolution {res} picked no "
+                                 f"record of the DB")
+    for key, fit in sorted(o["fits"].items()):
+        log(f"[tune_probe] {key}: alpha {fit['alpha_s'] * 1e6:.3f} us, "
+            f"bandwidth {fit['bandwidth'] / 1e9:.4f} GB/s, relative error "
+            f"mean {fit['mean_rel_err']:.4f} max {fit['max_rel_err']:.4f} "
+            f"({fit['n_cells']} cells)")
+    log(f"[tune_probe] {len(o['rows'])} cells a rank in "
+        f"{o['probe_s']:.1f} s; launches on rank 0 {o['counts']}; "
+        f"llama3.2-1b on 2x1 resolves to {o['resolved']}; all-auto "
+        f"settings to {o['auto']}")
+    return {"ranks": ranks, "fits": o["fits"], "launches": o["counts"]}
+
+
+class _WireSteps:
+    """A TrainStep whose every call also notes what it put on the wire, in
+    the prediction's units (``obs.predict.step_wire``)."""
+
+    def __init__(self, step):
+        self._step = step
+        self.wire: list = []
+
+    def __getattr__(self, name):
+        return getattr(self._step, name)
+
+    def __call__(self, state, batch):
+        from repro_torch.obs import predict
+
+        before = predict.record_snapshot(self._step)
+        out = self._step(state, batch)
+        self.wire.append(predict.step_wire(self._step, before))
+        return out
+
+
+def _tuned_train_worker(argv: list[str]) -> dict:
+    """One of two ranks of tuned_train: the train CLI's setup with
+    ``--tuned`` (the probe's DB) and ``--obs-predict``, 3 steps; the
+    ``tuned:`` line, the prediction, the drift samples, each step's wire
+    against the predicted wire, the launches."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.launch import train as launch_train
+
+    args = launch_train.parser().parse_args(argv)
+    world = launch_train.init_distributed(args.device)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run = launch_train.setup(args, world)
+    printed = buf.getvalue()
+    print(printed, end="", flush=True)
+    _check_full_width(run.model.cfg, args.layers, "tuned_train")
+    trainer = run.trainer
+    drift = trainer.drift
+    wired = _WireSteps(trainer.step_fn)
+    trainer.step_fn = wired
+    reset_launch_counters()
+    out_run = trainer.run()
+    counts = launch_counters()
+    step = wired._step
+    trainer.step_fn = step
+    hist = out_run["history"]
+    events, gauges = [], []
+    if world.rank == 0:
+        with open(out_run["obs"]["events"]) as f:
+            recs = [json.loads(line) for line in f]
+        events = [{"name": r["name"], **r["fields"]} for r in recs
+                  if r["kind"] == "event"]
+        gauges = [r["value"] for r in recs if r["kind"] == "gauge"
+                  and r["name"] == "model_error"]
+    import numpy as np
+
+    from repro_torch.launch.roofline import model_flops_estimate
+
+    rows = args.batch // world.size
+    return {"backend": world.backend, "printed": printed,
+            "tuned": [ln for ln in printed.splitlines()
+                      if ln.startswith("tuned: ")],
+            "drift_source": drift.source if drift is not None else None,
+            "predicted_s": drift.predicted_s if drift is not None else None,
+            "events": events, "model_error": gauges,
+            "wire": wired.wire, "losses": [h["loss"] for h in hist],
+            "step_s": [h["sec"] for h in hist], "counts": counts,
+            "transport": step.comm.cfg.transport,
+            "channels": step.comm.cfg.channels,
+            "page_bytes": step.comm.cfg.page_bytes,
+            "model_flops": model_flops_estimate(
+                run.model.param_count(), rows * args.seq, "train"),
+            "peak_bytes": torch.cuda.max_memory_allocated(world.device),
+            "finite": bool(np.isfinite([h["loss"] for h in hist]).all())}
+
+
+def check_tuned_train(ranks: list, probe_keys: list) -> dict:
+    """tuned_train's checks: the ``tuned:`` line names a record of the
+    probe's DB; a ``prediction`` event with ``source == "tuned"`` and no
+    ``predict_failed``; a drift sample for every step; every step's wire
+    (messages and bytes, all records) equal to the prediction's; finite
+    losses."""
+    o = ranks[0]
+    names = [e.get("name") for e in o["events"]]
+    if "predict_failed" in names:
+        bad = [e for e in o["events"] if e.get("name") == "predict_failed"]
+        raise AssertionError(f"[tuned_train] predict_failed: {bad}")
+    preds = [e for e in o["events"] if e.get("name") == "prediction"]
+    if len(preds) != 1 or preds[0].get("source") != "tuned":
+        raise AssertionError(f"[tuned_train] prediction events {preds}")
+    pred = preds[0]
+    if not any(e.get("name") == "tuned_record" for e in o["events"]):
+        raise AssertionError("[tuned_train] no tuned_record event")
+    samples = sorted(e["step"] for e in o["events"]
+                     if e.get("name") == "drift_sample")
+    steps = list(range(len(o["losses"])))
+    if samples != steps or len(o["model_error"]) != len(steps):
+        raise AssertionError(f"[tuned_train] drift samples at steps "
+                             f"{samples} and {len(o['model_error'])} "
+                             f"model_error gauges, expected every step")
+    if len(o["tuned"]) != 1 or not any(
+            o["tuned"][0].startswith(f"tuned: {k} ") for k in probe_keys):
+        raise AssertionError(f"[tuned_train] the tuned line {o['tuned']} "
+                             f"names no record of the probe's DB")
+    for r, out in enumerate(ranks):
+        if out["drift_source"] != "tuned" or not out["finite"]:
+            raise AssertionError(f"[tuned_train] rank {r}: drift source "
+                                 f"{out['drift_source']}, finite losses "
+                                 f"{out['finite']}")
+    for r, out in enumerate(ranks):
+        for s, (m, b) in enumerate(out["wire"]):
+            if r == 0 and (m, b) != (pred["messages_per_device"],
+                                     pred["wire_bytes_per_device"]):
+                raise AssertionError(
+                    f"[tuned_train] step {s}: {m} messages, {b} B on the "
+                    f"wire; predicted {pred['messages_per_device']}, "
+                    f"{pred['wire_bytes_per_device']}")
+        if out["wire"] != ranks[0]["wire"]:
+            raise AssertionError(f"[tuned_train] rank {r} wire "
+                                 f"{out['wire']} != rank 0's")
+    measured = sorted(o["step_s"])[len(o["step_s"]) // 2]
+    log(f"[tuned_train] {o['tuned'][0]}")
+    log(f"[tuned_train] predicted step {pred['t_step_s'] * 1e3:.3f} ms "
+        f"({pred['bottleneck']}-bound: compute "
+        f"{pred['t_compute_s'] * 1e3:.3f}, memory "
+        f"{pred['t_memory_s'] * 1e3:.3f}, collective "
+        f"{pred['t_collective_s'] * 1e3:.3f} ms at alpha "
+        f"{pred['alpha_s'] * 1e6:.3f} us, bandwidth "
+        f"{pred['link_bandwidth'] / 1e9:.4f} GB/s, overlap "
+        f"{pred['overlap_fraction']:.3f}) against measured steps "
+        f"{', '.join(f'{x * 1e3:.1f}' for x in o['step_s'])} ms (median "
+        f"{measured * 1e3:.1f}); {pred['messages_per_device']:.0f} messages,"
+        f" {pred['wire_bytes_per_device']:.0f} B a step as predicted; "
+        f"FLOPs {pred['flops_per_device']:.4e} counted against 6ND "
+        f"{o['model_flops']:.4e}; memory bytes "
+        f"{pred['hbm_bytes_per_device']:.4e}; launches {o['counts']}; "
+        f"peak {o['peak_bytes'] / 2**30:.2f} GiB; model_error "
+        f"{', '.join(f'{x:.3f}' for x in o['model_error'])}")
+    return {"ranks": ranks, "prediction": pred, "measured_median_s": measured,
+            "launches": o["counts"]}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -6541,15 +6857,19 @@ def main() -> None:
         "ckpt_ring_smoke", 2, "train_ring_ckpt")
     ckpt_argv = _argv_with(ZERO1_INT8_ARGS, layers=ckpt_layers,
                            steps=CKPT_STEPS)
+    shutil.rmtree(TUNE_DIR, ignore_errors=True)
+    TUNE_DIR.mkdir(parents=True, exist_ok=True)
     ring_ranks, int8_ranks, zero1_int8_ranks, fsdp_int8_ranks, \
-        ckpt_ranks = in_turn("ring_ranks", [
+        ckpt_ranks, tune_ranks, tuned_ranks = in_turn("ring_ranks", [
             ("train_ring", _ring_worker, (RING_ARGS,)),
             ("train_ring_int8", _ring_worker, (RING_ARGS + INT8_ARGS,)),
             ("train_ring_zero1_int8", _ring_worker, (ZERO1_INT8_ARGS,)),
             ("train_ring_fsdp_int8", _fsdp_ring_worker, (FSDP_INT8_ARGS,
                                                          "native")),
             ("train_ring_ckpt", _ckpt_ring_worker, (ckpt_argv,
-                                                    str(ckpt_root)))])
+                                                    str(ckpt_root))),
+            ("tune_probe", _tune_probe_worker, (str(TUNE_DB),)),
+            ("tuned_train", _tuned_train_worker, (TUNED_TRAIN_ARGS,))])
     train_ring = check_train_ring(ring_ranks, "train_ring")
     train_ring_int8 = check_train_ring(int8_ranks, "train_ring_int8")
     train_ring_zero1_int8 = check_train_ring(zero1_int8_ranks,
@@ -6559,6 +6879,8 @@ def main() -> None:
     train_ring_ckpt = check_ckpt_ranks(ckpt_ranks, "train_ring_ckpt",
                                        ckpt_root, ckpt_layers, ckpt_disk,
                                        int8=True)
+    tune_probe = check_tune_probe(tune_ranks)
+    tuned_train = check_tuned_train(tuned_ranks, sorted(tune_probe["fits"]))
     kernel_err = run_phase("kernel", phase_kernel, dev)
     kernels_train = run_phase("kernels_train", phase_kernels_train, dev)
     serve, run = run_phase("serve", phase_serve, dev)
@@ -6798,6 +7120,13 @@ def main() -> None:
             "encdec_serve": encdec_serve["launches"] if attn else 0,
             "vlm_prefill": vlm_prefill["launches"] if attn else 0,
             "families_train": families_train["launches"][name]}
+        # and on the tooling's paths (rank 0): the measured probe's cells
+        # (reduce_add on every ring_hier hop, pack in the arena cells) and
+        # the 3 steps of tuned_train
+        if name in ("reduce_add", "pack_write", "pack_read"):
+            row["launches_tune"] = {
+                "tune_probe": tune_probe["launches"][name],
+                "tuned_train": tuned_train["launches"][name]}
     kernels = {"kernels": rows, "gpu": gpu}
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -6823,7 +7152,8 @@ def main() -> None:
              "moe_train": moe_train, "moe_ep": moe_ep,
              "ssm_serve": ssm_serve, "hybrid_serve": hybrid_serve,
              "encdec_serve": encdec_serve, "vlm_prefill": vlm_prefill,
-             "families_train": families_train,
+             "families_train": families_train, "tune_probe": tune_probe,
+             "tuned_train": tuned_train,
              "phase_s": phase_s,
              "torch": torch.__version__, "cuda": torch.version.cuda,
              "wall_s": time.perf_counter() - t_start}, indent=1))

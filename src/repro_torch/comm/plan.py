@@ -14,7 +14,7 @@ dispatch and combine.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
 from typing import Sequence
 
 from repro_torch.core.bucketing import BucketPlan
@@ -39,6 +39,38 @@ class LatencyModel:
 
     def collective_seconds(self, messages: float, nbytes: float) -> float:
         return self.alpha_s * float(messages) + float(nbytes) / self.bandwidth
+
+    @classmethod
+    def from_record(cls, record) -> "LatencyModel":
+        """Measured constants from a tuning-DB record, a bare fit dict or a
+        :class:`repro_torch.tune.fit.FitResult`."""
+        if hasattr(record, "alpha_s"):          # FitResult (duck-typed)
+            return cls(alpha_s=float(record.alpha_s),
+                       bandwidth=float(record.bandwidth))
+        fit = record.get("fit", record)         # DB record or raw fit dict
+        return cls(alpha_s=float(fit["alpha_s"]),
+                   bandwidth=float(fit["bandwidth"]))
+
+
+def record_wire(record, axis_size: int) -> tuple[float, float]:
+    """``(messages, wire_bytes)`` of a :class:`~repro_torch.core.p2p.
+    CommRecord` (or its ``as_dict``) in the plans' units: a point-to-point
+    send is one message of its bytes; the native collectives over an axis
+    of ``axis_size`` ranks count as their ring equivalents, the units in
+    which the transports predict (``2(p-1)`` messages and ``2(p-1)/p`` of
+    the payload for an all-reduce; ``p-1`` messages for an all-gather, of
+    ``p-1`` shards, a reduce-scatter, of ``(p-1)/p`` of its input, and an
+    all-to-all, whose recorded bytes are already those that leave)."""
+    r = record if isinstance(record, dict) else asdict(record)
+    p = max(int(axis_size), 1)
+    messages = (r["sends"] + 2 * (p - 1) * r["all_reduces"]
+                + (p - 1) * (r["all_gathers"] + r["reduce_scatters"]
+                             + r["all_to_alls"]))
+    wire = (r["send_bytes"] + 2 * (p - 1) / p * r["all_reduce_bytes"]
+            + (p - 1) * r["all_gather_bytes"]
+            + (p - 1) / p * r["reduce_scatter_bytes"]
+            + r["all_to_all_bytes"])
+    return float(messages), float(wire)
 
 
 @dataclass(frozen=True)
@@ -105,6 +137,13 @@ class CommPlan:
         for p in self.axis_sizes:
             w *= p
         return w
+
+    def bucket_channel(self, bucket: int) -> int:
+        """The virtual channel bucket ``bucket`` rides."""
+        for a in self.channels:
+            if bucket in a.buckets:
+                return a.channel
+        raise KeyError(bucket)
 
     @property
     def channel_imbalance(self) -> float:

@@ -23,7 +23,12 @@ runs tensor-parallel (weights model-sharded, caches of 8192 slots or more
 sequence-sharded, the vocab shards gathered for the argmax), with each
 rank's block resident or, where the arch's setting says ``gathered``, as
 fsdp shards gathered at every step.  Rank 0
-prints.  The reference's ``--production-mesh`` is not ported.  With
+prints.  ``--production-mesh`` runs the contiguous loop on the
+reference's 16 x 16 ``("data", "model")`` mesh, in a world of
+``launch.mesh.required_devices(False)`` = 256 ranks launched through
+``torch.distributed``'s environment (``WORLD_SIZE``, ``RANK``, ...); a
+world of any other size is refused, as is ``--paged`` with it (the
+reference serves the paged engine on its host mesh only).  With
 ``--paged``, ``--obs-dir DIR`` instruments rank 0's engine and scheduler
 (``events.jsonl`` and ``trace.json`` under DIR, read with ``python -m
 repro_torch.obs.report DIR``).
@@ -32,6 +37,7 @@ repro_torch.obs.report DIR``).
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from dataclasses import dataclass
 
@@ -41,6 +47,8 @@ from repro_torch.configs import get_config, list_archs, reduced_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.topology import RankMesh
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import (make_production_mesh,
+                                     require_production_world)
 from repro_torch.launch.settings import settings_for
 from repro_torch.models import Model, build_model
 from repro_torch.obs import ObsConfig, make_obs
@@ -165,7 +173,8 @@ def run_contiguous(args, device=None, weight_mode: str | None = None
                          "runtime.serve_step.init_decode_state(params=, "
                          "frames=) and decode with build_decode_step")
     model = build_model(cfg)
-    mesh = serve_mesh(args.model_parallel)
+    mesh = (make_production_mesh() if args.production_mesh
+            else serve_mesh(args.model_parallel))
     shape = ShapeConfig("serve", args.cache, args.batch, "decode")
     wm = weight_mode or (settings_for(args.arch).serve_weights
                          if not args.reduced else "resident")
@@ -249,6 +258,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--obs-dir", default=None, metavar="DIR",
                     help="paged: instrument the run (JSONL events + Chrome "
                          "trace under DIR)")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="contiguous: the 16x16 (data, model) mesh (a "
+                         "world of 256 ranks from torch.distributed's "
+                         "environment)")
     return ap
 
 
@@ -256,7 +269,14 @@ def main(argv: list[str] | None = None) -> None:
     args = parser().parse_args(argv)
     if args.model_parallel < 1:
         raise SystemExit("--model-parallel must be >= 1")
-    if args.model_parallel > 1:
+    if args.production_mesh:
+        if args.paged:
+            raise SystemExit("--production-mesh serves the contiguous loop; "
+                             "drop --paged")
+        require_production_world(int(os.environ.get("WORLD_SIZE", "1")),
+                                 False)
+        _rank_main(args)
+    elif args.model_parallel > 1:
         from repro_torch.launch.train import spawn
 
         resolve_device(args.device)        # refuse before spawning anything

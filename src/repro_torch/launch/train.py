@@ -33,6 +33,19 @@ reference's on-disk format; the sharded leaves gathered into global arrays
 on rank 0) and resumes from the newest committed step; ``--obs-dir DIR``
 instruments rank 0's run (``events.jsonl`` and ``trace.json`` under DIR,
 read with ``python -m repro_torch.obs.report DIR``).
+
+``--tuned DB`` resolves the arch's ``"auto"`` comm knobs, and a
+``channels=0``, to the tuning DB's measured best config before the launch
+(``python -m repro_torch.tune.probe`` writes the DB) and prints a
+``tuned:`` line; as in the reference, settings with ``channels=0`` are
+resolved against ``experiments/tuning.json`` when it exists even without
+the flag.  ``--obs-predict`` prices the step at start (the live step's
+roofline; with ``--tuned``, the DB's measured α/bandwidth) and tracks the
+measured steps against it: every rank runs the pricing pass, rank 0
+records.  ``--production-mesh`` lays the ranks out as the reference's
+16 x 16 ``("data", "model")`` mesh, ``--multi-pod`` as 2 x 16 x 16 with a
+``"pod"`` axis; a world of any other size than
+``launch.mesh.required_devices`` is refused.
 """
 
 from __future__ import annotations
@@ -53,14 +66,17 @@ import torch.multiprocessing as mp
 from repro_torch.comm.registry import list_transports
 from repro_torch.comm.schedule import SCHEDULE_POLICIES
 from repro_torch.configs import get_config, list_archs, reduced_config
+from repro_torch.core.topology import RankMesh
 from repro_torch.data import DataConfig, SyntheticTokens
 from repro_torch.device import resolve_device
 from repro_torch.launch.settings import settings_for
+from repro_torch.tune import resolve
 from repro_torch.models import Model, build_model
 from repro_torch.obs import ObsConfig
 from repro_torch.optim import OptimConfig
 from repro_torch.runtime.train_loop import Trainer, TrainerConfig
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import (make_host_mesh,
+                                     require_production_world)
 from repro_torch.runtime.train_step import (DP_MODES, TrainStepConfig,
                                             require_ported)
 
@@ -133,7 +149,9 @@ def setup(args, world: World, *,
     ``fsdp_gather``), ``model_overrides`` fields of the model config (e.g.
     a MoE config whose experts shard over the model axis)."""
     dp_mode = resolve_dp_mode(args)
-    st = settings_for(args.arch)
+    mesh = launch_mesh(args, world.size)
+    log = print if world.rank == 0 else (lambda msg: None)
+    st = tuned_settings(args, mesh, log)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     if args.layers is not None:
         cfg = cfg.with_(num_layers=args.layers)
@@ -162,11 +180,15 @@ def setup(args, world: World, *,
                                       seq_len=args.seq,
                                       global_batch=args.batch),
                            model_cfg=cfg)
-    log = print if world.rank == 0 else (lambda msg: None)
-    # one run directory: rank 0 instruments the run
-    obs_cfg = (ObsConfig(run_dir=args.obs_dir)
-               if args.obs_dir and world.rank == 0 else None)
-    mesh = make_host_mesh(world.size, args.model_parallel)
+    # one run directory: rank 0 instruments the run; a computed prediction
+    # is collective, so every rank asks for it
+    obs_cfg = None
+    run_dir = args.obs_dir if world.rank == 0 else None
+    if args.obs_predict:
+        obs_cfg = ObsConfig(run_dir=run_dir, predict=True,
+                            tuned_db=args.tuned)
+    elif run_dir:
+        obs_cfg = ObsConfig(run_dir=run_dir)
     trainer = Trainer(model, mesh, step_cfg, data,
                       TrainerConfig(steps=args.steps, ckpt_every=50,
                                     ckpt_dir=args.ckpt_dir, log_every=10,
@@ -181,6 +203,32 @@ def setup(args, world: World, *,
         + (f" fsdp_gather={step_cfg.fsdp_gather}" if dp_mode == "fsdp"
            else ""))
     return TrainRun(model, trainer, world)
+
+
+def launch_mesh(args, world: int) -> RankMesh:
+    """The production mesh under ``--production-mesh`` (refused unless the
+    world fills it), else the host mesh of ``--model-parallel``."""
+    if args.production_mesh:
+        return require_production_world(world, args.multi_pod)
+    return make_host_mesh(world, args.model_parallel)
+
+
+def tuned_settings(args, mesh: RankMesh, log=print):
+    """The arch's settings, their ``"auto"`` knobs (and ``channels=0``)
+    resolved from ``--tuned`` (or ``experiments/tuning.json``) as the
+    reference's CLI does; logs the ``tuned:`` line when a record won."""
+    st = settings_for(args.arch)
+    if args.tuned or resolve.has_auto(st):
+        label = "x".join(str(d) for d in mesh.shape)
+        st, info = resolve.resolve_settings(st, args.arch, mesh_label=label,
+                                            db_path=args.tuned)
+        if info["source"] == "db":
+            log(f"tuned: {info['key']} "
+                f"(alpha={info['alpha_s']*1e6:.2f}us "
+                f"bw={info['bandwidth']/1e9:.2f}GB/s) -> "
+                f"transport={st.transport} channels={st.channels} "
+                f"page_bytes={st.page_bytes}")
+    return st
 
 
 def run(args) -> dict:
@@ -304,12 +352,31 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--nproc", type=int, default=None,
                     help="spawn this many local ranks (else one rank, or "
                          "the world of torch.distributed's environment)")
+    ap.add_argument("--tuned", default=None, metavar="DB",
+                    help="tuning DB (repro_torch.tune.probe output): resolve "
+                         "the arch's 'auto' comm knobs, and any channels=0, "
+                         "to the DB's measured best config before launch")
+    ap.add_argument("--obs-predict", action="store_true",
+                    help="price the step at start (roofline; with --tuned, "
+                         "the DB's measured alpha/beta) and track live "
+                         "predicted-vs-measured drift")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="the 16x16 (data, model) mesh (needs 256 ranks)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="with --production-mesh: 2x16x16 (pod, data, "
+                         "model), 512 ranks")
     return ap
 
 
 def main(argv: list[str] | None = None) -> None:
     args = parser().parse_args(argv)
     resolve_dp_mode(args)                  # refuse before spawning anything
+    if args.multi_pod and not args.production_mesh:
+        raise SystemExit("--multi-pod needs --production-mesh")
+    if args.production_mesh:
+        require_production_world(
+            args.nproc or int(os.environ.get("WORLD_SIZE", "1")),
+            args.multi_pod)
     if args.nproc:
         spawn(run, args.nproc, args)
     else:

@@ -8,21 +8,20 @@ detection.  Port of ``repro.obs``:
   ``trace_event`` JSON (Perfetto-loadable ``trace.json``);
 * :class:`~repro_torch.obs.drift.DriftDetector` — per-step
   measured-vs-predicted comparison emitting ``model_error`` gauges and
-  ``drift_alarm`` events;
+  ``drift_alarm`` events, fed an explicit prediction or one the Trainer
+  computes at start (``predict``: :mod:`repro_torch.obs.predict`'s
+  roofline of the live step; ``tuned_db``: its collective term priced at a
+  tuning DB's measured α/bandwidth);
 * :mod:`repro_torch.obs.schema` — the shared ``BENCH_<name>.json`` row
   schema;
 * ``python -m repro_torch.obs.report <run_dir>`` — the offline summarizer.
 
 The records keep the reference's names and fields, so either package's
 report reads either package's run directory.  Everything importable here
-is stdlib-only (torch is touched lazily, inside span fencing).
+is stdlib-only (torch is touched lazily, inside span fencing; the Trainer
+imports :mod:`repro_torch.obs.predict` only when asked to predict).
 ``ObsConfig(enabled=False)`` — or simply a ``None`` config — resolves to
 :data:`NULL_OBS`, whose every operation is a no-op.
-
-Not ported: the step-time prediction from the AOT roofline
-(``ObsConfig.predict``) and from a tuning DB (``tuned_db``) raise
-``NotImplementedError`` (ROADMAP Queue 1 #9); an explicit
-``predicted_step_s`` drives drift detection.
 """
 
 from __future__ import annotations
@@ -63,16 +62,9 @@ class ObsConfig:
     drift_window: int = 8
     drift_warmup: int = 1              # leading samples excluded (compile)
     drift_min_samples: int = 3
-    predicted_step_s: float | None = None  # explicit prediction
-    predict: bool = False              # not ported: raises
-    tuned_db: str | None = None        # not ported: raises
-
-    def __post_init__(self):
-        if self.predict or self.tuned_db:
-            raise NotImplementedError(
-                "ObsConfig.predict and tuned_db price the step through the "
-                "reference's AOT roofline and tuning DB, which are not "
-                "ported (ROADMAP Queue 1 #9); pass predicted_step_s")
+    predicted_step_s: float | None = None  # explicit prediction (wins)
+    predict: bool = False              # price the live step at init
+    tuned_db: str | None = None        # price with measured α/β from this DB
 
     @classmethod
     def off(cls) -> "ObsConfig":

@@ -15,10 +15,13 @@ Observability: with ``TrainerConfig.obs`` set, the trainer publishes onto
 a :class:`repro_torch.obs.MetricsBus` — phase spans (data / step: dispatch
 + wait / ckpt; ``wait`` fenced on the step's metrics, so it covers the
 device work), per-step gauges (step time, loss, grad norm, lr), straggler
-events (via the monitor's bus) — and, given an explicit step-time
-prediction, feeds a :class:`repro_torch.obs.DriftDetector`.  Every step
-ends in a host read of the loss, which waits for the device, so ``sec`` is
-the step's wall time with its device work.
+events (via the monitor's bus) — and, when a step-time prediction is
+available (explicit, the live step's roofline, or priced by a tuning DB),
+feeds a :class:`repro_torch.obs.DriftDetector`.  A computed prediction
+runs one forward and backward on every rank at once (it is collective
+over a mesh of several ranks), so every rank's Trainer asks for it.
+Every step ends in a host read of the loss, which waits for the device,
+so ``sec`` is the step's wall time with its device work.
 """
 
 from __future__ import annotations
@@ -94,15 +97,48 @@ class Trainer:
         self.drift = self._init_drift()
 
     def _init_drift(self):
-        """A DriftDetector when the obs config carries an explicit step-time
-        prediction; None otherwise (``ObsConfig`` refuses the reference's
-        computed predictions, which are not ported)."""
+        """Wire a DriftDetector when the obs config carries (or asks us to
+        compute) a step-time prediction; None otherwise."""
         cfg = self.tcfg.obs
-        if not self.obs.enabled or cfg is None or \
-                cfg.predicted_step_s is None:
+        if not self.obs.enabled or cfg is None:
             return None
-        return self.obs.drift_detector(cfg.predicted_step_s,
-                                       source="explicit")
+        if cfg.predicted_step_s is not None:
+            return self.obs.drift_detector(cfg.predicted_step_s,
+                                           source="explicit")
+        if not (cfg.predict or cfg.tuned_db):
+            return None
+        try:
+            from repro_torch.obs import predict as obs_predict
+
+            latency = None
+            source = "roofline"
+            step = self.step_fn
+            if cfg.tuned_db:
+                ccfg = step.comm.cfg
+                mesh_label = "x".join(str(d) for d in step.mesh.shape)
+                got = obs_predict.tuned_latency(
+                    cfg.tuned_db, transport=ccfg.transport,
+                    mesh_label=mesh_label, channels=ccfg.channels,
+                    page_bytes=ccfg.page_bytes)
+                if got is not None:
+                    latency, fit_err, key = got
+                    source = "tuned"
+                    self.obs.event("tuned_record", key=key, **fit_err)
+            batch = shard_batch(self.data.batch_at(0), step.data_index,
+                                step.data_world)
+            pred = obs_predict.predict_step_time(
+                step, (self.state, batch),
+                overlap_fraction=step.schedule.overlap_fraction,
+                latency=latency)
+            self.obs.event("prediction", **pred)
+            self.log(f"[obs] predicted step {pred['t_step_s']*1e3:.1f} ms "
+                     f"({pred['bottleneck']}-bound, {pred['source']})")
+            return self.obs.drift_detector(pred["t_step_s"], source=source)
+        except Exception as e:   # prediction is advisory: never kill a run
+            self.obs.event("predict_failed", error=repr(e))
+            self.log(f"[obs] step-time prediction failed ({e!r}); "
+                     f"drift detection disabled")
+            return None
 
     def _save(self, step: int) -> None:
         self.ckpt.save(self.state, step,

@@ -143,6 +143,26 @@ def test_scan_covers_the_tensor_parallel_modules():
     assert not re.search(r"^\s*(import|from)\s+jax\b", jobs, re.M)
 
 
+def test_scan_covers_the_tooling_modules():
+    """The tooling slice's modules are scanned too, and its rank jobs
+    import no JAX."""
+    scanned = {p.relative_to(REPO).as_posix() for p in _port_sources()}
+    for path in ("src/repro_torch/tune/__init__.py",
+                 "src/repro_torch/tune/db.py", "src/repro_torch/tune/fit.py",
+                 "src/repro_torch/tune/probe.py",
+                 "src/repro_torch/tune/resolve.py",
+                 "src/repro_torch/tune/timing.py",
+                 "src/repro_torch/obs/predict.py",
+                 "src/repro_torch/launch/roofline.py"):
+        assert path in scanned, path
+    jobs = (REPO / "tests" / "torch_tune_jobs.py").read_text()
+    assert not re.search(r"^\s*(import|from)\s+(jax|repro)\b", jobs, re.M)
+    for name in ("torch_allreduce_demo.py", "torch_train_lm.py",
+                 "torch_serve_lm.py"):
+        text = (REPO / "examples" / name).read_text()
+        assert not FORBIDDEN.search(text), name
+
+
 def _host_only_sources():
     root = REPO / "src" / "repro_torch"
     return sorted((root / "checkpoint").rglob("*.py")) \

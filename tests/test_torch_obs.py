@@ -145,8 +145,11 @@ def test_fence_and_null_obs():
 
 @pytest.mark.parametrize("kw", [dict(predict=True), dict(tuned_db="db.json")])
 def test_computed_predictions_are_not_ported(kw):
-    with pytest.raises(NotImplementedError, match="#9"):
-        obs.ObsConfig(**kw)
+    """Both computed predictions are ported: the config takes them, as the
+    reference's does (tests/test_torch_predict.py drives them)."""
+    cfg, ref = obs.ObsConfig(**kw), ref_obs.ObsConfig(**kw)
+    assert cfg.__dict__ == ref.__dict__
+    assert cfg.predict == ref.predict and cfg.tuned_db == ref.tuned_db
 
 
 def test_trainer_publishes_spans_gauges_and_drift(tmp_path):
