@@ -235,7 +235,8 @@ Phases, each of which raises on a failed check (exit code != 0):
               on both ranks, each rank's restored arena, ``"ef"`` and
               moment shards bitwise what it saved, the launches a step of
               ``pack``, ``pack_quant``, ``quant`` and ``reduce_add`` equal
-              to the unbroken run's (the fifth job of the ``ring_ranks``
+              to the unbroken run's; its resumed run writes no step
+              directory of its own (the fifth job of the ``ring_ranks``
               spawn, below);
 29. halo    — the paper's first workload: two ranks on the card over
               gloo, mesh (2, 1, 1, 1) over the axes x, y, z, t, a 32^4
@@ -410,13 +411,31 @@ Phases, each of which raises on a failed check (exit code != 0):
               ``model_error`` gauge every step, every step's wire (all its
               records) == the predicted messages and bytes, the predicted
               step against the measured ones.
+47. rails   — the same two ranks: llama3.2-1b's gradient tree at full
+              width and 4 layers (the model's fp32 parameter shapes, random
+              from a seed a rank) over ring_hier with the train CLI's 32 MiB
+              buckets, on one rail and on two, where each rail's
+              collectives run on a host thread and a CUDA stream of their
+              own: ``all_reduce_tree`` and one fp32-arena
+              ``reduce_scheduled`` step, two rails bitwise one, every rank
+              the same tree, sends and bytes == ``CommPlan``, ``reduce_add``
+              and ``pack`` launches as the code predicts (all bulk); one
+              two-rail ``all_reduce_tree`` under ``torch.profiler`` between
+              marker kernels on the caller's stream: ``reduce_add`` on one
+              stream a rail with that rail's launches, the pinned staging
+              copies on the same streams, none on the caller's; the walls
+              of one and two rails, and of the per-tensor baseline and the
+              default ``GradientReducer`` (each bitwise a ``Communicator``
+              of its config) with their ratio, printed beside the card's
+              name and power limit.
 
 The phases before train_tp run data-only (``--model-parallel 1``).  The
 two-rank train phases share two spawns, each running its phases' workers
 in turn on one process group (:func:`spawn_in_turn`), right after the
 build: ``ring_ranks_deterministic`` (train_ring_zero1, train_ring_fsdp)
 and ``ring_ranks`` (train_ring, train_ring_int8, train_ring_zero1_int8,
-train_ring_fsdp_int8, train_ring_ckpt, tune_probe, tuned_train); so do
+train_ring_fsdp_int8, train_ring_ckpt, tune_probe, tuned_train, rails);
+so do
 the later two-rank phases, in ``stencil_tp_ranks`` (halo, stencil_cg's two ranks, train_tp,
 prefill_tp, serve_contiguous_tp, serve_tp, moe_ep).  Until train_tp_fsdp joined
 the script each paid a spawn of its own: two ranks' start-up (the
@@ -1058,8 +1077,8 @@ def kernel_vs_plain_step(step, state, batch, device, *,
 
     key = "groups" if step.fsdp is not None else "params"
     plain = TrainStep(step.model, step.comm.mesh, dataclasses.replace(
-        step.cfg, comm=dataclasses.replace(step.cfg.comm,
-                                           local_op="plain")),
+        step.cfg, comm=dataclasses.replace(
+            step.cfg.comm_config(("pod", "data")), local_op="plain")),
         device=device)
     plain_state = dict(state, **{k: state[k].clone()
                                  for k in ("ef",) if k in state})
@@ -1660,7 +1679,7 @@ def _ring_worker(argv: list[str]) -> dict:
            "padding_fraction": layout.padding_fraction,
            "ef_bytes": (layout.payload_elems * 4 if quant else 0),
            "hop_width": max(sp.size for sp in layout.spans) // p
-           // (2 * step.cfg.comm.chunks),
+           // (2 * step.cfg.comm_config(("pod", "data")).chunks),
            # every reduce-scatter hop's width, one step's worth
            "hop_widths": sorted(
                w for sp in layout.spans
@@ -2439,8 +2458,9 @@ def _argv_with(argv: list[str], **flags) -> list[str]:
 def _ckpt_place(name: str, world: int, what: str) -> tuple[Path, int, dict]:
     """A fresh directory under ``build/`` (ignored by git) for a phase's
     checkpoints, and the depth that fits: the deepest up to CKPT_LAYERS
-    whose two step directories (the stop's and the resumed run's final
-    save, both kept) take at most 90 % of the free space there."""
+    whose two step directories (the stop's and, in train_ckpt, the resumed
+    run's final save; counted for every phase) take at most 90 % of the
+    free space there."""
     import shutil
 
     from repro_torch.configs import get_config
@@ -2766,7 +2786,8 @@ def _ckpt_runs(argv: list[str], ckpt_dir: str, world, what: str) -> dict:
     it together, deterministic): the unbroken run, the run stopped at
     CKPT_STOP (its flat leaves gathered to rank 0 and, on a model axis, its
     model-sharded parameters assembled there; rank 0 writes), and the
-    resumed run, each with its launches and per-leaf digests."""
+    resumed run (which saves nothing), each with its launches and per-leaf
+    digests."""
     import gc
 
     import torch
@@ -2812,7 +2833,10 @@ def _ckpt_runs(argv: list[str], ckpt_dir: str, world, what: str) -> dict:
     run, restore_s = _timed_restore(lambda: setup(["--ckpt-dir", ckpt_dir]))
     start = run.trainer.start_step
     restored = shard_digests(run.trainer)
-    res_times = _timed_checkpoints(run.trainer)
+    # the resumed run writes no step directory of its own: what this check
+    # holds is the stop's save and its restore (train_ckpt times a resumed
+    # run's save)
+    run.trainer.ckpt = None
     reset_launch_counters()
     resumed = run.trainer.run()["history"]
     counts_res = launch_counters()
@@ -2832,8 +2856,6 @@ def _ckpt_runs(argv: list[str], ckpt_dir: str, world, what: str) -> dict:
             "save_blocking_s": stop_times["save_s"][-1],
             "async_write_s": stop_times["wait_s"][-1],
             "restore_s": restore_s[0],
-            "resumed_save_blocking_s": res_times["save_s"][-1],
-            "resumed_async_write_s": res_times["wait_s"][-1],
             "staging_s": record["staging_s"]}
 
 
@@ -6807,6 +6829,312 @@ def check_tuned_train(ranks: list, probe_keys: list) -> dict:
             "launches": o["counts"]}
 
 
+# the rails (Queue 1 #5): llama3.2-1b's gradient tree at full width and
+# RAILS_LAYERS layers (the train_ring phases' depth), fp32, reduced over the
+# data ring of two ranks on one rail and on two, where each rail's
+# collectives run on a host thread and a CUDA stream of their own
+# (repro_torch.comm.rails); the paper's per-tensor baseline beside the
+# default GradientReducer, printed only
+RAILS_LAYERS = 4
+RAILS_BUCKET_BYTES = 32 * 2**20          # the train CLI's buckets
+RAILS_TRACE = REPO / "build" / "rails_smoke" / "profile.json"
+
+
+def _rails_config(channels: int):
+    """The train CLI's communicator config for llama3.2-1b over
+    ``ring_hier`` at ``channels`` rails."""
+    import dataclasses
+
+    from repro_torch.launch.settings import settings_for
+
+    return dataclasses.replace(
+        settings_for(ARCH).comm_config(bucket_bytes=RAILS_BUCKET_BYTES),
+        transport="ring_hier", channels=channels)
+
+
+def _synced(fn):
+    """``fn()`` and its wall time, the card idle at both ends."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _same_tree(a, b) -> bool:
+    import torch
+
+    from repro_torch import tree as tree_util
+
+    la, lb = tree_util.leaves(a), tree_util.leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def _rail_hops(comm, sizes, p: int) -> list[int]:
+    """``reduce_add`` launches of one all-reduce of flat buffers of
+    ``sizes`` on each rail of ``comm``: every buffer's p - 1 reduce-scatter
+    hops add each channel slice once."""
+    from repro_torch.core.ring import _channel_slices
+
+    per = [0] * max(comm.cfg.channels, 1)
+    for a in comm.stripe(list(sizes)):
+        per[a.channel] += sum(len(_channel_slices(sizes[b] // p,
+                                                  comm.transport.ring_cfg))
+                              for b in a.buckets) * (p - 1)
+    return per
+
+
+def _stream_counts(trace: Path) -> dict:
+    """From a profiler trace: on which CUDA streams (CUPTI's ids) the
+    ``reduce_add`` kernels, the pinned staging copies (device to host and
+    back) and the caller's marker kernel (``torch.cuda._sleep``'s
+    ``spin_kernel``) ran, with the count on each."""
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    out: dict = {"reduce_add": {}, "staging": {}, "marker": {}}
+    for e in events:
+        # a device event's thread is its stream, which its args repeat
+        stream = (e.get("args") or {}).get("stream", e.get("tid"))
+        cat, name = e.get("cat", ""), e.get("name", "")
+        if stream is None:
+            continue
+        if cat == "kernel" and "reduce_add_kernel" in name:
+            key = "reduce_add"
+        elif cat == "kernel" and "spin_kernel" in name:
+            key = "marker"
+        elif cat == "gpu_memcpy" and ("DtoH" in name or "HtoD" in name):
+            key = "staging"
+        else:
+            continue
+        out[key][str(stream)] = out[key].get(str(stream), 0) + 1
+    return out
+
+
+def _rails_worker() -> dict:
+    """One of two ranks of the rails job: llama3.2-1b's gradient tree (the
+    model's fp32 parameter shapes, random from a seed a rank) through
+    ``all_reduce_tree`` and one fp32-arena ``reduce_scheduled`` step on one
+    rail and on two, each with its wall, record, launches and the count the
+    code predicts; one profiled two-rail ``all_reduce_tree`` (rank 0
+    traces); the per-tensor baseline and the default ``GradientReducer``,
+    each timed and held against a ``Communicator`` of its config."""
+    import contextlib
+    import gc
+    import warnings
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tree as tree_util
+    from repro_torch.comm import Communicator
+    from repro_torch.configs import get_config
+    from repro_torch.core.reducer import (GradientReducer, ReduceConfig,
+                                          per_tensor_reducer)
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import build_model
+    from repro_torch.runtime.train_step import data_mesh
+
+    world = launch_train.init_distributed("cuda")
+    dev, p = world.device, world.size
+    cfg = get_config(ARCH).with_(num_layers=RAILS_LAYERS)
+    _check_full_width(cfg, RAILS_LAYERS, "rails")
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(100 + world.rank)
+    grads = tree_util.tree_map(
+        lambda t: torch.randn(t.shape, generator=gen, device=dev,
+                              dtype=torch.float32), model.abstract_params())
+    mesh = data_mesh(p)
+    comms = {c: Communicator(mesh, _rails_config(c)) for c in (1, 2)}
+    out = {"backend": world.backend, "params": model.param_count()}
+    reduced = {}
+    for c, comm in comms.items():
+        plan = comm.plan(grads)
+        sizes = plan.bucket_plan.bucket_sizes
+        comm.record.reset()
+        reset_launch_counters()
+        reduced[c], wall = _synced(lambda: comm.all_reduce_tree(grads)[0])
+        out[f"tree_ch{c}"] = {
+            "wall_s": wall, "record": comm.record.as_dict(),
+            "counts": launch_counters(), "n_buckets": len(sizes),
+            "rail_hops": _rail_hops(comm, sizes, p),
+            # the plan counts the used elements; the wire carries the
+            # buckets' padding too, at the same rate
+            "planned": {"sends": plan.messages_per_device,
+                        "send_bytes": round(
+                            comm.transport.predicted_bytes_per_device(
+                                plan.bucket_plan.total_elems,
+                                comm.axis_sizes))}}
+    out["tree_bitwise"] = _same_tree(reduced[1], reduced[2])
+    out["tree_digest"] = params_digest(reduced[2])
+    reduced.clear()
+    zero = torch.zeros((), device=dev)
+    for c, comm in comms.items():
+        arena = comm.arena(grads)
+        layout = arena.layout
+        sched = comm.arena_schedule(grads, "accumulate_then_reduce", 1)
+        plan = comm.plan(grads)
+        buf = arena.zeros(dev)
+        comm.record.reset()
+        reset_launch_counters()
+        (_, (reduced[c], _)), wall = _synced(lambda: comm.reduce_scheduled(
+            lambda params, mb: (zero, grads), grads, {}, sched,
+            arena=arena, arena_buf=buf))
+        out[f"arena_ch{c}"] = {
+            "wall_s": wall, "record": comm.record.as_dict(),
+            "counts": launch_counters(), "routes": pack_routes(),
+            "n_spans": layout.n_spans, "n_segments": layout.n_segments,
+            "rail_hops": _rail_hops(comm, [sp.size for sp in layout.spans],
+                                    p),
+            "planned": {"sends": plan.arena_messages_per_device,
+                        "send_bytes": plan.arena_bytes_per_device}}
+        del buf
+    out["arena_bitwise"] = _same_tree(reduced[1], reduced[2])
+    reduced.clear()
+    gc.collect()
+    # one two-rail reduce traced (rank 0): marker kernels on the caller's
+    # stream before and after it, so that its stream is known in the trace
+    # (a trace has been seen to miss the kernel launched first in it)
+    traced = world.rank == 0
+    ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+           if traced else contextlib.nullcontext())
+    torch.cuda.synchronize()
+    reset_launch_counters()
+    with ctx as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        comms[2].all_reduce_tree(grads)
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    out["profiled_counts"] = launch_counters()
+    if traced:
+        RAILS_TRACE.parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(RAILS_TRACE))
+        out["streams"] = _stream_counts(RAILS_TRACE)
+    del comms
+    gc.collect()
+    # the paper's before/after: one bucket a tensor against the default
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        reducers = {"per_tensor": per_tensor_reducer(mesh, ReduceConfig()),
+                    "default": GradientReducer(mesh, ReduceConfig())}
+    for name, red in reducers.items():
+        own = Communicator(mesh, red.cfg.comm_config())
+        red.comm.record.reset()
+        got, wall = _synced(lambda: red.reduce(grads)[0])
+        want = own.all_reduce_tree(grads)[0]
+        out[name] = {"wall_s": wall, "bitwise": _same_tree(got, want),
+                     "n_buckets": red.comm.plan(grads).bucket_plan.n_buckets,
+                     "sends": red.comm.record.sends}
+        del got, want, own
+        gc.collect()
+    return out
+
+
+def _check_rail_streams(streams: dict, rail_hops: list[int]) -> dict:
+    """The profiled two-rail reduce's streams: ``reduce_add`` on one stream
+    a rail, with that rail's launches; the staging copies on the same
+    streams; the caller's markers (one or both recorded) on a stream of
+    their own."""
+    adds, staging, marker = (streams[k] for k in ("reduce_add", "staging",
+                                                   "marker"))
+    if len(marker) != 1:
+        raise AssertionError(f"[rails] the caller's marker kernels on "
+                             f"streams {marker}, expected one stream "
+                             f"(reduce_add by stream {adds}, staging copies "
+                             f"{staging})")
+    (caller,) = marker
+    if len(adds) < 2 or sorted(adds.values()) != sorted(rail_hops):
+        raise AssertionError(f"[rails] reduce_add by stream {adds}, "
+                             f"expected one stream a rail with {rail_hops}")
+    if caller in adds or caller in staging:
+        raise AssertionError(f"[rails] a rail's kernel or copy ran on the "
+                             f"caller's stream {caller}: reduce_add "
+                             f"{adds}, staging {staging}")
+    if set(staging) != set(adds):
+        raise AssertionError(f"[rails] staging copies on streams "
+                             f"{staging}, the rails' are {sorted(adds)}")
+    return {"caller": caller, "reduce_add": adds, "staging": staging}
+
+
+def check_rails(ranks: list) -> dict:
+    """The rails job's checks: on one rail and on two the reduced tree and
+    the arena step bitwise, every rank the same tree, sends and bytes
+    equal to the plan's, ``reduce_add`` and ``pack`` launches as the code
+    predicts (all bulk), and the traced two-rail reduce on one stream a
+    rail (:func:`_check_rail_streams`); the per-tensor baseline and the
+    default reducer bitwise their communicators.  Logs the walls beside the
+    card's name and power limit."""
+    gpu = gpu_line()
+    for r, o in enumerate(ranks):
+        if o["backend"] != "gloo" or not (o["tree_bitwise"]
+                                          and o["arena_bitwise"]):
+            raise AssertionError(f"[rails] rank {r}: backend {o['backend']},"
+                                 f" two rails bitwise one: tree "
+                                 f"{o['tree_bitwise']}, arena step "
+                                 f"{o['arena_bitwise']}")
+        if o["tree_digest"] != ranks[0]["tree_digest"]:
+            raise AssertionError(f"[rails] rank {r}'s reduced tree differs "
+                                 f"from rank 0's")
+        for c in (1, 2):
+            for what in ("tree", "arena"):
+                run = o[f"{what}_ch{c}"]
+                rec, plan = run["record"], run["planned"]
+                if (rec["sends"], rec["send_bytes"]) != (
+                        plan["sends"], plan["send_bytes"]):
+                    raise AssertionError(
+                        f"[rails] rank {r} {what} at {c} rail(s): "
+                        f"{rec['sends']} sends, {rec['send_bytes']} B; "
+                        f"planned {plan}")
+                want = dict.fromkeys(launch_counters(), 0)
+                want["reduce_add"] = sum(run["rail_hops"])
+                if what == "arena":
+                    want.update(pack_write=run["n_segments"],
+                                pack_read=run["n_segments"])
+                    if run["routes"]["vector"]:
+                        raise AssertionError(f"[rails] pack by route "
+                                             f"{run['routes']}")
+                _check_counts(f"rails {what} ch{c} rank {r}", run["counts"],
+                              want)
+        if o["profiled_counts"]["reduce_add"] != sum(o["tree_ch2"][
+                "rail_hops"]):
+            raise AssertionError(f"[rails] rank {r}: the profiled reduce "
+                                 f"launched {o['profiled_counts']}")
+        for name in ("per_tensor", "default"):
+            if not o[name]["bitwise"]:
+                raise AssertionError(f"[rails] rank {r}: the {name} reducer "
+                                     f"differs from its Communicator")
+    o = ranks[0]
+    streams = _check_rail_streams(o["streams"], o["tree_ch2"]["rail_hops"])
+    t1, t2 = o["tree_ch1"], o["tree_ch2"]
+    a1, a2 = o["arena_ch1"], o["arena_ch2"]
+    base, default = o["per_tensor"], o["default"]
+    log(f"[rails] {gpu}: llama3.2-1b's gradient tree ({o['params']} fp32 "
+        f"parameters, {RAILS_LAYERS} layers) on 2 ranks over gloo, "
+        f"ring_hier, {t1['n_buckets']} buckets of up to "
+        f"{RAILS_BUCKET_BYTES} B: all_reduce_tree {t1['wall_s']:.3f} s on "
+        f"one rail, {t2['wall_s']:.3f} s on two; the arena step "
+        f"({a1['n_spans']} and {a2['n_spans']} spans) {a1['wall_s']:.3f} / "
+        f"{a2['wall_s']:.3f} s; bitwise, {t2['record']['sends']} sends and "
+        f"{t2['record']['send_bytes']} B as planned; staging "
+        f"{t1['record']['staging_s']:.3f} / {t2['record']['staging_s']:.3f} "
+        f"s (summed over the rails)")
+    log(f"[rails] profiled two-rail reduce: reduce_add by stream "
+        f"{streams['reduce_add']}, staging copies by stream "
+        f"{streams['staging']}, the caller's stream {streams['caller']}")
+    log(f"[rails] {gpu}: the per-tensor baseline ({base['n_buckets']} "
+        f"buckets, {base['sends']} sends) {base['wall_s']:.3f} s, the "
+        f"default GradientReducer ({default['n_buckets']} buckets, "
+        f"{default['sends']} sends) {default['wall_s']:.3f} s: ratio "
+        f"{base['wall_s'] / default['wall_s']:.3f}; each bitwise its "
+        f"Communicator")
+    return {"ranks": ranks, "streams": streams, "gpu": gpu,
+            "launches": {k: t2["counts"][k] + a2["counts"][k]
+                         for k in t2["counts"]}}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -6860,7 +7188,8 @@ def main() -> None:
     shutil.rmtree(TUNE_DIR, ignore_errors=True)
     TUNE_DIR.mkdir(parents=True, exist_ok=True)
     ring_ranks, int8_ranks, zero1_int8_ranks, fsdp_int8_ranks, \
-        ckpt_ranks, tune_ranks, tuned_ranks = in_turn("ring_ranks", [
+        ckpt_ranks, tune_ranks, tuned_ranks, rails_ranks = in_turn(
+            "ring_ranks", [
             ("train_ring", _ring_worker, (RING_ARGS,)),
             ("train_ring_int8", _ring_worker, (RING_ARGS + INT8_ARGS,)),
             ("train_ring_zero1_int8", _ring_worker, (ZERO1_INT8_ARGS,)),
@@ -6869,7 +7198,8 @@ def main() -> None:
             ("train_ring_ckpt", _ckpt_ring_worker, (ckpt_argv,
                                                     str(ckpt_root))),
             ("tune_probe", _tune_probe_worker, (str(TUNE_DB),)),
-            ("tuned_train", _tuned_train_worker, (TUNED_TRAIN_ARGS,))])
+            ("tuned_train", _tuned_train_worker, (TUNED_TRAIN_ARGS,)),
+            ("rails", _rails_worker, ())])
     train_ring = check_train_ring(ring_ranks, "train_ring")
     train_ring_int8 = check_train_ring(int8_ranks, "train_ring_int8")
     train_ring_zero1_int8 = check_train_ring(zero1_int8_ranks,
@@ -6881,6 +7211,7 @@ def main() -> None:
                                        int8=True)
     tune_probe = check_tune_probe(tune_ranks)
     tuned_train = check_tuned_train(tuned_ranks, sorted(tune_probe["fits"]))
+    rails = check_rails(rails_ranks)
     kernel_err = run_phase("kernel", phase_kernel, dev)
     kernels_train = run_phase("kernels_train", phase_kernels_train, dev)
     serve, run = run_phase("serve", phase_serve, dev)
@@ -7127,6 +7458,9 @@ def main() -> None:
             row["launches_tune"] = {
                 "tune_probe": tune_probe["launches"][name],
                 "tuned_train": tuned_train["launches"][name]}
+            # and on the rails' path (rank 0): the two-rail all_reduce_tree
+            # and arena step, each rail's on its own stream
+            row["launches_rails"] = rails["launches"][name]
     kernels = {"kernels": rows, "gpu": gpu}
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -7153,7 +7487,7 @@ def main() -> None:
              "ssm_serve": ssm_serve, "hybrid_serve": hybrid_serve,
              "encdec_serve": encdec_serve, "vlm_prefill": vlm_prefill,
              "families_train": families_train, "tune_probe": tune_probe,
-             "tuned_train": tuned_train,
+             "tuned_train": tuned_train, "rails": rails,
              "phase_s": phase_s,
              "torch": torch.__version__, "cuda": torch.version.cuda,
              "wall_s": time.perf_counter() - t_start}, indent=1))

@@ -9,9 +9,12 @@ from ``(mesh, CommConfig)``, a :class:`Communicator` owns
   (:mod:`repro_torch.core.bucketing`);
 * the **rails** — ``cfg.channels`` independent virtual channels.  Each rail
   is its own set of process groups; buckets striped onto a rail issue on it
-  in FIFO order, which in the port is program order on that rail's groups
-  (the reference threads order tokens through XLA).  ``channels == 0``
-  leaves every bucket an independent collective; they share one rail.
+  in FIFO order (the reference threads order tokens through XLA).  At
+  ``channels >= 2`` each rail's collectives run on a host thread and, on
+  the card, a CUDA stream of the rail's own, all rails at once
+  (:mod:`repro_torch.comm.rails`); ``channels == 1`` runs them in program
+  order on the caller's thread and stream, and ``channels == 0`` leaves
+  every bucket an independent collective on that one rail.
 * the **record** — a :class:`~repro_torch.core.p2p.CommRecord` of every
   message and byte this rank sent, to hold a step against :meth:`plan`.
 
@@ -33,6 +36,7 @@ the world ``torch.distributed`` was initialised with.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import TYPE_CHECKING, Callable, Sequence
@@ -43,6 +47,7 @@ import torch.distributed as dist
 from repro_torch import tree as tree_util
 from repro_torch.comm.plan import (A2APlan, ChannelAssignment, CommPlan,
                                    HaloChannel, HaloPlan, assign_channels)
+from repro_torch.comm.rails import Call, RailExecutor, new_rail_stream
 from repro_torch.comm.registry import Rail, Transport, get_transport
 from repro_torch.comm.schedule import (CommSchedule, build_halo_schedule,
                                        build_moe_schedule, build_schedule,
@@ -87,6 +92,10 @@ class CommConfig:
 
 
 GradFn = Callable[[dict, dict], "tuple[torch.Tensor, dict]"]
+
+
+def _device(buffers: Sequence[torch.Tensor]) -> torch.device | None:
+    return buffers[0].device if buffers else None
 
 
 class _GatherFlat(torch.autograd.Function):
@@ -155,15 +164,21 @@ class Communicator:
             others = [a for a in mesh.axis_names if a not in self.axes]
             # groups are made in one fixed order on every rank: rail by
             # rail, the data axes, their joint group, then the other axes
+            concurrent = cfg.channels >= 2
             for _ in range(max(cfg.channels, 1)):
                 axes = tuple(axis_rings(mesh, rank, self.axes, self.record))
                 joint = joint_ring(mesh, rank, self.axes, self.record)
                 halo = dict(zip(self.axes, axes))
                 halo.update(zip(others, axis_rings(mesh, rank, others,
                                                    self.record)))
-                rails.append(Rail(axes=axes, joint=joint, halo=halo))
+                rails.append(Rail(axes=axes, joint=joint, halo=halo,
+                                  stream=(new_rail_stream() if concurrent
+                                          else None)))
         self.transport: Transport = cls(self.axes, self._ring_cfg,
                                         tuple(rails))
+        # the rails' threads (made at first use) and streams
+        self._executor = (RailExecutor([r.stream for r in rails])
+                          if len(rails) >= 2 else None)
         pad = self.transport.flat_divisor(self.axis_sizes)
         if codec is not None:
             # quantized segments hold whole codec blocks even when the
@@ -263,15 +278,45 @@ class Communicator:
 
     # -- channelized execution ----------------------------------------------
 
+    def _on_rails(self, calls: Sequence[Call], device) -> list:
+        """``fn()`` for every ``(rail, fn)`` of ``calls``, each rail's in
+        their order: at ``channels >= 2`` on the rails' own threads and
+        streams, all rails at once (:class:`RailExecutor`), else here, in
+        order.  Results in the order of ``calls``."""
+        if self._executor is None:
+            return [fn() for _, fn in calls]
+        return self._executor.run(calls, device)
+
     def _run_striped(self, op, items: list) -> list:
         """``op(buffer, rail)`` on every flat buffer, each rail's buffers in
         FIFO order on that rail."""
         if self.cfg.channels < 1:
             return [op(x, 0) for x in items]
+        order = [(a.channel, i)
+                 for a in self.stripe([int(x.shape[0]) for x in items])
+                 for i in a.buckets]
+        done = self._on_rails([(c, functools.partial(op, items[i], c))
+                               for c, i in order], _device(items))
         out: list = [None] * len(items)
-        for assignment in self.stripe([int(x.shape[0]) for x in items]):
-            for i in assignment.buckets:
-                out[i] = op(items[i], assignment.channel)
+        for (_, i), r in zip(order, done):
+            out[i] = r
+        return out
+
+    def _run_slots(self, schedule: CommSchedule, phase: int, fn,
+                   n: int, device) -> list:
+        """``fn(unit, rail)`` for every unit of ``schedule``'s slots of
+        ``phase``, each rail's in slot order, the rails together
+        (:meth:`_on_rails`) and joined at the phase's end.  Returns the
+        results by unit, ``None`` for the ``n`` units of other phases."""
+        chained = schedule.channels >= 1
+        units = [(slot.channel if chained else 0, u)
+                 for slot in schedule.slots_for_phase(phase)
+                 for u in slot.bucket_ids]
+        done = self._on_rails([(rail, functools.partial(fn, u, rail))
+                               for rail, u in units], device)
+        out: list = [None] * n
+        for (_, u), r in zip(units, done):
+            out[u] = r
         return out
 
     def all_reduce(self, buckets: list) -> list:
@@ -372,6 +417,25 @@ class Communicator:
         return full if bplan is None else self.bucketer.debucketize(full,
                                                                     bplan)
 
+    def init_ef_state(self, grads_like, specs=None) -> list | None:
+        """Zero residual buckets (fp32) for this rank's local tree, one per
+        bucket, on its leaves' device (``grads_like``'s leaves need only
+        ``shape`` and ``dtype``; the CPU when they are not tensors); the
+        ``ef_state`` of :meth:`all_reduce_tree`.  ``None`` when the
+        transport is lossless.  ``specs`` is the reference's and unused: the
+        port has no SPMD level."""
+        if self._ef is None:
+            return None
+        leaves = tree_util.leaves(grads_like)
+        device = (leaves[0].device if leaves
+                  and isinstance(leaves[0], torch.Tensor) else None)
+        return [torch.zeros((n,), dtype=torch.float32, device=device)
+                for n in self.bucketer.plan(grads_like).bucket_sizes]
+
+    def predicted_collective_bytes(self, grads_like) -> dict[str, float]:
+        """Napkin-math wire bytes per device (reads the :class:`CommPlan`)."""
+        return self.plan(grads_like).predicted_collective_bytes()
+
     # -- Cartesian halo exchange ---------------------------------------------
 
     @property
@@ -402,7 +466,9 @@ class Communicator:
         return _halo_exchange(x, specs, self.halo_rings(),
                               schedule=self._halo_schedule_name(schedule),
                               chunks=self.halo_chunks,
-                              channels=self.cfg.channels)
+                              channels=self.cfg.channels,
+                              streams=tuple(rail.stream for rail in
+                                            self.transport.rails))
 
     def halo_schedule(self, x_shape: Sequence[int], specs: Sequence[HaloSpec],
                       *, schedule: str | None = None,
@@ -488,9 +554,10 @@ class Communicator:
         if rails <= 1:
             return self.transport.all_to_all(x, split_axis, concat_axis)
         parts = torch.chunk(x, rails, dim=-1)
-        return torch.cat([self.transport.all_to_all(part, split_axis,
-                                                    concat_axis, rail=c)
-                          for c, part in enumerate(parts)], dim=-1)
+        return torch.cat(self._on_rails(
+            [(c, functools.partial(self.transport.all_to_all, part,
+                                   split_axis, concat_axis, rail=c))
+             for c, part in enumerate(parts)], x.device), dim=-1)
 
     def all_to_all_ragged(self, payload: torch.Tensor, counts: torch.Tensor,
                           *, split_axis: int, concat_axis: int
@@ -580,15 +647,10 @@ class Communicator:
         return fuse_schedule(self.schedule(tree, policy, microbatches),
                              self.arena_layout(tree))
 
-    def _issuer(self, op: str, schedule: CommSchedule):
-        collective = (self.transport.all_reduce if op == "all_reduce"
-                      else self.transport.reduce_scatter)
-        chained = schedule.channels >= 1
-
-        def issue(buf: torch.Tensor, channel: int) -> torch.Tensor:
-            return collective(buf, channel if chained else 0)
-
-        return issue
+    def _collective(self, op: str):
+        """``collective(buf, rail)`` of a scheduled reduction's ``op``."""
+        return (self.transport.all_reduce if op == "all_reduce"
+                else self.transport.reduce_scatter)
 
     @staticmethod
     def _microbatches(batch: dict, m: int) -> list[dict]:
@@ -651,7 +713,7 @@ class Communicator:
                                  "this communicator's mesh has none")
             op = "none"
         m = max(schedule.microbatches, 1)
-        issue = self._issuer(op, schedule)
+        issue = self._collective(op)
         inv = 1.0 / m
         streamed = schedule.policy != "accumulate_then_reduce"
         fused = self.cfg.fuse
@@ -685,20 +747,17 @@ class Communicator:
             if m > 1:
                 buckets = [b.float() * inv for b in buckets]
             if streamed:
-                out: list = [None] * len(buckets)
-                for slot in schedule.slots_for_phase(i):
-                    for b in slot.bucket_ids:
-                        out[b] = issue(buckets[b], slot.channel)
+                out = self._run_slots(
+                    schedule, i, lambda b, rail: issue(buckets[b], rail),
+                    len(buckets), _device(buckets))
                 acc = out if acc is None else [a + o for a, o in zip(acc, out)]
             else:
                 acc = (buckets if acc is None
                        else [a + b for a, b in zip(acc, buckets)])
         if op != "none" and not streamed:
-            out = [None] * len(acc)
-            for slot in schedule.slots_for_phase(m - 1):
-                for b in slot.bucket_ids:
-                    out[b] = issue(acc[b], slot.channel)
-            acc = out
+            acc = self._run_slots(
+                schedule, m - 1, lambda b, rail: issue(acc[b], rail),
+                len(acc), _device(acc))
         loss = losses[0] if m == 1 else torch.stack(losses).mean()
         if op == "none":
             return loss, acc
@@ -743,7 +802,7 @@ class Communicator:
                     f"{layout.n_spans} spans, got {schedule.n_buckets}; "
                     f"build it with Communicator.arena_schedule")
         m = max(schedule.microbatches, 1)
-        issue = self._issuer(op, schedule)
+        issue = self._collective(op)
         inv = 1.0 / m
 
         def accumulate(acc, t):
@@ -772,23 +831,24 @@ class Communicator:
                 buf.add_(t)
             return buf
 
+        def span(buf, s: int) -> torch.Tensor:
+            sp = layout.spans[s]
+            return buf[sp.offset:sp.offset + sp.size]
+
         def reduce_spans(buf, phase):
             """All-reduce each span of ``buf`` in place."""
-            for slot in schedule.slots_for_phase(phase):
-                for s in slot.bucket_ids:             # span indices
-                    sp = layout.spans[s]
-                    seg = buf[sp.offset:sp.offset + sp.size]
-                    seg.copy_(issue(seg, slot.channel))
+            self._run_slots(
+                schedule, phase,
+                lambda s, rail: span(buf, s).copy_(issue(span(buf, s), rail)),
+                layout.n_spans, buf.device)
             return buf
 
-        def scatter_spans(buf, phase, out):
+        def scatter_spans(buf, phase):
             """Reduce-scatter each span of ``buf`` into its shard slot."""
-            for slot in schedule.slots_for_phase(phase):
-                for s in slot.bucket_ids:
-                    sp = layout.spans[s]
-                    out[s] = issue(buf[sp.offset:sp.offset + sp.size],
-                                   slot.channel)
-            return out
+            return self._run_slots(
+                schedule, phase,
+                lambda s, rail: issue(span(buf, s), rail),
+                layout.n_spans, buf.device)
 
         streamed = schedule.policy != "accumulate_then_reduce"
         losses = []
@@ -836,12 +896,12 @@ class Communicator:
             elif not streamed:
                 acc = accumulate(acc, buf)
             else:
-                out = scatter_spans(buf, i, [None] * layout.n_spans)
+                out = scatter_spans(buf, i)
                 acc = out if acc is None else [a + o
                                                for a, o in zip(acc, out)]
         if op != "none" and not streamed:
             acc = (reduce_spans(acc, m - 1) if op == "all_reduce"
-                   else scatter_spans(acc, m - 1, [None] * layout.n_spans))
+                   else scatter_spans(acc, m - 1))
         loss = losses[0] if m == 1 else torch.stack(losses).mean()
         if op == "none":
             leaves = [u.view(shape).to(torch.float32 if m > 1 else dtype)
@@ -886,7 +946,7 @@ class Communicator:
                     f"{layout.n_spans} spans, got {schedule.n_buckets}; "
                     f"build it with Communicator.arena_schedule")
         m = max(schedule.microbatches, 1)
-        issue = self._issuer(op, schedule)
+        issue = self._collective(op)
         inv = 1.0 / m
         buf = arena_buf
         ef = ef_buf
@@ -900,12 +960,12 @@ class Communicator:
         leaf_meta: list[tuple] = []
 
         def run_phase(phase):
-            """Decode each of the phase's spans and issue its collective."""
-            out: list = [None] * layout.n_spans
-            for slot in schedule.slots_for_phase(phase):
-                for s in slot.bucket_ids:       # span indices
-                    out[s] = issue(arena.dequant_span(buf, s), slot.channel)
-            return out
+            """Decode each of the phase's spans and issue its collective,
+            both on the span's rail."""
+            return self._run_slots(
+                schedule, phase,
+                lambda s, rail: issue(arena.dequant_span(buf, s), rail),
+                layout.n_spans, buf.device)
 
         for i, mb in enumerate(self._microbatches(batch, m)):
             loss, grads = grad_fn(params, mb)

@@ -103,11 +103,14 @@ class Rail:
     """One rail's process groups: a ring per data axis (mesh order), the
     joint group over all of them, and the halo exchange's ring along every
     mesh axis (the data axes' own rings, and rings of their own for the
-    other axes)."""
+    other axes); and, on a machine with a card and at ``channels >= 2``,
+    the CUDA stream its collectives run on (:mod:`repro_torch.comm.rails`;
+    ``None`` otherwise)."""
 
     axes: tuple[RingAxis, ...]
     joint: RingAxis
     halo: Mapping[str, RingAxis]
+    stream: "torch.cuda.Stream | None" = None
 
 
 class Transport:

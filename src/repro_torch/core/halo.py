@@ -15,7 +15,8 @@ paper's experimental columns:
   multi-EP columns); no split on an axis of one rank;
 * ``overlap``     — whole faces striped over ``channels`` rails
   (:func:`repro_torch.comm.plan.assign_channels`), each rail's faces FIFO
-  on that rail's own process groups; ``channels == 0`` leaves them all
+  on that rail's own process groups, their staging copies on the rail's
+  own CUDA stream when it has one; ``channels == 0`` leaves them all
   unconstrained on the first rail.  :class:`repro_torch.stencil.op.StencilOp`
   computes its interior while they are in flight.
 
@@ -123,6 +124,7 @@ class PendingHalos:
 def halo_exchange(x: torch.Tensor, specs: Sequence[HaloSpec],
                   rings: Rings | None, *, schedule: str = "concurrent",
                   chunks: int = 4, channels: int = 0,
+                  streams: Sequence | None = None,
                   wait: bool = True) -> "dict | PendingHalos":
     """Exchange faces along every spec'd direction.
 
@@ -135,7 +137,9 @@ def halo_exchange(x: torch.Tensor, specs: Sequence[HaloSpec],
 
     ``channels`` only matters to ``overlap``: ``>= 1`` stripes the faces
     over that many rails, ``rings[c]`` for rail ``c``; ``0`` sends them all
-    on ``rings[0]`` with no order among them.
+    on ``rings[0]`` with no order among them.  ``streams[c]`` (rail ``c``'s
+    CUDA stream, or ``None``) carries the staging copies of rail ``c``'s
+    faces under ``overlap``.
     """
     if schedule not in SCHEDULES:
         raise ValueError(f"schedule must be one of {SCHEDULES}")
@@ -190,7 +194,9 @@ def halo_exchange(x: torch.Tensor, specs: Sequence[HaloSpec],
             else:
                 shift = rings[rail][axis].start_shift(
                     payloads, [d for _, _, _, d, _ in items],
-                    [tg for *_, tg in items])
+                    [tg for *_, tg in items],
+                    stream=(streams[rail] if schedule == "overlap"
+                            and streams else None))
             out.append((shift, [(u, c) for u, c, *_ in items]))
         return out
 

@@ -31,6 +31,8 @@ exchange as backward.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
 from dataclasses import asdict, dataclass
 from typing import Sequence
@@ -41,9 +43,19 @@ import torch.distributed as dist
 from repro_torch.core.topology import RankMesh
 
 
+# one lock for every record: a communicator's rails add to their shared
+# record from host threads of their own (repro_torch.comm.rails)
+_RECORD_LOCK = threading.Lock()
+
+
 @dataclass
 class CommRecord:
-    """What this rank put on the wire since the last :meth:`reset`."""
+    """What this rank put on the wire since the last :meth:`reset`.
+
+    Every count goes in through :meth:`add`, under a lock, so the rails'
+    threads lose none.  ``staging_s`` sums each call's host time; with
+    several rails staging at once it sums over the rails, so it can exceed
+    the wall time it spans."""
 
     sends: int = 0               # point-to-point messages sent
     send_bytes: int = 0
@@ -56,15 +68,23 @@ class CommRecord:
     all_to_alls: int = 0         # dist.all_to_all_single calls
     all_to_all_bytes: int = 0    # the bytes they sent away: (p-1)/p of each
                                  # payload (this rank's own block stays)
-    staging_s: float = 0.0       # host time copying through pinned memory
+    staging_s: float = 0.0       # host time copying through pinned memory,
+                                 # summed over the rails
+
+    def add(self, **counts) -> None:
+        """Adds each ``field=amount`` to its field, all under one lock."""
+        with _RECORD_LOCK:
+            for name, amount in counts.items():
+                setattr(self, name, getattr(self, name) + amount)
 
     def reset(self) -> None:
-        self.sends = self.send_bytes = 0
-        self.all_reduces = self.all_reduce_bytes = 0
-        self.all_gathers = self.all_gather_bytes = 0
-        self.reduce_scatters = self.reduce_scatter_bytes = 0
-        self.all_to_alls = self.all_to_all_bytes = 0
-        self.staging_s = 0.0
+        with _RECORD_LOCK:
+            self.sends = self.send_bytes = 0
+            self.all_reduces = self.all_reduce_bytes = 0
+            self.all_gathers = self.all_gather_bytes = 0
+            self.reduce_scatters = self.reduce_scatter_bytes = 0
+            self.all_to_alls = self.all_to_all_bytes = 0
+            self.staging_s = 0.0
 
     def as_dict(self) -> dict:
         return asdict(self)
@@ -99,6 +119,43 @@ def concat_blocks(blocks: torch.Tensor, concat_axis: int) -> torch.Tensor:
     """The blocks of a stacked ``(p, ...)`` tensor concatenated along
     ``concat_axis`` in order (the inverse of :func:`split_blocks`)."""
     return torch.cat(list(blocks.unbind(0)), dim=concat_axis)
+
+
+def _mark_used(obj, stream: "torch.cuda.Stream") -> None:
+    """``record_stream(stream)`` on every CUDA tensor in ``obj`` (a tensor,
+    or lists, tuples and dicts of them)."""
+    if isinstance(obj, torch.Tensor):
+        if obj.is_cuda:
+            obj.record_stream(stream)
+    elif isinstance(obj, (list, tuple)):
+        for x in obj:
+            _mark_used(x, stream)
+    elif isinstance(obj, dict):
+        for x in obj.values():
+            _mark_used(x, stream)
+
+
+@contextlib.contextmanager
+def on_stream(stream: "torch.cuda.Stream | None"):
+    """The body on ``stream``, after ``stream`` waits for the current
+    stream's work so far; nothing changes for ``None``."""
+    if stream is None:
+        yield
+        return
+    stream.wait_stream(torch.cuda.current_stream(stream.device))
+    with torch.cuda.device(stream.device), torch.cuda.stream(stream):
+        yield
+
+
+def join_stream(stream: "torch.cuda.Stream | None", tensors) -> None:
+    """The current stream waits for ``stream``'s work so far, and the CUDA
+    tensors in ``tensors`` (made on ``stream``) are marked used on it;
+    nothing for ``None``."""
+    if stream is None:
+        return
+    cur = torch.cuda.current_stream(stream.device)
+    cur.wait_stream(stream)
+    _mark_used(tensors, cur)
 
 
 class _AllToAll(torch.autograd.Function):
@@ -143,25 +200,29 @@ class RingAxis:
 
     def _stage_out(self, ts: list[torch.Tensor]) -> list[torch.Tensor]:
         """Pinned host copies of CUDA tensors bound for a gloo group.  The
-        device's pending work is waited for first, so the recorded time is
-        the copies' own."""
+        current stream's pending work is waited for first, so the recorded
+        time is the copies' own.  On a rail of its own that stream is the
+        rail's, which waited for the caller's stream before its first op
+        (:class:`repro_torch.comm.rails.RailExecutor`): only the rail's
+        work is waited for, and the copies run on the rail's stream."""
         torch.cuda.current_stream(ts[0].device).synchronize()
         t0 = time.perf_counter()
         out = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
                for t in ts]
-        self.record.staging_s += time.perf_counter() - t0
+        self.record.add(staging_s=time.perf_counter() - t0)
         return out
 
     def _stage_in(self, ts: list[torch.Tensor],
                   device: torch.device) -> list[torch.Tensor]:
         t0 = time.perf_counter()
         out = [t.to(device) for t in ts]
-        self.record.staging_s += time.perf_counter() - t0
+        self.record.add(staging_s=time.perf_counter() - t0)
         return out
 
     def start_shift(self, payloads: Sequence[torch.Tensor],
                     directions: Sequence[int],
-                    tags: Sequence[int] | None = None) -> "Shift":
+                    tags: Sequence[int] | None = None,
+                    stream: "torch.cuda.Stream | None" = None) -> "Shift":
         """Puts every ``payloads[i]`` on its way to the neighbour
         ``directions[i]`` steps along the ring, and a same-shaped receive
         from the opposite neighbour, in one ``batch_isend_irecv`` under tag
@@ -169,7 +230,8 @@ class RingAxis:
         each other's +1 and -1 neighbour (an axis of two) pair their
         messages by tag, never by order.  On an axis of one rank the
         payloads come straight back (a periodic wrap onto this rank), and
-        nothing is sent or recorded."""
+        nothing is sent or recorded.  ``stream`` (a rail's): the staging
+        copies, out here and back in :meth:`Shift.wait`, run on it."""
         if tags is None:
             tags = range(len(payloads))
         if self.size == 1:
@@ -177,7 +239,8 @@ class RingAxis:
         p, r = self.size, self.index
         staged = self.stage and payloads[0].is_cuda
         if staged:
-            sends = self._stage_out(list(payloads))
+            with on_stream(stream):
+                sends = self._stage_out(list(payloads))
             recvs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                      for t in sends]
         else:
@@ -190,10 +253,10 @@ class RingAxis:
             ops.append(dist.P2POp(dist.irecv, rv, self.ranks[(r - d) % p],
                                   self.group, tag))
         works = dist.batch_isend_irecv(ops)
-        self.record.sends += len(sends)
-        self.record.send_bytes += sum(_nbytes(s) for s in sends)
+        self.record.add(sends=len(sends),
+                        send_bytes=sum(_nbytes(s) for s in sends))
         return Shift(self, recvs, works, staged, payloads[0].device,
-                     keep=sends)
+                     keep=sends, stream=stream if staged else None)
 
     def hop(self, payloads: list[torch.Tensor],
             directions: Sequence[int]) -> list[torch.Tensor]:
@@ -211,8 +274,7 @@ class RingAxis:
         staged = self.stage and t.is_cuda
         wire = self._stage_out([t])[0] if staged else t.clone()
         dist.all_reduce(wire, op=_REDUCE_OPS[op], group=self.group)
-        self.record.all_reduces += 1
-        self.record.all_reduce_bytes += _nbytes(wire)
+        self.record.add(all_reduces=1, all_reduce_bytes=_nbytes(wire))
         return self._stage_in([wire], t.device)[0] if staged else wire
 
     def _flat(self, fn, t: torch.Tensor, out_len: int) -> torch.Tensor:
@@ -231,8 +293,7 @@ class RingAxis:
         if self.size == 1:
             return t
         out = self._flat(_all_gather_flat, t, self.size * t.numel())
-        self.record.all_gathers += 1
-        self.record.all_gather_bytes += _nbytes(t)
+        self.record.add(all_gathers=1, all_gather_bytes=_nbytes(t))
         return out
 
     def all_to_all(self, x: torch.Tensor, split_axis: int,
@@ -250,9 +311,9 @@ class RingAxis:
         out = torch.empty(src.shape, dtype=src.dtype, pin_memory=staged,
                           device=None if staged else src.device)
         dist.all_to_all_single(out, src, group=self.group)
-        self.record.all_to_alls += 1
-        self.record.all_to_all_bytes += (_nbytes(src) // self.size
-                                         * (self.size - 1))
+        self.record.add(all_to_alls=1,
+                        all_to_all_bytes=(_nbytes(src) // self.size
+                                          * (self.size - 1)))
         if staged:
             out = self._stage_in([out], x.device)[0]
         return concat_blocks(out, concat_axis)
@@ -267,8 +328,7 @@ class RingAxis:
             raise ValueError(f"flat length {t.numel()} not divisible by "
                              f"the axis's {self.size} ranks")
         out = self._flat(_reduce_scatter_flat, t, t.numel() // self.size)
-        self.record.reduce_scatters += 1
-        self.record.reduce_scatter_bytes += _nbytes(t)
+        self.record.add(reduce_scatters=1, reduce_scatter_bytes=_nbytes(t))
         return out
 
 
@@ -277,20 +337,23 @@ class Shift:
     received tensors (on the payloads' device), in payload order."""
 
     def __init__(self, axis: RingAxis, recvs: list[torch.Tensor],
-                 works: list, staged: bool, device, keep=()):
+                 works: list, staged: bool, device, keep=(), stream=None):
         self.axis = axis
         self._recvs = recvs
         self._works = works
         self._staged = staged
         self._device = device
         self._keep = keep            # the send buffers, alive until waited
+        self._stream = stream        # the rail's, for the copies back in
 
     def wait(self) -> list[torch.Tensor]:
         for work in self._works:
             work.wait()
         self._works, self._keep = [], ()
         if self._staged:
-            self._recvs = self.axis._stage_in(self._recvs, self._device)
+            with on_stream(self._stream):
+                self._recvs = self.axis._stage_in(self._recvs, self._device)
+            join_stream(self._stream, self._recvs)
             self._staged = False
         return self._recvs
 

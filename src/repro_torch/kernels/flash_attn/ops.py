@@ -33,7 +33,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import LAUNCH_LOCK, _build
 from repro_torch.kernels.flash_attn import ref
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -47,6 +47,15 @@ _TMA_ALIGN = 16      # bytes: TMA's base address and stride unit
 # by route
 LAUNCHES = 0
 LAUNCHES_BY_ROUTE = {"wgmma": 0, "simt": 0}
+
+
+def count_launch(way: str) -> None:
+    """One launch more in :data:`LAUNCHES` and on route ``way`` (under the
+    wrappers' shared lock: rails launch from threads of their own)."""
+    global LAUNCHES
+    with LAUNCH_LOCK:
+        LAUNCHES += 1
+        LAUNCHES_BY_ROUTE[way] += 1
 
 
 @functools.cache
@@ -153,7 +162,6 @@ def _check(q, k, v, window, chunk) -> None:
 
 
 def _launch(q, k, v, causal, window):
-    global LAUNCHES
     b, hq, s, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes head_dim in "
@@ -193,8 +201,7 @@ def _launch(q, k, v, causal, window):
         raise RuntimeError(f"flash_attention {way} kernel launch failed: "
                            f"{what} at q {tuple(q.shape)}, k "
                            f"{tuple(k.shape)}, {q.dtype}")
-    LAUNCHES += 1
-    LAUNCHES_BY_ROUTE[way] += 1
+    count_launch(way)
     return out
 
 

@@ -22,7 +22,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import LAUNCH_LOCK, _build
 from repro_torch.kernels.flash_decode import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_decode.cu"
@@ -40,6 +40,14 @@ ROUTES = {"mma": 0, "simt": 1}
 
 # kernel launches by this wrapper (CPU calls are not launches)
 LAUNCHES = 0
+
+
+def count_launch() -> None:
+    """One launch more in :data:`LAUNCHES` (under the wrappers' shared
+    lock: rails launch from threads of their own)."""
+    global LAUNCHES
+    with LAUNCH_LOCK:
+        LAUNCHES += 1
 
 
 def _expand_gqa(q, k, v):
@@ -130,7 +138,6 @@ def _check(q, k, v, valid) -> None:
 
 
 def _launch(q, k, v, valid):
-    global LAUNCHES
     b, hq, _, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     if d not in HEAD_DIMS:
@@ -169,7 +176,7 @@ def _launch(q, k, v, valid):
                            f"{err} at q {tuple(q.shape)} {q.dtype}, "
                            f"k {tuple(k.shape)} {k.dtype}, {route} route, "
                            f"cluster of {splits}")
-    LAUNCHES += 1
+    count_launch()
     return acc, m, l
 
 

@@ -21,7 +21,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import LAUNCH_LOCK, _build
 from repro_torch.kernels.pack import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "pack.cu"
@@ -33,6 +33,15 @@ BULK_ALIGN = 16
 # kernel launches by these wrappers (CPU calls are not launches)
 LAUNCHES = {"write": 0, "read": 0}
 LAUNCHES_BY_ROUTE = {"bulk": 0, "vector": 0}
+
+
+def count_launch(what: str, way: str) -> None:
+    """One ``what`` launch more ("write" or "read"), on route ``way``
+    (under the wrappers' shared lock: rails launch from threads of their
+    own)."""
+    with LAUNCH_LOCK:
+        LAUNCHES[what] += 1
+        LAUNCHES_BY_ROUTE[way] += 1
 
 
 @functools.cache
@@ -110,8 +119,7 @@ def _launched(what: str, way: str, err: int, offset: int, n: int) -> None:
         raise RuntimeError(f"pack {what} kernel launch failed on the {way} "
                            f"route: CUDA error {err} at offset {offset}, "
                            f"n={n}")
-    LAUNCHES[what] += 1
-    LAUNCHES_BY_ROUTE[way] += 1
+    count_launch(what, way)
 
 
 def write_flat(arena: torch.Tensor, src: torch.Tensor,

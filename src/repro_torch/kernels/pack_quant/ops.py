@@ -19,7 +19,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import LAUNCH_LOCK, _build
 from repro_torch.kernels.pack_quant import ref
 from repro_torch.kernels.quant.ops import check_block, check_kernel_operand
 
@@ -28,6 +28,13 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "pack_quant.cu"
 # kernel launches by these wrappers (CPU calls and empty extents are not
 # launches)
 LAUNCHES = {"write": 0, "read": 0}
+
+
+def count_launch(what: str) -> None:
+    """One ``what`` launch more ("write" or "read"; under the wrappers'
+    shared lock: rails launch from threads of their own)."""
+    with LAUNCH_LOCK:
+        LAUNCHES[what] += 1
 
 
 @functools.cache
@@ -104,7 +111,7 @@ def write_quant_flat(arena: torch.Tensor, src: torch.Tensor, offset: int,
     if err:
         raise RuntimeError(f"write_quant kernel launch failed: CUDA error "
                            f"{err} at offset {offset}, n={n}, block={block}")
-    LAUNCHES["write"] += 1
+    count_launch("write")
     return arena
 
 
@@ -127,5 +134,5 @@ def read_dequant_flat(arena: torch.Tensor, offset: int, size: int,
         raise RuntimeError(f"read_dequant kernel launch failed: CUDA error "
                            f"{err} at offset {offset}, n={size}, "
                            f"block={block}")
-    LAUNCHES["read"] += 1
+    count_launch("read")
     return out

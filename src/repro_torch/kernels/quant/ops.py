@@ -17,7 +17,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import LAUNCH_LOCK, _build
 from repro_torch.kernels.quant import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "quant.cu"
@@ -25,6 +25,13 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "quant.cu"
 # kernel launches by these wrappers (CPU calls and empty payloads are not
 # launches)
 LAUNCHES = {"quantize": 0, "dequantize": 0}
+
+
+def count_launch(name: str) -> None:
+    """One ``name`` launch more ("quantize" or "dequantize"; under the
+    wrappers' shared lock: rails launch from threads of their own)."""
+    with LAUNCH_LOCK:
+        LAUNCHES[name] += 1
 
 
 @functools.cache
@@ -67,7 +74,7 @@ def _launch(fn, name: str, device: torch.device, *args) -> None:
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
                            f"({args[-2]} blocks of {args[-1]})")
-    LAUNCHES[name] += 1
+    count_launch(name)
 
 
 def quantize(x: torch.Tensor, block: int = 512,

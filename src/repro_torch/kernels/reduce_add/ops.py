@@ -17,7 +17,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import LAUNCH_LOCK, _build
 from repro_torch.kernels.reduce_add import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "reduce_add.cu"
@@ -25,6 +25,14 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches by this wrapper (CPU calls are not launches)
 LAUNCHES = 0
+
+
+def count_launch() -> None:
+    """One launch more in :data:`LAUNCHES` (under the wrappers' shared
+    lock: rails launch from threads of their own)."""
+    global LAUNCHES
+    with LAUNCH_LOCK:
+        LAUNCHES += 1
 
 
 @functools.cache
@@ -38,7 +46,6 @@ def _kernel_fn():
 
 
 def _launch(a, b, out_dtype):
-    global LAUNCHES
     for name, t in (("a", a), ("b", b)):
         if t.dtype not in DTYPE_CODES:
             raise TypeError(f"reduce_add kernel takes float32/bfloat16, got "
@@ -61,7 +68,7 @@ def _launch(a, b, out_dtype):
         raise RuntimeError(f"reduce_add kernel launch failed: CUDA error "
                            f"{err} at n={a.numel()} {a.dtype}+{b.dtype}"
                            f"->{out_dtype}")
-    LAUNCHES += 1
+    count_launch()
     return out
 
 

@@ -79,6 +79,7 @@ from repro_torch.comm.schedule import (SCHEDULE_POLICIES, CommSchedule,
                                        build_schedule)
 from repro_torch.core.bucketing import BucketPlan
 from repro_torch.core.p2p import CommRecord, RingAxis
+from repro_torch.core.reducer import ReduceConfig
 from repro_torch.core.topology import RankMesh
 from repro_torch.mem.arena import CommArena, QuantCommArena
 from repro_torch.mem.layout import (ArenaLayout, QuantArenaLayout, plan_arena,
@@ -108,7 +109,8 @@ def require_ported(dp_mode: str) -> None:
 @dataclass(frozen=True)
 class TrainStepConfig:
     dp_mode: str = "replicated"
-    comm: CommConfig = field(default_factory=CommConfig)
+    comm: CommConfig | None = None     # preferred: the Communicator config
+    reduce: ReduceConfig = field(default_factory=ReduceConfig)  # legacy
     optim: OptimConfig = field(default_factory=OptimConfig)
     microbatches: int = 1              # grad-accumulation slices
     schedule: str = "accumulate_then_reduce"  # SCHEDULE_POLICIES member
@@ -129,7 +131,9 @@ class TrainStepConfig:
                                        # over N rails (0/1 = one)
 
     def comm_config(self, data_axes: tuple[str, ...]) -> CommConfig:
-        ccfg = self.comm
+        """The communicator config for this step: ``comm`` when given,
+        otherwise the legacy ``reduce`` policy mapped onto a transport."""
+        ccfg = self.comm if self.comm is not None else self.reduce.comm_config()
         if self.wire_codec is not None:
             ccfg = replace(ccfg, wire_codec=self.wire_codec)
         if (ccfg.wire_codec is not None and self.dp_mode == "fsdp"
@@ -457,9 +461,9 @@ class TrainStep:
             self.plan = None
             lay = self.fsdp.arena_layout
             self.arena = (None if lay is None else
-                          QuantCommArena(lay, impl=cfg.comm.local_op)
+                          QuantCommArena(lay, impl=self.comm.cfg.local_op)
                           if isinstance(lay, QuantArenaLayout)
-                          else CommArena(lay, impl=cfg.comm.local_op))
+                          else CommArena(lay, impl=self.comm.cfg.local_op))
             self.schedule = _fsdp_schedule(self.fsdp, cfg.microbatches)
             rings = tuple(reversed(self.comm.transport.rails[0].axes))
             self.norm_ranges, self.norm_weights = zero1_norm_ranges(

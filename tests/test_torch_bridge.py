@@ -163,6 +163,31 @@ def test_scan_covers_the_tooling_modules():
         assert not FORBIDDEN.search(text), name
 
 
+def test_scan_covers_the_rails_and_the_reducer_shim():
+    """The last slice's modules are scanned too (every port source is:
+    nothing of the reference's package is left without a counterpart but
+    what ROADMAP.md excludes by design), and the rank jobs of its tests
+    import no JAX."""
+    scanned = {p.relative_to(REPO).as_posix() for p in _port_sources()}
+    for path in ("src/repro_torch/comm/rails.py",
+                 "src/repro_torch/core/reducer.py",
+                 "src/repro_torch/core/__init__.py"):
+        assert path in scanned, path
+    jobs = (REPO / "tests" / "torch_rails_jobs.py").read_text()
+    assert not re.search(r"^\s*(import|from)\s+(jax|repro)\b", jobs, re.M)
+    ported = {p.relative_to(REPO / "src" / "repro_torch").as_posix()
+              for p in (REPO / "src" / "repro_torch").rglob("*.py")}
+    missing = {p.relative_to(REPO / "src" / "repro").as_posix()
+               for p in (REPO / "src" / "repro").rglob("*.py")} - ported
+    # each Pallas kernel's module has its CUDA source instead
+    pallas = {m for m in missing if m.startswith("kernels/")}
+    for m in pallas:
+        assert list((REPO / "src" / "repro_torch" / m).parent.glob(
+            "csrc/*.cu")), m
+    assert missing - pallas == {"compat.py", "launch/dryrun.py",
+                                "launch/perf.py", "launch/report.py"}
+
+
 def _host_only_sources():
     root = REPO / "src" / "repro_torch"
     return sorted((root / "checkpoint").rglob("*.py")) \
