@@ -51,13 +51,15 @@ Phases, each of which raises on a failed check (exit code != 0):
 8. kernels_attn — the flash-attention kernels against their plain version
               over S in {1, 7, 64, 127, 128, 129, 200, 255, 256, 257, 1000,
               4096} x (Hq, Hkv) in {(32, 8), (4, 2), (8, 1)} x D in {16, 32,
-              64, 128} x causal, window 64 and non-causal x fp32 (the SIMT
-              kernel) and bf16 (the wgmma kernel), then bf16 in two
-              layouts TMA cannot take (a 260-element sequence stride, k/v
-              2 bytes past alignment) on the SIMT route, each case's route
-              asserted and each route's launches counted (the reference's
-              tolerances: rtol/atol 2e-5 at fp32, atol 3e-2 at bf16),
-              run-to-run bitwise; Sq != Sk and requires_grad raise;
+              64, 128} x causal, window 64 and non-causal x fp32 (the TF32
+              mma kernel, 3xTF32) and bf16 (the wgmma kernel), then bf16 in
+              two layouts TMA cannot take (a 260-element sequence stride,
+              k/v 2 bytes past alignment) on the mma route, each case's
+              route asserted and each route's launches counted (the
+              reference's tolerances: rtol/atol 2e-5 at fp32, atol 3e-2 at
+              bf16), run-to-run bitwise; the control, plain TF32 (one term,
+              ``ref.attention_tf32_split``) at one fp32 grid case, must miss
+              the fp32 tolerance; Sq != Sk and requires_grad raise;
 9. prefill  — ``build_prefill`` on llama3.2-1b at full width (16 layers,
               seeded random weights): at B=1, S=4096, for ten seeds of
               weights and tokens, the kernel prefill against the fp32
@@ -66,10 +68,10 @@ Phases, each of which raises on a failed check (exit code != 0):
               prefill's relative L2 error at most 1.05 times the bf16
               blockwise prefill's and its count of logits outside rtol
               2e-2 / atol 5e-2 at most 1.25 times; every fp32 prefill
-              launches the SIMT kernel and every bf16 one the wgmma kernel,
+              launches the mma kernel and every bf16 one the wgmma kernel,
               once per layer; at B=1, S=32768 (prefill_32k's length)
               one warm, one timed and one profiled prefill, every one
-              launching the wgmma kernel once per layer (16), the SIMT
+              launching the wgmma kernel once per layer (16), the mma
               kernel and every other kernel never, logits finite; wall,
               peak memory, device busy and idle share;
 10. serve_contiguous — ``launch.serve`` without ``--paged``: the
@@ -87,8 +89,12 @@ Phases, each of which raises on a failed check (exit code != 0):
               with the flops the kernel executes printed beside it; the
               kernel's output held against the plain version's (query
               blocks of 1024) at that shape (atol 3e-2), the plain version
-              timed there too, and both at S=4096; the SIMT kernel, the
-              plain version and SDPA at fp32, S=4096;
+              timed there too, and both at S=4096; the mma kernel (fp32
+              route; its relative L2 against fp64 at most 2x the plain
+              version's), the plain version and SDPA at fp32, S=4096, beside
+              the SIMT kernel's 5.222 ms and both bounds: the fp32 work
+              at the CUDA cores' 67 TFLOP/s and three times it at 495
+              TFLOP/s dense TF32;
 12. train    — ``launch.train``'s setup on one rank: full llama3.2-1b (16
               layers), replicated, ``ring_hier``, chunks 2, the arena on,
               seq 256, global batch 8, bf16 compute over fp32 master
@@ -576,7 +582,7 @@ def set_launch_counters(saved: dict) -> None:
 
 
 def attn_routes() -> dict:
-    """flash_attn's launches by route: "wgmma" (bf16) and "simt" (fp32)."""
+    """flash_attn's launches by route: "wgmma" (bf16) and "mma" (fp32)."""
     return dict(_kernel_ops()[5].LAUNCHES_BY_ROUTE)
 
 
@@ -3783,9 +3789,17 @@ ATTN_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (0.0, 3e-2)}
 # between the kernel's reading and that of the plain version with p rounded
 # once to bf16 (PERF.md section 6), which must fail it
 ATTN_32K_REL_L2 = 5e-4
+# the fp32 route at S=4096: its relative L2 against fp64 at most this times
+# the plain version's (a kernel that chains the tensor cores' truncating
+# sums through every key of a row is biased; PERF.md section 6)
+ATTN_FP32_FP64_RATIO = 2.0
 # the flash_attn kernel each dtype launches in the grid's layouts
-ATTN_ROUTE = {"float32": "simt", "bfloat16": "wgmma"}
-ATTN_UNALIGNED_SEQ = 257     # the bf16 cases in layouts TMA cannot take
+ATTN_ROUTE = {"float32": "mma", "bfloat16": "wgmma"}
+# the fp32 grid case (S, (Hq, Hkv), D, (causal, window)) at which plain TF32
+# (one term of split operands) must miss ATTN_TOL["float32"]: the control
+# that shows the tolerance tells 3xTF32 from one TF32 product
+ATTN_CONTROL_CASE = (256, (4, 2), 64, (True, None))
+ATTN_UNALIGNED_SEQ = 257     # the cases whose k/v rows are off 16 bytes
 PREFILL_CHECK_SEQ = 4096     # kernel prefill vs blockwise prefill
 PREFILL_SEQ = 32768          # prefill_32k's length, at batch 1
 PREFILL_FP32_TOL = 1e-4      # tests/test_torch_prefill.py's fp32 tolerance
@@ -3794,8 +3808,13 @@ PREFILL_CHECK_SEEDS = tuple(range(10))  # weights and tokens, S=4096 check
 # multiple of the bf16 blockwise prefill's: relative L2 and elementwise
 # misses of the engine's tolerance, at most (PERF.md section 6)
 PREFILL_BF16_L2_MARGIN, PREFILL_BF16_MISS_MARGIN = 1.05, 1.25
-# the H100 SXM's dense bf16 tensor-core peak (NVIDIA's data sheet)
+# the H100 SXM's dense bf16 and TF32 tensor-core peaks (NVIDIA's data sheet)
 BF16_FLOPS_PER_S = 989e12
+TF32_FLOPS_PER_S = 495e12
+# the SIMT kernel (fp32 FMAs) this route replaced, at q (1, 32, 4096, 64)
+# fp32 causal, as this script timed it on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md section 6, row 9b)
+SIMT_FP32_4096_MS = 5.222
 
 
 def attn_inputs(dev, seed, b, hq, hkv, s, d, dtype):
@@ -3808,32 +3827,37 @@ def attn_inputs(dev, seed, b, hq, hkv, s, d, dtype):
     return q, k, v
 
 
-def unaligned_bf16_attn_inputs(dev, seed):
-    """bf16 q/k/v in layouts TMA cannot take, so ``route`` gives them to the
-    SIMT kernel: head views of a (1, S, 4*64 + 4) projection (a sequence
-    stride of 260 elements, 520 bytes) and k/v 2 bytes past alignment."""
+def unaligned_attn_inputs(dev, seed, dtype):
+    """q/k/v whose k/v rows are not all 16-byte aligned, so that the mma
+    kernel moves K/V without 16-byte copies (bf16: plain loads, and layouts
+    TMA cannot take; fp32: 4-byte copies): head views of a (1, S, 4*64 + e)
+    projection (a sequence stride of 260 bf16 elements, 520 bytes, or 257
+    fp32 elements, 1028 bytes) and k/v one element (2 or 4 bytes) past
+    alignment."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(seed)
-    s = ATTN_UNALIGNED_SEQ
-    x = torch.randn((1, s, 4 * 64 + 4), generator=gen,
-                    device=dev).to(torch.bfloat16)
+    s, extra = ATTN_UNALIGNED_SEQ, 4 if dtype == torch.bfloat16 else 1
+    x = torch.randn((1, s, 4 * 64 + extra), generator=gen,
+                    device=dev).to(dtype)
     heads = x[..., :256].unflatten(-1, (4, 64)).transpose(1, 2)
-    flat = torch.randn(2 * s * 64 + 1, generator=gen,
-                       device=dev).to(torch.bfloat16)
+    flat = torch.randn(2 * s * 64 + 1, generator=gen, device=dev).to(dtype)
     shifted = flat[1:].view(1, 2, s, 64)
-    return {"260-element sequence stride": (heads, heads[:, :2],
-                                            heads[:, :2]),
-            "k/v 2 bytes past alignment": (heads.contiguous(), shifted,
-                                           shifted)}
+    size = heads.element_size()
+    return {f"{heads.stride(2)}-element sequence stride": (
+                heads, heads[:, :2], heads[:, :2]),
+            f"k/v {size} bytes past alignment": (heads.contiguous(), shifted,
+                                                 shifted)}
 
 
 def phase_kernels_attn(dev) -> dict:
     """The flash-attention kernels against their plain version on card
     inputs: every S x (Hq, Hkv) x D x mask x dtype of the grid above, fp32
-    on the SIMT route and bf16 on the wgmma route, then bf16 in layouts TMA
-    cannot take on the SIMT route, within the reference's tolerances, and
-    run to run bitwise; then the refusals."""
+    on the mma route and bf16 on the wgmma route, then bf16 and fp32 with
+    k/v rows off 16-byte alignment on the mma route (bf16 in layouts TMA
+    cannot take), within the reference's tolerances, and run to run
+    bitwise; plain TF32 at ``ATTN_CONTROL_CASE`` outside the
+    fp32 tolerance; then the refusals."""
     import itertools
 
     import torch
@@ -3864,7 +3888,7 @@ def phase_kernels_attn(dev) -> dict:
                                    msg=lambda m: f"[kernels_attn] {what}: {m}")
         err[dt] = max(err[dt], (got.float() - want.float()).abs().max().item())
 
-    n = 0
+    n, control_err = 0, None
     for i, (s, (hq, hkv), d, (causal, window), dt) in enumerate(
             itertools.product(ATTN_SEQS, ATTN_HEADS, ATTN_DIMS, ATTN_MASKS,
                               ("float32", "bfloat16"))):
@@ -3872,14 +3896,36 @@ def phase_kernels_attn(dev) -> dict:
         check(q, k, v, causal, window, ATTN_ROUTE[dt],
               f"S={s} Hq={hq} Hkv={hkv} D={d} causal={causal} "
               f"window={window} {dt}")
+        if (s, (hq, hkv), d, (causal, window)) == ATTN_CONTROL_CASE \
+                and dt == "float32":
+            want = ref.attention(q, k, v, causal=causal, window=window)
+            ctrl = ref.attention_tf32_split(q, k, v, causal=causal,
+                                            window=window, terms=1)
+            control_err = (ctrl - want).abs().max().item()
+            if torch.allclose(ctrl, want, *ATTN_TOL["float32"]):
+                raise AssertionError(
+                    f"[kernels_attn] the control (one TF32 term) at "
+                    f"{ATTN_CONTROL_CASE} is within the fp32 tolerance "
+                    f"(max |diff| {control_err:.3e}): it cannot tell "
+                    f"3xTF32 from plain TF32")
+            del want, ctrl
         n += 1
         del q, k, v
-    unaligned = unaligned_bf16_attn_inputs(dev, n)
-    for what, (q, k, v) in unaligned.items():
-        check(q, k, v, True, 64, "simt",
-              f"S={ATTN_UNALIGNED_SEQ} bf16, {what}")
-    n_unaligned = len(unaligned)
-    del unaligned
+    if control_err is None:
+        raise AssertionError(f"[kernels_attn] the control case "
+                             f"{ATTN_CONTROL_CASE} is not in the grid")
+    n_unaligned = 0
+    for dt in ("bfloat16", "float32"):
+        unaligned = unaligned_attn_inputs(dev, n + n_unaligned,
+                                          getattr(torch, dt))
+        for what, (q, k, v) in unaligned.items():
+            what = f"S={ATTN_UNALIGNED_SEQ} {dt}, {what}"
+            if ops._rows_aligned16(k) or ops._rows_aligned16(v):
+                raise AssertionError(f"[kernels_attn] {what}: k/v rows "
+                                     f"16-byte aligned")
+            check(q, k, v, True, 64, "mma", what)
+            n_unaligned += 1
+        del unaligned
     q, k, v = attn_inputs(dev, 0, 1, 4, 2, 64, 64, torch.bfloat16)
     refusals = ((ValueError, lambda: ops.flash_attention(q[:, :, :32], k, v)),
                 (RuntimeError, lambda: ops.flash_attention(
@@ -3899,16 +3945,21 @@ def phase_kernels_attn(dev) -> dict:
     torch.cuda.empty_cache()
     log(f"[kernels_attn] {n} cases (S {ATTN_SEQS} x (Hq, Hkv) {ATTN_HEADS} "
         f"x D {ATTN_DIMS} x causal / window 64 / non-causal x fp32, bf16; "
-        f"B=2) and {n_unaligned} bf16 layouts TMA cannot take (S="
-        f"{ATTN_UNALIGNED_SEQ}, Hq=4, Hkv=2, D=64, window 64: a "
-        f"260-element sequence stride, k/v 2 bytes past alignment) within "
+        f"B=2) and {n_unaligned} with k/v rows off 16-byte alignment (S="
+        f"{ATTN_UNALIGNED_SEQ}, Hq=4, Hkv=2, D=64, window 64; bf16, layouts "
+        f"TMA cannot take: a 260-element sequence stride, k/v 2 bytes past "
+        f"alignment; fp32: a 257-element sequence stride, k/v 4 bytes past "
+        f"alignment) within "
         f"the reference's tolerances of the plain version and bitwise run "
         f"to run: max |kernel - plain| fp32 {err['float32']:.3e}, bf16 "
-        f"{err['bfloat16']:.3e}; launches by route (two per case): simt "
-        f"{routes['simt']} (fp32 and the unaligned bf16), wgmma "
-        f"{routes['wgmma']} (bf16); Sq != Sk and requires_grad raise")
+        f"{err['bfloat16']:.3e}; launches by route (two per case): mma "
+        f"{routes['mma']} (fp32, the unaligned bf16), wgmma "
+        f"{routes['wgmma']} (bf16); the control (one TF32 term) at "
+        f"{ATTN_CONTROL_CASE} fp32: max |control - plain| "
+        f"{control_err:.3e}, outside rtol/atol "
+        f"{ATTN_TOL['float32'][0]:.0e}; Sq != Sk and requires_grad raise")
     return {"cases": n + n_unaligned, "max_abs_err": err,
-            "routes": routes}
+            "control_max_abs_err": control_err, "routes": routes}
 
 
 def phase_prefill(dev) -> dict:
@@ -3970,7 +4021,7 @@ def phase_prefill(dev) -> dict:
     shape = ShapeConfig("prefill_check", PREFILL_CHECK_SEQ, 1, "prefill")
     m32, m16 = (build_model(cfg.with_(dtype=dt))
                 for dt in ("float32", "bfloat16"))
-    check = {}
+    check, check_launches = {}, 0
     t_check = time.perf_counter()
     for seed in PREFILL_CHECK_SEEDS:
         params = m32.init(torch.Generator(device=dev).manual_seed(seed), dev)
@@ -3978,11 +4029,11 @@ def phase_prefill(dev) -> dict:
         what = f"S={PREFILL_CHECK_SEQ} seed {seed}"
         want = build_prefill(m32, shape, attn_impl="blockwise",
                              device=dev)(params, batch).float()
-        row = {"fp32": error(kernel_prefill(build_prefill(m32, shape,
-                                                          device=dev),
-                                            params, batch, f"{what} fp32",
-                                            route="simt"),
-                             want, PREFILL_FP32_TOL, PREFILL_FP32_TOL),
+        logits32 = kernel_prefill(build_prefill(m32, shape, device=dev),
+                                  params, batch, f"{what} fp32", route="mma")
+        check_launches += attn_routes()["mma"]   # zeroed just before it
+        row = {"fp32": error(logits32, want, PREFILL_FP32_TOL,
+                             PREFILL_FP32_TOL),
                "bf16_kernel": error(kernel_prefill(
                    build_prefill(m16, shape, device=dev), params, batch,
                    f"{what} bf16"), want, ENGINE_RTOL, ENGINE_ATOL),
@@ -3990,7 +4041,7 @@ def phase_prefill(dev) -> dict:
                    m16, shape, attn_impl="blockwise", device=dev)(
                        params, batch), want, ENGINE_RTOL, ENGINE_ATOL)}
         check[f"seed{seed}"] = row
-        del params, batch, want
+        del params, batch, want, logits32
         gc.collect()
         torch.cuda.empty_cache()
         for name, e in row.items():
@@ -4020,7 +4071,7 @@ def phase_prefill(dev) -> dict:
             f"{ratios['rel_l2']:.4f} (gate {PREFILL_BF16_L2_MARGIN}), misses "
             f"{ratios['outside']:.4f} (gate {PREFILL_BF16_MISS_MARGIN})")
     log(f"[prefill] flash_attn launches {layers} per kernel prefill: the "
-        f"SIMT kernel at fp32, the wgmma kernel at bf16; the "
+        f"mma kernel at fp32, the wgmma kernel at bf16; the "
         f"{len(PREFILL_CHECK_SEEDS)} seeds' check took "
         f"{time.perf_counter() - t_check:.1f} s")
 
@@ -4060,8 +4111,8 @@ def phase_prefill(dev) -> dict:
     log(f"[prefill] B=1 S={PREFILL_SEQ}: wall {wall * 1e3:.1f} ms "
         f"({PREFILL_SEQ / wall:.0f} tokens/s), peak "
         f"{peak / 2**30:.2f} GiB, logits finite; flash_attn launches in "
-        f"the timed prefill: wgmma {timed_launches['wgmma']}, simt "
-        f"{timed_launches['simt']} ({layers} each in the warm, timed and "
+        f"the timed prefill: wgmma {timed_launches['wgmma']}, mma "
+        f"{timed_launches['mma']} ({layers} each in the warm, timed and "
         f"profiled ones)")
     log(f"[prefill] profiled prefill: wall {prof_wall:.1f} ms, device busy "
         f"{busy:.1f} ms, idle share {1 - busy / prof_wall:.3f}; the profiler "
@@ -4071,7 +4122,8 @@ def phase_prefill(dev) -> dict:
     del params, batch, prefill
     gc.collect()
     torch.cuda.empty_cache()
-    return {"check": check, "launches": timed_launches["wgmma"],
+    return {"check": check, "check_launches_mma": check_launches,
+            "launches": timed_launches["wgmma"],
             "launches_by_route": timed_launches, "wall_ms": wall * 1e3,
             "peak_bytes": peak, "tokens_per_s": PREFILL_SEQ / wall,
             "profile": {"wall_ms": prof_wall, "device_ms": busy,
@@ -4171,8 +4223,11 @@ def phase_timing_attn(dev) -> dict:
     rounds P to bf16, the kernel keeps it at about 2^-17) and the bound
     the card's bf16 rate sets for the function's work; the kernel's output
     is first held against the plain version's there.  Both are also timed
-    at S=4096, and the fp32 route (the SIMT kernel), its plain version and
-    SDPA at fp32, S=4096."""
+    at S=4096, and the fp32 route (the TF32 mma kernel, held first against
+    the plain version at the fp32 tolerance), its plain version and SDPA at
+    fp32, S=4096, beside the SIMT kernel it replaced and the fp32 route's two
+    bounds: the function's work at the CUDA cores' fp32 rate, and three
+    times it (3xTF32) at the dense TF32 rate."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -4203,7 +4258,7 @@ def phase_timing_attn(dev) -> dict:
             return F.scaled_dot_product_attention(*rep32, is_causal=True)
 
     for args, way in (((q, k, v), "wgmma"), (short, "wgmma"),
-                      (short32, "simt")):
+                      (short32, "mma")):
         if ops.route(*args) != way:
             raise AssertionError(f"[timing] flash_attn at q "
                                  f"{tuple(args[0].shape)} "
@@ -4236,6 +4291,28 @@ def phase_timing_attn(dev) -> dict:
                              f"control (p rounded once) passes the relative "
                              f"L2 check ({rel['p_rounded_once']:.4e}): it "
                              f"cannot tell split P from one rounding")
+    got32 = ops.flash_attention(*short32)
+    want32 = ref.attention(*short32, block_q=1024)
+    torch.testing.assert_close(
+        got32, want32, rtol=ATTN_TOL["float32"][0],
+        atol=ATTN_TOL["float32"][1],
+        msg=lambda m: f"[timing] flash_attn fp32 at S={PREFILL_CHECK_SEQ}: "
+                      f"{m}")
+    err32 = (got32 - want32).abs().max().item()
+    # the tensor cores' fp32 sums truncate: chained through a long row they
+    # bias the output by more than the elementwise tolerance shows at these
+    # magnitudes, so the kernel's distance from fp64 is held to a multiple
+    # of the plain version's (PERF.md section 6)
+    want64 = ref.attention(*(t.double() for t in short32), block_q=512)
+    rel32 = {"kernel": relative_l2(got32, want64),
+             "plain": relative_l2(want32, want64)}
+    del got32, want32, want64
+    if not rel32["kernel"] <= ATTN_FP32_FP64_RATIO * rel32["plain"]:
+        raise AssertionError(
+            f"[timing] flash_attn fp32 at S={PREFILL_CHECK_SEQ}: relative L2 "
+            f"against fp64 {rel32['kernel']:.4e}, above "
+            f"{ATTN_FP32_FP64_RATIO} x the plain version's "
+            f"{rel32['plain']:.4e}")
     torch.cuda.empty_cache()
     # 10 calls of ~13 ms per window (the plain version: 3 of ~0.6 s): the
     # profiler keeps only some of the activities of long back-to-back calls
@@ -4248,7 +4325,7 @@ def phase_timing_attn(dev) -> dict:
                  lambda: ops.flash_attention(*short), 10),
              "plain_4096": call_times(
                  lambda: ref.attention(*short, block_q=1024), 10),
-             "simt_fp32_4096": call_times(
+             "mma_fp32_4096": call_times(
                  lambda: ops.flash_attention(*short32), 10),
              "plain_fp32_4096": call_times(
                  lambda: ref.attention(*short32, block_q=1024), 10),
@@ -4262,8 +4339,13 @@ def phase_timing_attn(dev) -> dict:
     nbytes = 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d)   # q, o, k, v
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    # the fp32 route at S=4096: its own bound at the CUDA cores' fp32 rate
+    # the fp32 route at S=4096: the least time of the function's work on the
+    # CUDA cores (fp32) and of its three products a product on the TF32
+    # tensor cores; the row's bound is the lesser
     flops_4096 = ops.attention_flops(b, hq, PREFILL_CHECK_SEQ, d, causal=True)
+    bound32 = {"fp32_cores": flops_4096 / FP32_FLOPS_PER_S * 1e3,
+               "3xtf32": 3 * flops_4096 / TF32_FLOPS_PER_S * 1e3}
+    t32 = times["mma_fp32_4096"]["graph_ms"]
     out = {"ms": times["kernel"]["graph_ms"],
            "plain_ms": times["plain"]["graph_ms"],
            "bound_ms": max(t_ops, t_bytes),
@@ -4272,10 +4354,13 @@ def phase_timing_attn(dev) -> dict:
            "max_abs_err": err, "rel_l2": rel,
            "kernel_4096_ms": times["kernel_4096"]["graph_ms"],
            "plain_4096_ms": times["plain_4096"]["graph_ms"],
-           "simt_fp32_4096_ms": times["simt_fp32_4096"]["graph_ms"],
+           "mma_fp32_4096_ms": t32,
            "plain_fp32_4096_ms": times["plain_fp32_4096"]["graph_ms"],
            "library_fp32_4096_ms": times["library_fp32_4096"]["graph_ms"],
-           "simt_fp32_4096_bound_ms": flops_4096 / FP32_FLOPS_PER_S * 1e3,
+           "mma_fp32_4096_bound_ms": min(bound32.values()),
+           "mma_fp32_4096_bounds_ms": bound32,
+           "mma_fp32_4096_max_abs_err": err32,
+           "mma_fp32_4096_rel_l2_fp64": rel32,
            "flops": flops, "executed_flops": executed, "bytes": nbytes,
            "times": times}
     log(f"[timing] flash_attn q (1, 32, {s}, 64), k/v (1, 8, {s}, 64) bf16 "
@@ -4288,10 +4373,22 @@ def phase_timing_attn(dev) -> dict:
         f"split, masked halves of diagonal tiles), "
         f"{executed / out['ms'] / 1e9:.1f} TFLOP/s executed; SDPA "
         f"{out['library_ms']:.3f} ms (rounds P to bf16), kernel / SDPA "
-        f"{out['ms'] / out['library_ms']:.3f}; SIMT kernel at fp32, S=4096: "
-        f"{out['simt_fp32_4096_ms']:.3f} ms against "
-        f"{out['simt_fp32_4096_bound_ms']:.3f} ms at 67 TFLOP/s fp32, SDPA "
-        f"at fp32 {out['library_fp32_4096_ms']:.3f} ms; time per call:")
+        f"{out['ms'] / out['library_ms']:.3f}")
+    lib32, plain32 = out["library_fp32_4096_ms"], out["plain_fp32_4096_ms"]
+    log(f"[timing] flash_attn fp32 q (1, 32, {PREFILL_CHECK_SEQ}, 64), k/v "
+        f"(1, 8, {PREFILL_CHECK_SEQ}, 64) causal: max |kernel - plain| "
+        f"{err32:.3e} (rtol/atol {ATTN_TOL['float32'][0]:.0e}); relative L2 "
+        f"against fp64 {rel32['kernel']:.4e}, the plain version's "
+        f"{rel32['plain']:.4e} (limit {ATTN_FP32_FP64_RATIO} x); mma kernel "
+        f"(3xTF32) {t32:.4f} ms against the SIMT kernel's "
+        f"{SIMT_FP32_4096_MS} ms ({SIMT_FP32_4096_MS / t32:.2f}x); SDPA at "
+        f"fp32 {lib32:.4f} ms (kernel / SDPA {t32 / lib32:.3f}); plain "
+        f"{plain32:.4f} ms; bounds {bound32['fp32_cores']:.4f} ms "
+        f"({flops_4096:.4e} FLOP at 67 TFLOP/s fp32, kernel at "
+        f"{bound32['fp32_cores'] / t32:.3f} of it) and "
+        f"{bound32['3xtf32']:.4f} ms (3 x the work at 495 TFLOP/s dense "
+        f"TF32, kernel at {bound32['3xtf32'] / t32:.3f} of it); time per "
+        f"call:")
     for name, t in times.items():
         log(times_line(name, t))
     del q, k, v, short, short32, rep32
@@ -7420,7 +7517,6 @@ def main() -> None:
     rows.append({
         "name": "flash_attn", "route": "cuda",
         "source": f"{src}/flash_attn/csrc/flash_attn_wgmma.cu",
-        "fp32_source": f"{src}/flash_attn/csrc/flash_attn.cu",
         "replaces": "src/repro/kernels/flash_attn/flash_attn.py:102",
         "launches": prefill["launches"],
         "launches_fsdp": fsdp_launches["flash_attn"],
@@ -7461,6 +7557,20 @@ def main() -> None:
             # and on the rails' path (rank 0): the two-rail all_reduce_tree
             # and arena step, each rail's on its own stream
             row["launches_rails"] = rails["launches"][name]
+    # flash_attn's fp32 route (the TF32 mma kernel) on its path, the ten
+    # fp32 check prefills at S=4096, timed at one of their layers' shape
+    rows.append({
+        "name": "flash_attn_fp32", "route": "cuda",
+        "source": f"{src}/flash_attn/csrc/flash_attn.cu",
+        "replaces": "src/repro/kernels/flash_attn/flash_attn.py:102",
+        "launches": prefill["check_launches_mma"],
+        "max_abs_err": max(kernels_attn["max_abs_err"]["float32"],
+                           timing_attn["mma_fp32_4096_max_abs_err"]),
+        "ms": timing_attn["mma_fp32_4096_ms"],
+        "plain_ms": timing_attn["plain_fp32_4096_ms"],
+        "bound_ms": timing_attn["mma_fp32_4096_bound_ms"],
+        "bound_by": "operations",
+        "library_ms": timing_attn["library_fp32_4096_ms"]})
     kernels = {"kernels": rows, "gpu": gpu}
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -12,7 +12,7 @@
 // (optional sliding window), positions numbered from 0 on both axes; q head
 // h reads kv head h / (Hq / Hkv).  The softmax is online over key tiles in
 // fp32, as in the TPU kernel; the output is bf16.  fp32 inputs, and bf16
-// layouts TMA cannot take, go to the SIMT kernel of flash_attn.cu (the
+// layouts TMA cannot take, go to the TF32 mma kernel of flash_attn.cu (the
 // wrapper chooses before it launches).
 //
 // What bounds it: operations.  The function's work is 4*D flops per (query,

@@ -10,8 +10,10 @@ of two hand-written kernels, or raises for what they do not take.
   multiples of 16 bytes; the stride of an axis of length 1 is never read).
   Tensor cores fed by TMA; p enters P.V as two bf16 halves (about 2^-17
   relative, not the reference's fp32 p).
-* ``"simt"``: ``csrc/flash_attn.cu``, fp32 FMAs on the CUDA cores, for fp32
-  inputs and for bf16 layouts TMA cannot take.
+* ``"mma"``: ``csrc/flash_attn.cu``, TF32 ``mma.sync`` with the 3xTF32
+  split (fp32 accuracy; bf16 inputs skip the products of their zero small
+  halves), for fp32 inputs and for bf16 layouts TMA cannot take.  K/V tiles
+  move in 16-byte copies where :func:`_rows_aligned16` holds for k and v.
 
 Unlike the reference, which falls back to its oracle when S does not tile
 or D % 8 != 0, nothing falls back on the device: both kernels mask a ragged
@@ -37,7 +39,7 @@ from repro_torch.kernels import LAUNCH_LOCK, _build
 from repro_torch.kernels.flash_attn import ref
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCE = CSRC / "flash_attn.cu"               # the "simt" route
+SOURCE = CSRC / "flash_attn.cu"               # the "mma" route
 WGMMA_SOURCE = CSRC / "flash_attn_wgmma.cu"   # the "wgmma" route
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -46,7 +48,7 @@ _TMA_ALIGN = 16      # bytes: TMA's base address and stride unit
 # kernel launches by this wrapper (CPU calls are not launches): the sum, and
 # by route
 LAUNCHES = 0
-LAUNCHES_BY_ROUTE = {"wgmma": 0, "simt": 0}
+LAUNCHES_BY_ROUTE = {"wgmma": 0, "mma": 0}
 
 
 def count_launch(way: str) -> None:
@@ -62,7 +64,7 @@ def count_launch(way: str) -> None:
 def _kernel_fn():
     """The bound C entry point, built and loaded once per process."""
     fn = _build.load(SOURCE).flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                    + [ctypes.c_longlong] * 9
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
@@ -102,14 +104,22 @@ def attention_flops(b: int, hq: int, s: int, d: int, causal: bool = True,
     return 4 * b * hq * d * _admitted_pairs(s, causal, window)
 
 
+def _rows_aligned16(t: torch.Tensor) -> bool:
+    """Whether every row of ``t`` starts 16-byte aligned: its base address
+    and its batch, head and sequence strides are multiples of 16 bytes on
+    every axis longer than 1 (a zero stride is one)."""
+    size = t.element_size()
+    return t.data_ptr() % _TMA_ALIGN == 0 and all(
+        n == 1 or st * size % _TMA_ALIGN == 0
+        for n, st in zip(t.shape[:3], t.stride()[:3]))
+
+
 def _tma_layout(t: torch.Tensor) -> bool:
     """Whether TMA takes ``t``'s base address and its batch, head and
     sequence strides: positive multiples of 16 bytes on every axis longer
     than 1."""
-    size = t.element_size()
-    return t.data_ptr() % _TMA_ALIGN == 0 and all(
-        n == 1 or (st > 0 and st * size % _TMA_ALIGN == 0)
-        for n, st in zip(t.shape[:3], t.stride()[:3]))
+    return _rows_aligned16(t) and all(
+        n == 1 or st > 0 for n, st in zip(t.shape[:3], t.stride()[:3]))
 
 
 def _tma_strides(t: torch.Tensor) -> list[int]:
@@ -123,7 +133,7 @@ def _tma_strides(t: torch.Tensor) -> list[int]:
 def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernel that :func:`flash_attention` launches for CUDA q/k/v of
     one dtype: ``"wgmma"`` for bf16 whose layouts TMA takes
-    (:func:`_tma_layout`), else ``"simt"``.  It reads only dtype, shape,
+    (:func:`_tma_layout`), else ``"mma"``.  It reads only dtype, shape,
     strides and ``data_ptr()``, so CPU tensors are routed as the same
     layout on the card would be; other devices, or q/k/v on more than one
     device, raise."""
@@ -133,7 +143,7 @@ def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
                          f"got {sorted(map(str, devs))}")
     if q.dtype == torch.bfloat16 and all(map(_tma_layout, (q, k, v))):
         return "wgmma"
-    return "simt"
+    return "mma"
 
 
 def _check(q, k, v, window, chunk) -> None:
@@ -191,6 +201,7 @@ def _launch(q, k, v, causal, window):
             err = _kernel_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                out.data_ptr(), b, hq, k.shape[1], s, d,
                                int(q.dtype == torch.bfloat16),
+                               int(_rows_aligned16(k) and _rows_aligned16(v)),
                                *q.stride()[:3], *k.stride()[:3],
                                *v.stride()[:3], scale, int(causal), win,
                                stream)

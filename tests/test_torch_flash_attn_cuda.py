@@ -1,9 +1,11 @@
 """repro_torch flash-attention kernels on the card: each against its plain
 PyTorch version on the same card inputs (causal, windowed and non-causal
 masks; GQA; ragged S and the bf16 kernel's tile boundaries; fp32 through
-the SIMT kernel, bf16 through the wgmma kernel, counted by route), run to
-run bitwise, bf16 layouts TMA cannot take on the SIMT route, a row that
-meets a wholly masked key tile first, and their refusals.
+the TF32 mma kernel, bf16 through the wgmma kernel, counted by route), run
+to run bitwise, bf16 layouts TMA cannot take and fp32 k/v rows off 16-byte
+alignment on the mma route, a row that meets a wholly masked key tile
+first, the fp32 route's distance from fp64 against the plain version's,
+and their refusals.
 
 Marked ``cuda``; without a card every test skips (a CUDA kernel has no CPU
 mode).  The file imports no JAX, so it runs where the port runs::
@@ -20,7 +22,7 @@ from repro_torch.kernels.flash_attn import ops, ref
 # bf16 3e-2 absolute (one bf16 rounding of an O(1) output)
 TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
        torch.bfloat16: dict(rtol=0.0, atol=3e-2)}
-ROUTE = {torch.float32: "simt", torch.bfloat16: "wgmma"}
+ROUTE = {torch.float32: "mma", torch.bfloat16: "wgmma"}
 
 
 @pytest.fixture
@@ -118,9 +120,9 @@ def test_flash_attention_wgmma_takes_strided_heads(cuda_device):
 
 
 @pytest.mark.cuda
-def test_flash_attention_takes_unaligned_bf16_on_the_simt_route(cuda_device):
+def test_flash_attention_takes_unaligned_bf16_on_the_mma_route(cuda_device):
     """bf16 layouts TMA cannot take (a 260-element sequence stride; a base
-    2 bytes past alignment) launch the SIMT kernel, chosen before the
+    2 bytes past alignment) launch the mma kernel, chosen before the
     launch, and agree with the plain version."""
     gen = torch.Generator(device=cuda_device).manual_seed(5)
     x = torch.randn((1, 200, 4 * 64 + 4), generator=gen,
@@ -132,15 +134,40 @@ def test_flash_attention_takes_unaligned_bf16_on_the_simt_route(cuda_device):
     shifted = flat[1:].view(1, 2, 200, 64)         # 2 bytes past alignment
     for q, k, v in ((heads, heads[:, :2], heads[:, :2]),
                     (heads.contiguous(), shifted, shifted)):
-        assert ops.route(q, k, v) == "simt"
+        assert ops.route(q, k, v) == "mma"
         by_route = dict(ops.LAUNCHES_BY_ROUTE)
         got = ops.flash_attention(q, k, v, window=64)
         torch.cuda.synchronize(cuda_device)
         assert ops.LAUNCHES_BY_ROUTE == {**by_route,
-                                         "simt": by_route["simt"] + 1}
+                                         "mma": by_route["mma"] + 1}
         want = ref.attention(q, k, v, window=64)
         torch.testing.assert_close(got.float(), want.float(),
                                    **TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_flash_attention_takes_unaligned_fp32_on_the_mma_route(cuda_device):
+    """fp32 k/v whose rows are not all 16-byte aligned (a 257-element
+    sequence stride; a base 4 bytes past alignment) move in 4-byte copies:
+    the mma route, within the fp32 tolerance, bitwise run to run."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    x = torch.randn((1, 200, 4 * 64 + 1), generator=gen, device=cuda_device)
+    heads = x[..., :256].unflatten(-1, (4, 64)).transpose(1, 2)
+    flat = torch.randn(2 * 200 * 64 + 1, generator=gen, device=cuda_device)
+    shifted = flat[1:].view(1, 2, 200, 64)         # 4 bytes past alignment
+    for q, k, v in ((heads, heads[:, :2], heads[:, :2]),
+                    (heads.contiguous(), shifted, shifted)):
+        assert ops.route(q, k, v) == "mma"
+        assert not ops._rows_aligned16(k) and not ops._rows_aligned16(v)
+        by_route = dict(ops.LAUNCHES_BY_ROUTE)
+        got = ops.flash_attention(q, k, v, window=64)
+        again = ops.flash_attention(q, k, v, window=64)
+        torch.cuda.synchronize(cuda_device)
+        assert ops.LAUNCHES_BY_ROUTE == {**by_route,
+                                         "mma": by_route["mma"] + 2}
+        assert torch.equal(got, again)
+        want = ref.attention(q, k, v, window=64)
+        torch.testing.assert_close(got, want, **TOL[torch.float32])
 
 
 @pytest.mark.cuda
@@ -164,6 +191,35 @@ def test_flash_attention_wgmma_row_meets_a_wholly_masked_key_tile_first(
                                **TOL[torch.bfloat16])
     torch.testing.assert_close(got.float(), want.float(),
                                **TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,qk_scale,v_mean", [(64, 1.0, 0.0),
+                                               (64, 3.0, 1.0),
+                                               (128, 3.0, 1.0)])
+def test_flash_attention_fp32_is_no_further_from_fp64_than_fp32(
+        cuda_device, d, qk_scale, v_mean):
+    """S=4096 causal at fp32: the mma kernel's relative L2 distance from
+    fp64 at most twice the plain fp32 version's.  The tensor cores' fp32
+    sums truncate; chained through every key of a row they bias the
+    output by several times the plain version's error, below what the
+    elementwise tolerance sees at these output sizes (peaky scores and a
+    mean in v show it most)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    q = torch.randn((1, 32, 4096, d), generator=gen, device=cuda_device)
+    k = torch.randn((1, 8, 4096, d), generator=gen, device=cuda_device)
+    v = torch.randn((1, 8, 4096, d), generator=gen, device=cuda_device)
+    q, k, v = q * qk_scale, k * qk_scale, v + v_mean
+    assert ops.route(q, k, v) == "mma"
+    want = ref.attention(q.double(), k.double(), v.double(),
+                         block_q=512)
+
+    def rel(x):
+        return ((x.double() - want).norm() / want.norm()).item()
+
+    got = rel(ops.flash_attention(q, k, v))
+    plain = rel(ref.attention(q, k, v, block_q=1024))
+    assert got <= 2 * plain, (got, plain)
 
 
 @pytest.mark.cuda

@@ -4,9 +4,10 @@
 tensors from dtype, shape, strides and ``data_ptr()`` alone, so the rule is
 held here on CPU-built tensors of each layout: bf16 whose base address and
 batch/head/sequence strides TMA takes goes to ``"wgmma"``, everything else
-to ``"simt"``.  ``ops.attention_flops``, what the card's bound is counted
-from, is held against a brute-force count of the (query, key) pairs the
-plain version's mask admits.
+to ``"mma"``; ``ops._rows_aligned16`` decides whether the "mma" kernel
+moves K/V tiles in 16-byte copies.  ``ops.attention_flops``, what the
+card's bound is counted from, is held against a brute-force count of the
+(query, key) pairs the plain version's mask admits.
 """
 
 import pytest
@@ -61,29 +62,29 @@ def test_route_takes_aligned_bf16_to_wgmma():
     assert ops.route(q, k, v) == "wgmma"
 
 
-def test_route_takes_fp32_to_simt():
+def test_route_takes_fp32_to_mma():
     q, kv = torch.zeros(2, 4, 64, 64), torch.zeros(2, 2, 64, 64)
-    assert ops.route(q, kv, kv) == "simt"
+    assert ops.route(q, kv, kv) == "mma"
 
 
-def test_route_takes_a_260_element_sequence_stride_to_simt():
+def test_route_takes_a_260_element_sequence_stride_to_mma():
     """A head view of a (B, S, 4*64 + 4) projection: 520 bytes between rows,
     not a multiple of 16."""
     x = _bf16(1, 64, 4 * 64 + 4)
     heads = x[..., :256].unflatten(-1, (4, 64)).transpose(1, 2)
     assert heads.stride(2) == 260
-    assert ops.route(heads, heads[:, :2], heads[:, :2]) == "simt"
+    assert ops.route(heads, heads[:, :2], heads[:, :2]) == "mma"
     aligned = _bf16(1, 2, 64, 64)
     assert ops.route(aligned.repeat(1, 2, 1, 1), aligned, heads[:, :2]) \
-        == "simt"
+        == "mma"
 
 
-def test_route_takes_a_base_2_bytes_past_alignment_to_simt():
+def test_route_takes_a_base_2_bytes_past_alignment_to_mma():
     q = _bf16(1, 2, 64, 64)
     flat = _bf16(64 * 64 + 1)
     k = flat[1:].view(1, 1, 64, 64)
     assert k.data_ptr() % 16 == 2
-    assert ops.route(q, k, k.clone()) == "simt"
+    assert ops.route(q, k, k.clone()) == "mma"
     assert ops.route(q, k.clone(), k.clone()) == "wgmma"
 
 
@@ -101,12 +102,38 @@ def test_route_ignores_strides_of_length_1_axes():
     assert ops._tma_strides(one) == [4 * 64, 64, 64]
 
 
-def test_route_takes_a_zero_stride_head_axis_to_simt():
+def test_route_takes_a_zero_stride_head_axis_to_mma():
     """kv heads broadcast with ``expand`` (stride 0 on an axis of length 2):
     TMA's strides must be positive."""
     q = _bf16(1, 4, 64, 64)
     kv = _bf16(1, 1, 64, 64).expand(1, 2, 64, 64)
-    assert ops.route(q, kv, kv) == "simt"
+    assert ops.route(q, kv, kv) == "mma"
+
+
+def _rows_cases():
+    """(tensor, whether every row starts 16-byte aligned)."""
+    proj = torch.zeros(1, 64, 4 * 64 + 4)      # fp32: 1040 bytes a row
+    bf_proj = proj.to(BF16)                    # bf16: 520 bytes a row
+    flat = torch.zeros(2 * 64 * 64 + 1)
+    return [
+        (torch.zeros(2, 4, 64, 64), True),
+        (_bf16(2, 4, 64, 64), True),
+        (proj[..., :256].unflatten(-1, (4, 64)).transpose(1, 2), True),
+        (bf_proj[..., :256].unflatten(-1, (4, 64)).transpose(1, 2), False),
+        (flat[1:].view(1, 2, 64, 64), False),       # 4 bytes past
+        (flat[4:4 + 64 * 64].view(1, 1, 64, 64), True),   # 16 bytes past
+        (torch.zeros(1, 1, 64, 64).expand(1, 2, 64, 64), True),  # stride 0
+        (torch.zeros(64 * 64 * 8).as_strided((1, 1, 64, 16), (7, 3, 64, 1)),
+         True),                                     # odd strides, length 1
+        (torch.zeros(64 * 64).as_strided((1, 2, 64, 16), (0, 18, 16, 1)),
+         False),                                    # 72 bytes between heads
+    ]
+
+
+@pytest.mark.parametrize("case", range(len(_rows_cases())))
+def test_rows_aligned16(case):
+    t, want = _rows_cases()[case]
+    assert ops._rows_aligned16(t) is want
 
 
 def test_route_refuses_other_devices():
