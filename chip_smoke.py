@@ -74,6 +74,18 @@ Phases, each of which raises on a failed check (exit code != 0):
               launching the wgmma kernel once per layer (16), the mma
               kernel and every other kernel never, logits finite; wall,
               peak memory, device busy and idle share;
+9b. dryrun — ``launch.dryrun`` on the card's host, on fake CUDA tensors:
+              the dry-run of the full-width prefill at B=1, S=32768, world
+              1, against the card's run of it: each kernel's fake-route
+              calls == its launches, by route; the bytes the call
+              asked the allocator for at its peak (``requested_bytes``)
+              == predicted, exactly; the measured
+              ``max_memory_allocated`` over the call within [predicted,
+              predicted + the caching allocator's rounding: 511 B a
+              storage alive at once, 1 MiB more a large one]; then
+              llama3.2-1b ``train_4k`` as rank 0 of the 16 x 16 mesh over
+              the fake process group, and its paged serve cell at R = 1,
+              each record's seconds, peak, fit and roofline terms printed;
 10. serve_contiguous — ``launch.serve`` without ``--paged``: the
               contiguous-cache loop at full width with the reference's
               defaults (batch 4, cache 512, 16 tokens): logits finite,
@@ -165,8 +177,9 @@ Phases, each of which raises on a failed check (exit code != 0):
               norm bitwise; then one profiled step, with the peak;
 20. train_ring_zero1 — train_ring's checks for zero1, under deterministic
               algorithms (two ranks, full
-              width at ``ZERO1_RING_LAYERS`` = 4 layers (16 until the
-              tensor-parallel phases joined the script);
+              width at ``ZERO1_RING_LAYERS`` = 2 layers (16 until the
+              tensor-parallel phases joined the script, 4 until the dryrun
+              phase did);
               it runs right after the build, while this process holds
               nothing on the card, and every two-rank phase logs what the
               card holds before its ranks spawn): ``reduce_add``
@@ -193,7 +206,7 @@ Phases, each of which raises on a failed check (exit code != 0):
               writes and reads == group buckets x steps (18 at 16 layers),
               all bulk, the kernel step == the plain step bitwise; one
               profiled step, the peak;
-23. train_ring_fsdp — two fsdp ranks at 4 layers over the ring
+23. train_ring_fsdp — two fsdp ranks at 2 layers over the ring
               gather (``fsdp_gather="ring"`` on the CLI's step config),
               deterministic, right after train_ring_zero1 (which runs
               deterministic too): ``reduce_add`` (fp32 + bf16 -> fp32)
@@ -1028,13 +1041,13 @@ INT8_ARGS = ["--wire-codec", "int8"]
 # the same run with no --dp-mode: llama3.2-1b's own full-size default,
 # zero1, resolves.  Two zero1 ranks fit on the card at the model's full
 # depth with this phase's checks (33.4 GiB a rank at the peak on an 80 GB
-# H100); since the tensor-parallel phases joined the script the
-# two-rank zero1 and fsdp phases run at 4 layers (16 until then), to keep
-# the script well inside its time limit; the phase runs first, while this
-# process holds nothing there
+# H100); the two-rank zero1 and fsdp phases run at 2 layers since the
+# dryrun phase joined the script (4 since the tensor-parallel phases did,
+# 16 before), to keep the script well inside its time limit; the phase
+# runs first, while this process holds nothing there
 ZERO1_ARGS = [a for i, a in enumerate(TRAIN_ARGS)
               if "--dp-mode" not in TRAIN_ARGS[max(i - 1, 0):i + 1]]
-ZERO1_RING_LAYERS = 4
+ZERO1_RING_LAYERS = 2
 ZERO1_RING_ARGS = ZERO1_ARGS + ["--layers", str(ZERO1_RING_LAYERS)]
 ZERO1_INT8_ARGS = ZERO1_ARGS + ["--layers", "4"] + INT8_ARGS
 MANY_BLOCKS = 500_000      # the kernel checks' largest block count
@@ -4131,6 +4144,143 @@ def phase_prefill(dev) -> dict:
                         "port_kernels": {"launched": launched,
                                          "recorded": seen},
                         "top_device_ms": {k[:90]: v for k, v in top}}}
+
+
+DRYRUN_SERVE_PAGE_TOKENS = 16      # the serve suite's cell at R = 1
+
+
+def phase_dryrun(dev) -> dict:
+    """``repro_torch.launch.dryrun`` on the card's host.  First the dry-run
+    held against the card where one card runs the same program:
+    llama3.2-1b's full-width prefill at the prefill phase's timed shape
+    (B=1, S=32768), world 1, run on the card (one warm call first, then
+    ``reset_peak_memory_stats()``) and then traced on fake CUDA tensors.
+    The trace's peak of live storage less what was alive before it is held
+    to what the call asked the allocator for, exactly: the peak of
+    ``requested_bytes.all`` less its value before the call.  Second, and
+    printed beside it, ``max_memory_allocated()`` less
+    ``memory_allocated()`` before the call: the caching allocator rounds
+    every block up to 512 bytes and may hand out a large-pool block (above
+    1 MiB) with up to 1 MiB unsplit, so those bytes lie in [predicted,
+    predicted + 511 B x the most storages alive at once + 1 MiB x the most
+    large ones] (``dryrun.allocator_slack``).  Each kernel's fake-route
+    calls equal the real call's launches, by route, exactly.  Then two
+    full-width
+    cells traced as rank 0 of the 16 x 16 mesh over the fake process
+    group: llama3.2-1b ``train_4k`` and its paged serve cell at R = 1;
+    each record's seconds, peak, fit and three roofline terms printed."""
+    import gc
+
+    import torch
+
+    from repro_torch import fake
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model
+    from repro_torch.runtime.serve_step import build_prefill
+    from repro_torch.runtime.train_step import data_mesh
+
+    # the card's run of the prefill
+    shape = ShapeConfig("prefill_32k_b1", PREFILL_SEQ, 1, "prefill")
+    model = build_model(get_config(ARCH))
+    _check_full_width(model.cfg, 16, "dryrun")
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    prefill = build_prefill(model, shape, device=dev)
+    batch = {"tokens": torch.randint(0, model.cfg.vocab_size,
+                                     (1, PREFILL_SEQ), device=dev,
+                                     dtype=torch.int32)}
+    prefill(params, batch)                     # warm: the kernels, cuBLAS
+    torch.cuda.synchronize(dev)
+    gc.collect()
+    reset_launch_counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    alloc0 = torch.cuda.memory_allocated(dev)
+    asked0 = torch.cuda.memory_stats(dev)["requested_bytes.all.current"]
+    logits = prefill(params, batch)
+    torch.cuda.synchronize(dev)
+    measured = torch.cuda.max_memory_allocated(dev) - alloc0
+    requested = (torch.cuda.memory_stats(dev)["requested_bytes.all.peak"]
+                 - asked0)
+    launched, routes = launch_counters(), attn_routes()
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("[dryrun] the measured prefill's logits are "
+                             "not finite")
+    del logits, params, batch, prefill
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ... and its dry-run at world 1
+    t0 = time.perf_counter()
+    with dryrun.fake_mode():
+        traced = dryrun.trace_serve(build_model(get_config(ARCH)), shape,
+                                    data_mesh(1), "resident",
+                                    torch.device("cuda"))
+    trace_s = time.perf_counter() - t0
+    counts = traced["counts"]
+    predicted = (counts["peak_bytes"] - traced["state_bytes"]
+                 - traced["batch_bytes"])
+    slack = dryrun.allocator_slack(counts["max_storages"],
+                                   counts["max_large"])
+    fake_calls = {k.replace(".", "_"): v
+                  for k, v in counts["kernels"].items()}
+    real_calls = {k: v for k, v in launched.items() if v}
+    fake_routes = {k.split("/")[1]: v for k, v in counts["routes"].items()
+                   if k.startswith("flash_attn/")}
+    real_routes = {k: v for k, v in routes.items() if v}
+    log(f"[dryrun] {ARCH} prefill B=1 S={PREFILL_SEQ} at world 1: "
+        f"predicted peak {counts['peak_bytes']} B, of it {predicted} B "
+        f"during the call; requested of the allocator at most {requested} "
+        f"B (requested - predicted = {requested - predicted} B, held to "
+        f"0); max_memory_allocated - memory_allocated before: {measured} "
+        f"B (measured - predicted = {measured - predicted} B; the "
+        f"allocator's bound {slack} B: {counts['max_storages']} storages "
+        f"alive at most, {counts['max_large']} of them above 1 MiB; "
+        f"{gpu_line()}); traced in {trace_s:.1f} s")
+    log(f"[dryrun] fake-route calls {fake_calls} by route {fake_routes}; "
+        f"the card's launches {real_calls} by route {real_routes}")
+    if fake_calls != real_calls or fake_routes != real_routes:
+        raise AssertionError(f"[dryrun] fake-route calls {fake_calls} "
+                             f"{fake_routes} != launches {real_calls} "
+                             f"{real_routes}")
+    if requested != predicted:
+        raise AssertionError(f"[dryrun] requested {requested} B != "
+                             f"predicted {predicted} B")
+    if not predicted <= measured <= predicted + slack:
+        raise AssertionError(f"[dryrun] measured {measured} B outside "
+                             f"[{predicted}, {predicted + slack}] B")
+    out = {"prefill_world1": {
+        "predicted_peak_bytes": counts["peak_bytes"],
+        "predicted_call_bytes": predicted,
+        "requested_call_bytes": requested, "measured_call_bytes": measured,
+        "allocator_slack_bytes": slack,
+        "max_storages": counts["max_storages"],
+        "max_large": counts["max_large"], "trace_s": trace_s,
+        "fake_calls": fake_calls, "launches": real_calls,
+        "routes": real_routes}}
+
+    # two full-width cells at the 16 x 16 mesh
+    for what, fn in (
+            ("train_4k", lambda: dryrun.run_cell(ARCH, "train_4k", False)),
+            ("serve_r1", lambda: dryrun.run_serve_cell(
+                ARCH, DRYRUN_SERVE_PAGE_TOKENS, 1, reduced=False))):
+        rec = fn()
+        r, m = rec["roofline"], rec["memory"]
+        log(f"[dryrun] {ARCH} {what} on {rec['mesh']} ({rec['devices']} "
+            f"ranks, rank 0 traced on {dryrun.trace_device()}): "
+            f"{rec['trace_s']:.1f} s, peak {m['peak_gb']:.3f} GiB, fits "
+            f"{m['fits']} ({m['card_gb']:.2f} GiB card); T_compute "
+            f"{r['t_compute_s']:.6f} s, T_memory {r['t_memory_s']:.6f} s, "
+            f"T_collective {r['t_collective_s']:.6f} s; fake kernel calls "
+            f"{rec['kernels']}")
+        if not m["fits"] or not rec["kernels"]:
+            raise AssertionError(f"[dryrun] {what}: fits {m['fits']}, "
+                                 f"kernel calls {rec['kernels']}")
+        out[what] = {"trace_s": rec["trace_s"], "memory": m,
+                     "roofline": {k: r[k] for k in (
+                         "t_compute_s", "t_memory_s", "t_collective_s")},
+                     "kernels": rec["kernels"]}
+    fake.reset_fake_counts()
+    return out
 
 
 def phase_serve_contiguous(dev) -> dict:
@@ -7320,6 +7470,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     kernels_attn = run_phase("kernels_attn", phase_kernels_attn, dev)
     prefill = run_phase("prefill", phase_prefill, dev)
+    dryrun = run_phase("dryrun", phase_dryrun, dev)
     serve_contiguous = run_phase("serve_contiguous", phase_serve_contiguous,
                                  dev)
     timing_attn = run_phase("timing_attn", phase_timing_attn, dev)
@@ -7582,6 +7733,7 @@ def main() -> None:
              "kernels_int8": kernels_int8, "train_int8": train_int8,
              "train_ring_int8": train_ring_int8, "timing_int8": timing_int8,
              "kernels_attn": kernels_attn, "prefill": prefill,
+             "dryrun": dryrun,
              "serve_contiguous": serve_contiguous, "timing_attn": timing_attn,
              "train_zero1": train_zero1, "train_ring_zero1": train_ring_zero1,
              "train_ring_zero1_int8": train_ring_zero1_int8,

@@ -60,6 +60,7 @@ from repro_torch.core.p2p import (CommRecord, axis_rings,
                                   differentiable_all_to_all, joint_ring)
 from repro_torch.core.ring import LOCAL_OPS, RingConfig
 from repro_torch.core.topology import RankMesh, reduce_axes_of
+from repro_torch.fake import fake_mode_active
 
 if TYPE_CHECKING:  # repro_torch.mem imports comm.schedule: import it lazily
     from repro_torch.mem.arena import CommArena, QuantCommArena
@@ -282,8 +283,10 @@ class Communicator:
         """``fn()`` for every ``(rail, fn)`` of ``calls``, each rail's in
         their order: at ``channels >= 2`` on the rails' own threads and
         streams, all rails at once (:class:`RailExecutor`), else here, in
-        order.  Results in the order of ``calls``."""
-        if self._executor is None:
+        order.  Under a fake-tensor mode (the dry-run, which the rails'
+        threads would not see) always here, in order.  Results in the order
+        of ``calls``."""
+        if self._executor is None or fake_mode_active():
             return [fn() for _, fn in calls]
         return self._executor.run(calls, device)
 

@@ -35,6 +35,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.fake import address, count_fake, is_fake
 from repro_torch.kernels import LAUNCH_LOCK, _build
 from repro_torch.kernels.flash_attn import ref
 
@@ -109,7 +110,7 @@ def _rows_aligned16(t: torch.Tensor) -> bool:
     and its batch, head and sequence strides are multiples of 16 bytes on
     every axis longer than 1 (a zero stride is one)."""
     size = t.element_size()
-    return t.data_ptr() % _TMA_ALIGN == 0 and all(
+    return address(t) % _TMA_ALIGN == 0 and all(
         n == 1 or st * size % _TMA_ALIGN == 0
         for n, st in zip(t.shape[:3], t.stride()[:3]))
 
@@ -135,10 +136,12 @@ def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     one dtype: ``"wgmma"`` for bf16 whose layouts TMA takes
     (:func:`_tma_layout`), else ``"mma"``.  It reads only dtype, shape,
     strides and ``data_ptr()``, so CPU tensors are routed as the same
-    layout on the card would be; other devices, or q/k/v on more than one
-    device, raise."""
+    layout on the card would be, and fake tensors by their offsets in their
+    storages (:func:`repro_torch.fake.address`); other devices, or q/k/v
+    on more than one device, raise."""
     devs = {t.device for t in (q, k, v)}
-    if len(devs) != 1 or next(iter(devs)).type not in ("cuda", "cpu"):
+    if len(devs) != 1 or (next(iter(devs)).type not in ("cuda", "cpu")
+                          and not is_fake(q, k, v)):
         raise ValueError(f"route takes q/k/v on one cuda or cpu device, "
                          f"got {sorted(map(str, devs))}")
     if q.dtype == torch.bfloat16 and all(map(_tma_layout, (q, k, v))):
@@ -171,8 +174,8 @@ def _check(q, k, v, window, chunk) -> None:
                            "blockwise_attention)")
 
 
-def _launch(q, k, v, causal, window):
-    b, hq, s, d = q.shape
+def _kernel_checks(q, k, v) -> None:
+    d = q.shape[3]
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes head_dim in "
                          f"{HEAD_DIMS}, got {d}")
@@ -184,6 +187,24 @@ def _launch(q, k, v, causal, window):
         if t.stride(3) != 1:
             raise ValueError(f"flash_attention kernel needs {name} "
                              f"contiguous along D")
+
+
+def _fake_launch(q, k, v, causal, window):
+    """The fake route (:mod:`repro_torch.fake`): the kernel's output, and
+    nothing launched."""
+    _kernel_checks(q, k, v)
+    b, hq, s, d = q.shape
+    out = torch.empty((b, hq, s, d), dtype=q.dtype, device=q.device)
+    count_fake("flash_attn", route(q, k, v),
+               flops=attention_flops(b, hq, s, d, causal, window),
+               nbytes=sum(t.numel() * t.element_size() for t in (q, k, v,
+                                                                 out)))
+    return out
+
+
+def _launch(q, k, v, causal, window):
+    _kernel_checks(q, k, v)
+    b, hq, s, d = q.shape
     way = route(q, k, v)
     out = torch.empty((b, hq, s, d), dtype=q.dtype, device=q.device)
     # a window as long as the sequence masks nothing
@@ -222,6 +243,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Attention output (B, Hq, S, D) in q's dtype for q (B, Hq, S, D) over
     k/v (B, Hkv, S, D); q head ``h`` reads kv head ``h // (Hq/Hkv)``."""
     _check(q, k, v, window, chunk)
+    if is_fake(q, k, v):
+        return _fake_launch(q, k, v, causal, window)
     if q.device.type == "cpu":
         return ref.attention(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":

@@ -22,6 +22,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.fake import address, count_fake, is_fake
 from repro_torch.kernels import LAUNCH_LOCK, _build
 from repro_torch.kernels.flash_decode import ref
 
@@ -137,9 +138,17 @@ def _check(q, k, v, valid) -> None:
                          f"{tuple(valid.shape)}")
 
 
-def _launch(q, k, v, valid):
-    b, hq, _, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
+def decode_flops(b: int, hq: int, length: int, d: int) -> int:
+    """The function's work: 4*D flops (q.k and p.v, a multiply and an add
+    each) per (batch, q head, key) over all ``length`` keys, the valid and
+    the masked alike (the kernel scores every key it reads)."""
+    return 4 * b * hq * length * d
+
+
+def _kernel_checks(q, k, v, valid) -> torch.Tensor:
+    """Raises for what the kernel does not take; returns ``valid`` as the
+    kernel reads it (uint8)."""
+    d = q.shape[3]
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_decode kernel takes head_dim in {HEAD_DIMS}, "
                          f"got {d}")
@@ -153,13 +162,45 @@ def _launch(q, k, v, valid):
     for name, t in (("q", q), ("k", k), ("v", v), ("valid", valid)):
         if not t.is_contiguous():
             raise ValueError(f"flash_decode kernel needs contiguous {name}")
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
+    if address(k) % 16 or address(v) % 16:
         raise ValueError("flash_decode kernel needs 16-byte aligned k/v")
+    return valid
+
+
+def _outputs(q):
+    """``(acc, m, l)``: views of one fp32 allocation, as the kernel writes
+    them."""
+    b, hq, _, d = q.shape
     n = b * hq
     out = torch.empty((n * (d + 2),), dtype=torch.float32, device=q.device)
     acc = out[:n * d].view(b, hq, 1, d)
     m = out[n * d:n * (d + 1)].view(b, hq, 1, 1)
     l = out[n * (d + 1):].view(b, hq, 1, 1)
+    return acc, m, l
+
+
+def _fake_launch(q, k, v, valid):
+    """The fake route (:mod:`repro_torch.fake`): the kernel's outputs, and
+    nothing launched or read from the card (its route depends only on the
+    K/V dtype, not on the SM count)."""
+    valid = _kernel_checks(q, k, v, valid)
+    b, hq, _, d = q.shape
+    acc, m, l = _outputs(q)
+    way = launch_shape(b, hq, k.shape[1], k.shape[2], d, k.element_size(),
+                       1)[0]
+    count_fake("flash_decode", way,
+               flops=decode_flops(b, hq, k.shape[2], d),
+               nbytes=sum(t.numel() * t.element_size()
+                          for t in (q, k, v, valid))
+               + b * hq * (d + 2) * 4)
+    return acc, m, l
+
+
+def _launch(q, k, v, valid):
+    b, hq, _, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    valid = _kernel_checks(q, k, v, valid)
+    acc, m, l = _outputs(q)
     fn = _kernel_fn()
     route, hc, hw, _, splits = launch_shape(b, hq, hkv, sk, d,
                                             k.element_size(),
@@ -187,6 +228,8 @@ def flash_decode_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B,Hkv,L,D) with valid (B,L); q head ``h`` reads kv head
     ``h // (Hq/Hkv)``."""
     _check(q, k, v, valid)
+    if is_fake(q, k, v, valid):
+        return _fake_launch(q, k, v, valid)
     if q.device.type == "cpu":
         ke, ve = _expand_gqa(q, k, v)
         return ref.decode_stats(q, ke, ve, valid)

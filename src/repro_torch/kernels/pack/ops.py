@@ -11,6 +11,9 @@ copy takes one of two routes, chosen by :func:`route` before the launch:
 addresses are congruent mod 16 bytes, ``"vector"`` otherwise.  A read
 allocates its output congruent to the arena segment, so every read is a
 bulk copy.  For CPU tensors they run the plain versions in ``ref.py``.
+For fake tensors (the dry-run, :mod:`repro_torch.fake`) a write leaves the
+arena as it is and a read allocates the kernel's output; both count the
+call on its route and launch nothing.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.fake import address, count_fake, is_fake
 from repro_torch.kernels import LAUNCH_LOCK, _build
 from repro_torch.kernels.pack import ref
 
@@ -74,14 +78,16 @@ def route(dst: torch.Tensor, src: torch.Tensor) -> str:
     ``"bulk"`` when both have one dtype and their addresses
     (``data_ptr()``, a view's offset included) are congruent mod 16 bytes,
     else ``"vector"``.  It reads only dtypes and addresses, so CPU tensors
-    are routed as the same layout on the card would be; other devices, or
-    tensors on two devices, raise."""
+    are routed as the same layout on the card would be, and fake tensors
+    by their offsets in their storages (:func:`repro_torch.fake.address`);
+    other devices, or tensors on two devices, raise."""
     devs = {dst.device, src.device}
-    if len(devs) != 1 or dst.device.type not in ("cuda", "cpu"):
+    if len(devs) != 1 or (dst.device.type not in ("cuda", "cpu")
+                          and not is_fake(dst, src)):
         raise ValueError(f"route takes tensors on one cuda or cpu device, "
                          f"got {sorted(map(str, devs))}")
     if dst.dtype == src.dtype \
-            and (dst.data_ptr() - src.data_ptr()) % BULK_ALIGN == 0:
+            and (address(dst) - address(src)) % BULK_ALIGN == 0:
         return "bulk"
     return "vector"
 
@@ -93,7 +99,7 @@ def _empty_congruent(size: int, like: torch.Tensor) -> torch.Tensor:
     item = like.element_size()
     buf = torch.empty((size + BULK_ALIGN // item - 1,), dtype=like.dtype,
                       device=like.device)
-    shift = (like.data_ptr() - buf.data_ptr()) % BULK_ALIGN // item
+    shift = (address(like) - address(buf)) % BULK_ALIGN // item
     return buf[shift:shift + size]
 
 
@@ -131,6 +137,15 @@ def write_flat(arena: torch.Tensor, src: torch.Tensor,
     _check_arena(arena, offset, src.numel())
     if arena.device != src.device:
         raise ValueError(f"arena on {arena.device}, source on {src.device}")
+    if is_fake(arena, src):
+        _kernel_dtype(arena, "arena")
+        _kernel_dtype(src, "source")
+        n = src.numel()
+        if n:
+            count_fake("pack.write", route(arena[offset:offset + n], src),
+                       nbytes=n * (arena.element_size()
+                                   + src.element_size()))
+        return arena
     if arena.device.type == "cpu":
         return ref.write_flat(arena, src, offset)
     if arena.device.type != "cuda":
@@ -151,6 +166,14 @@ def write_flat(arena: torch.Tensor, src: torch.Tensor,
 def read_flat(arena: torch.Tensor, offset: int, size: int) -> torch.Tensor:
     """A fresh copy of ``arena[offset : offset + size]``."""
     _check_arena(arena, offset, size)
+    if is_fake(arena):
+        _kernel_dtype(arena, "arena")
+        segment = arena[offset:offset + size]
+        out = _empty_congruent(size, segment)
+        if size:
+            count_fake("pack.read", route(out, segment),
+                       nbytes=2 * size * arena.element_size())
+        return out
     if arena.device.type == "cpu":
         return ref.read_flat(arena, offset, size)
     if arena.device.type != "cuda":

@@ -6,7 +6,8 @@ Port of ``repro.kernels.reduce_add.ops``.  ``add_accum`` is the local
 hand-written kernel (``csrc/reduce_add.cu``) at any length, or raises for
 what the kernel does not take; unlike the reference there is no fallback to
 the plain version on the device.  For CPU tensors it runs the plain version,
-``ref.add_accum``.
+``ref.add_accum``.  For fake tensors (the dry-run, :mod:`repro_torch.fake`)
+it allocates the kernel's output and counts the call, launching nothing.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.fake import count_fake, is_fake
 from repro_torch.kernels import LAUNCH_LOCK, _build
 from repro_torch.kernels.reduce_add import ref
 
@@ -45,7 +47,7 @@ def _kernel_fn():
     return fn
 
 
-def _launch(a, b, out_dtype):
+def _kernel_checks(a, b, out_dtype) -> None:
     for name, t in (("a", a), ("b", b)):
         if t.dtype not in DTYPE_CODES:
             raise TypeError(f"reduce_add kernel takes float32/bfloat16, got "
@@ -55,6 +57,22 @@ def _launch(a, b, out_dtype):
     if out_dtype not in DTYPE_CODES:
         raise TypeError(f"reduce_add kernel writes float32/bfloat16, got "
                         f"{out_dtype}")
+
+
+def _fake_launch(a, b, out_dtype):
+    """The fake route (:mod:`repro_torch.fake`): the kernel's output, and
+    nothing launched."""
+    _kernel_checks(a, b, out_dtype)
+    out = torch.empty(a.shape, dtype=out_dtype, device=a.device)
+    if a.numel():
+        count_fake("reduce_add", flops=a.numel(),
+                   nbytes=a.numel() * (a.element_size() + b.element_size()
+                                       + out.element_size()))
+    return out
+
+
+def _launch(a, b, out_dtype):
+    _kernel_checks(a, b, out_dtype)
     out = torch.empty(a.shape, dtype=out_dtype, device=a.device)
     if a.numel() == 0:
         return out
@@ -83,6 +101,11 @@ def add_accum(a: torch.Tensor, b: torch.Tensor, *,
                          f"{tuple(b.shape)}")
     if a.device != b.device:
         raise ValueError(f"a on {a.device}, b on {b.device}")
+    if is_fake(a, b):
+        if accum_dtype != torch.float32:
+            raise TypeError(f"reduce_add kernel accumulates in float32, got "
+                            f"{accum_dtype}")
+        return _fake_launch(a, b, out_dtype)
     if a.device.type == "cpu":
         return ref.add_accum(a, b, accum_dtype=accum_dtype,
                              out_dtype=out_dtype)

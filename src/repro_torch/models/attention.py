@@ -21,6 +21,7 @@ import math
 import torch
 
 from repro_torch.configs.base import AttnConfig
+from repro_torch.fake import host_values
 from repro_torch.kernels.flash_attn import flash_attention
 from repro_torch.models.common import apply_rope, dense, dense_init
 from repro_torch.models.parallel import (SINGLE, ParallelCtx,
@@ -101,11 +102,13 @@ def _kernel_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n_real = max(0, min(cfg.num_heads - first, hq))
     if n_real == 0:
         return None
-    idx = _kv_index(cfg, first, n_real, "cpu")
-    lo, hi = int(idx[0]), int(idx[-1]) + 1
-    group = n_real // (hi - lo)
-    if group * (hi - lo) == n_real and torch.equal(
-            idx, lo + torch.arange(n_real) // group):
+    with host_values():              # the map's values, on the host
+        idx = _kv_index(cfg, first, n_real, "cpu")
+        lo, hi = int(idx[0]), int(idx[-1]) + 1
+        group = n_real // (hi - lo)
+        uniform = group * (hi - lo) == n_real and torch.equal(
+            idx, lo + torch.arange(n_real) // group)
+    if uniform:
         return q[:, :n_real], k[:, lo:hi], v[:, lo:hi]
     idx = idx.to(k.device)
     return q[:, :n_real], k.index_select(1, idx), v.index_select(1, idx)

@@ -19,6 +19,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec, transformer
 from repro_torch.models.parallel import SINGLE, ParallelCtx
+from repro_torch.refusal import Refusal
 
 VOCAB_PAD_TO = 128
 
@@ -73,7 +74,7 @@ class Model:
         (0 for an encoder-decoder stack, which has no MoE layer)."""
         if self.is_encdec:
             if block_resolver is not None:
-                raise NotImplementedError(
+                raise Refusal(
                     "FSDP block_resolver is decoder-only; enc-dec archs use "
                     "tp/zero1 sharding")
             if stats_out is not None:
@@ -97,7 +98,7 @@ class Model:
         (their positions included)."""
         if self.is_encdec:
             if block_resolver is not None:
-                raise NotImplementedError(
+                raise Refusal(
                     "FSDP block_resolver is decoder-only")
             return encdec.forward(params, batch["frames"], batch["tokens"],
                                   self.cfg, ctx=ctx, causal_skip=causal_skip,
@@ -137,7 +138,7 @@ class Model:
                     block_resolver=None) -> tuple[torch.Tensor, list]:
         if self.is_encdec:
             if block_resolver is not None:
-                raise NotImplementedError(
+                raise Refusal(
                     "FSDP block_resolver is decoder-only")
             return encdec.decode_step(params, token, state, pos, self.cfg,
                                       ctx=ctx)

@@ -63,7 +63,7 @@ class ByteCounter(TorchDispatchMode):
         return out
 
 
-def _records(step) -> list:
+def step_records(step) -> list:
     """``(record, axis size)`` of every communicator the step records into:
     the data axis's (its ring and joint group), the model axis's and the
     EP communicator's."""
@@ -127,7 +127,7 @@ def count_step(step, state: dict, batch: dict) -> dict:
     cpu_rng = torch.get_rng_state()
     cuda_rng = (torch.cuda.get_rng_state(dev) if dev.type == "cuda"
                 else None)
-    records = _records(step)
+    records = step_records(step)
     saved = [rec.as_dict() for rec, _ in records]
     for rec, _ in records:
         rec.reset()
@@ -158,7 +158,7 @@ def step_wire(step, before: list[dict]) -> tuple[float, float]:
     """``(messages, wire_bytes)`` the step's records gained since
     ``before`` (:func:`record_snapshot`), in the prediction's units."""
     messages = wire = 0.0
-    for (rec, p), old in zip(_records(step), before):
+    for (rec, p), old in zip(step_records(step), before):
         now = rec.as_dict()
         m, b = record_wire({k: now[k] - old[k] for k in now}, p)
         messages += m
@@ -168,7 +168,7 @@ def step_wire(step, before: list[dict]) -> tuple[float, float]:
 
 def record_snapshot(step) -> list[dict]:
     """The step's records as they stand (for :func:`step_wire`)."""
-    return [rec.as_dict() for rec, _ in _records(step)]
+    return [rec.as_dict() for rec, _ in step_records(step)]
 
 
 def predict_step_time(step_fn, example_args, *,

@@ -51,6 +51,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.model_api import Model
 from repro_torch.models.parallel import SINGLE, ParallelCtx, make_ctx
+from repro_torch.refusal import Refusal
 from repro_torch.runtime.train_step import (FsdpPlan, TrainStepConfig,
                                             data_mesh, model_size_of)
 from repro_torch.sharding.rules import (decode_state_specs, local_shapes,
@@ -71,7 +72,7 @@ def _require_decoder_only(cfg, what: str) -> None:
     hybrid state, audio or vision front ends) is refused when the step is
     built, as the reference refuses it."""
     if cfg.family not in ("dense", "moe") or cfg.frontend is not None:
-        raise NotImplementedError(
+        raise Refusal(
             f"gathered {what} is decoder-only: family={cfg.family!r} "
             f"frontend={cfg.frontend!r} is not supported (use "
             f"weight_mode='resident')")
@@ -158,7 +159,7 @@ def _encdec_state(model: Model, shape_cfg: ShapeConfig, mesh: RankMesh,
         raise ValueError(f"{model.cfg.name}: an encoder-decoder's decode "
                          f"state runs the encoder: pass params and frames")
     if model_size_of(mesh) > 1 and shape_cfg.seq_len >= 8192:
-        raise NotImplementedError(
+        raise Refusal(
             f"{model.cfg.name}: a cache of {shape_cfg.seq_len} slots would "
             f"be sequence-sharded, which the encoder-decoder's decode step "
             f"does not score")

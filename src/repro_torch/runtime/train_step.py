@@ -14,7 +14,7 @@ transport, issuing each bucket at its :class:`CommSchedule` slot.
   decoupled weight decay.  The same wire volume as the all-reduce; the
   optimizer memory falls by the data world size.  The global gradient
   norm is the shards' weighted sum of squares, all-reduced once over data
-  and once over the model axis (:func:`build_norm_weights`: the arena's
+  and once over the model axis (:func:`norm_weight_runs`: the arena's
   page padding weighs 0, a model-replicated field ``1/model_size``).
 
 Tensor parallelism: over a ``("data", "model")`` mesh (``"pod"`` may lead)
@@ -68,6 +68,7 @@ metric, averaged over the data axes, next to the loss in every mode.
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
+from functools import cached_property
 from typing import Sequence
 
 import torch
@@ -81,6 +82,7 @@ from repro_torch.core.bucketing import BucketPlan
 from repro_torch.core.p2p import CommRecord, RingAxis
 from repro_torch.core.reducer import ReduceConfig
 from repro_torch.core.topology import RankMesh
+from repro_torch.fake import is_fake
 from repro_torch.mem.arena import CommArena, QuantCommArena
 from repro_torch.mem.layout import (ArenaLayout, QuantArenaLayout, plan_arena,
                                     plan_quant_arena)
@@ -91,6 +93,7 @@ from repro_torch.optim import (OptimConfig, adamw_flat_update,
                                adamw_tree_update, clip_factor,
                                global_grad_norm, init_opt_state,
                                init_opt_state_flat, make_schedule)
+from repro_torch.refusal import Refusal
 from repro_torch.sharding.rules import (MODEL_AXIS, is_model_sharded,
                                         local_shapes, local_shard, map_specs,
                                         spec_leaves)
@@ -249,23 +252,78 @@ def _slice_like_shard(w: torch.Tensor,
     return w[start:stop]
 
 
-def zero1_norm_ranges(weights: Sequence[torch.Tensor],
-                      rings: Sequence[RingAxis]) -> tuple[list, list]:
-    """Per zero1 shard, the runs of one value of its norm weight vector
-    (``weights``: :func:`build_norm_weights`, under the arena
-    :func:`build_span_norm_weights`) sliced like this rank's shard: the
-    shard-local ranges and their values, the runs of 0 (page padding) left
-    out.  The step sums the squares over these ranges, so that no weight
-    vector lives beside the shards."""
+Runs = list[tuple[int, int, float]]
+
+
+def norm_weight_runs(plan: BucketPlan, specs_flat: Sequence | None = None,
+                     model_size: int = 1) -> list[Runs]:
+    """:func:`build_norm_weights` as runs ``(start, stop, value)`` covering
+    each bucket, read from the plan's fields without building the vector
+    (nor reading one: the dry-run's fake tensors hold no values)."""
+    rep_w = float(torch.tensor(1.0 / max(model_size, 1),
+                               dtype=torch.float32, device="cpu"))
+    sharded: list[list[tuple[int, int]]] = [[] for _ in plan.bucket_sizes]
+    if specs_flat is not None:
+        for f in plan.fields:
+            if is_model_sharded(specs_flat[f.leaf]):
+                sharded[f.bucket].append((f.offset, f.offset + f.size))
+    out = []
+    for n, ones in zip(plan.bucket_sizes, sharded):
+        runs, at = [], 0
+        for a, z in sorted(ones):
+            if at < a:
+                runs.append((at, a, rep_w))
+            runs.append((a, z, 1.0))
+            at = z
+        if at < n:
+            runs.append((at, n, rep_w))
+        out.append(runs)
+    return out
+
+
+def span_norm_weight_runs(layout: ArenaLayout | QuantArenaLayout,
+                          bucket_runs: Sequence[Runs]) -> list[Runs]:
+    """:func:`build_span_norm_weights` as runs: each span's buckets' runs at
+    their offsets in the span, 0 on the page padding."""
+    out = []
+    for sp in layout.spans:
+        runs, at = [], 0
+        for b in sp.buckets:
+            off = layout.segment_of(b).offset - sp.offset
+            if at < off:
+                runs.append((at, off, 0.0))
+            runs += [(off + a, off + z, v) for a, z, v in bucket_runs[b]]
+            at = runs[-1][1] if runs else at
+        if at < sp.size:
+            runs.append((at, sp.size, 0.0))
+        out.append(runs)
+    return out
+
+
+def norm_ranges_from_runs(weight_runs: Sequence[Runs],
+                          rings: Sequence[RingAxis]) -> tuple[list, list]:
+    """Per zero1 shard, the runs of one value of its norm weights
+    (``weight_runs``: :func:`norm_weight_runs`, under the arena
+    :func:`span_norm_weight_runs`) cut to this rank's shard: the
+    shard-local ranges and their values, equal neighbours merged, the runs
+    of 0 (page padding) left out.  The step sums the squares over these
+    ranges, so that no weight vector lives beside the shards."""
     all_ranges, all_values = [], []
-    for w in weights:
-        s = _slice_like_shard(w, rings)
-        cuts = (torch.nonzero(s[1:] != s[:-1]).flatten() + 1).tolist()
-        bounds = [0, *cuts, s.numel()]
-        runs = [(a, z, s[a].item()) for a, z in zip(bounds, bounds[1:])
-                if a < z and s[a] != 0]
-        all_ranges.append([(a, z) for a, z, _ in runs])
-        all_values.append([v for _, _, v in runs])
+    for runs in weight_runs:
+        n = runs[-1][1] if runs else 0
+        start, stop = _owned_range(n, rings)
+        merged: Runs = []
+        for a, z, v in runs:
+            a, z = max(a, start) - start, min(z, stop) - start
+            if a >= z:
+                continue
+            if merged and merged[-1][2] == v and merged[-1][1] == a:
+                merged[-1] = (merged[-1][0], z, v)
+            else:
+                merged.append((a, z, v))
+        kept = [(a, z, v) for a, z, v in merged if v != 0]
+        all_ranges.append([(a, z) for a, z, _ in kept])
+        all_values.append([v for _, _, v in kept])
     return all_ranges, all_values
 
 
@@ -282,8 +340,8 @@ class FsdpPlan:
     collective (every rank builds its plans in the same order).  Under
     ``use_arena`` the arena layout holds one segment per group-bucket shard,
     in the sorted-name order in which the gradient tree flattens: fp32, or
-    the int8 layout under a wire codec.  :attr:`norm_weights` holds, per
-    group, :func:`build_norm_weights` of its buckets.
+    the int8 layout under a wire codec.  :attr:`norm_runs` holds, per
+    group, :func:`norm_weight_runs` of its buckets.
     """
 
     def __init__(self, model: Model, mesh: RankMesh, cfg: TrainStepConfig,
@@ -293,7 +351,7 @@ class FsdpPlan:
                              f"got {cfg.fsdp_gather!r}")
         if model.is_encdec:
             # the reference's Model.loss_fn refuses the block resolver
-            raise NotImplementedError(
+            raise Refusal(
                 f"{model.cfg.name}: FSDP block_resolver is decoder-only; "
                 f"enc-dec archs use tp/zero1 sharding")
         self.model = model
@@ -339,12 +397,21 @@ class FsdpPlan:
                 self.arena_layout = plan_arena(
                     sizes, page_bytes=self.comm.cfg.page_bytes,
                     dtype=torch.float32)
-        model_size = model_size_of(mesh)
-        self.norm_weights = {
-            name: build_norm_weights(
+        self.model_size = model_size_of(mesh)
+        self.norm_runs = {
+            name: norm_weight_runs(
                 self.plans[name],
-                spec_leaves(self._group_of(self.specs, name)), model_size)
+                spec_leaves(self._group_of(self.specs, name)),
+                self.model_size)
             for name in self.groups}
+
+    @cached_property
+    def norm_weights(self) -> dict[str, list[torch.Tensor]]:
+        """Per group, :func:`build_norm_weights` of its buckets: the vectors
+        :attr:`norm_runs` describe."""
+        return {name: build_norm_weights(
+            self.plans[name], spec_leaves(self._group_of(self.specs, name)),
+            self.model_size) for name in self.groups}
 
     def _group_of(self, tree, name: str):
         kind, _, idx = name.partition(".")
@@ -412,9 +479,9 @@ class TrainStep:
     every rank of the mesh builds its steps in the same order.  Under
     ``zero1`` it also holds the shard sizes of the optimizer state (one per
     bucket, or one per arena span) and, per shard, the ranges that count in
-    the gradient norm (:func:`zero1_norm_ranges`).  Under ``fsdp`` it holds
-    the :class:`FsdpPlan` (:attr:`fsdp`), whose communicator is the step's,
-    and the same ranges of the plan's norm weights, per group-bucket shard
+    the gradient norm (:func:`norm_ranges_from_runs`).  Under ``fsdp`` it
+    holds the :class:`FsdpPlan` (:attr:`fsdp`), whose communicator is the
+    step's, and the same ranges of the plan's norm runs, per group-bucket shard
     in sorted group order.  On a model axis the context's model-axis
     collectives record into :attr:`model_record`, and the EP all-to-alls
     of MoE layers into ``moe_comm.record`` (:attr:`moe_comm`, the
@@ -466,9 +533,9 @@ class TrainStep:
                           else CommArena(lay, impl=self.comm.cfg.local_op))
             self.schedule = _fsdp_schedule(self.fsdp, cfg.microbatches)
             rings = tuple(reversed(self.comm.transport.rails[0].axes))
-            self.norm_ranges, self.norm_weights = zero1_norm_ranges(
-                [w for name in sorted(self.fsdp.groups)
-                 for w in self.fsdp.norm_weights[name]], rings)
+            self.norm_ranges, self.norm_weights = norm_ranges_from_runs(
+                [r for name in sorted(self.fsdp.groups)
+                 for r in self.fsdp.norm_runs[name]], rings)
             return
         self.comm = Communicator(mesh, cfg.comm_config(("pod", "data")))
         self.ranks = self._checkpoint_ranks()
@@ -497,13 +564,12 @@ class TrainStep:
             self.shard_sizes = [n // world for n in (
                 [sp.size for sp in lay.spans] if lay is not None
                 else self.plan.bucket_plan.bucket_sizes)]
-            weights = build_norm_weights(self.plan.bucket_plan,
-                                         spec_leaves(self.specs),
-                                         self.model_size)
+            runs = norm_weight_runs(self.plan.bucket_plan,
+                                    spec_leaves(self.specs), self.model_size)
             if lay is not None:
-                weights = build_span_norm_weights(lay, weights)
-            self.norm_ranges, self.norm_weights = zero1_norm_ranges(weights,
-                                                                    rings)
+                runs = span_norm_weight_runs(lay, runs)
+            self.norm_ranges, self.norm_weights = norm_ranges_from_runs(
+                runs, rings)
 
     @property
     def data_index(self) -> int:
@@ -519,14 +585,16 @@ class TrainStep:
     def local_params(self, params):
         """This rank's block of a full parameter tree (``params`` itself
         without a model axis; a leaf split over the model axis is copied,
-        so that the full tree can be freed)."""
+        so that the full tree can be freed; abstract ``meta`` leaves stay
+        views, and the dry-run's fake ones are copied as real ones are)."""
         if self.model_size == 1:
             return params
         rank = self.comm.rank
         local = local_shard(params, self.specs, self.mesh, rank)
         return tree_util.tree_map(
-            lambda blk, full: blk if blk.shape == full.shape or
-            blk.device.type == "meta" else blk.clone(), local, params)
+            lambda blk, full: blk if blk.shape == full.shape or (
+                blk.device.type == "meta" and not is_fake(blk))
+            else blk.clone(), local, params)
 
     def _checkpoint_ranks(self) -> RankShards:
         """This rank's place in the global arrays of a checkpoint and the
@@ -554,10 +622,12 @@ class TrainStep:
         world = self.comm.world
         if self.mesh.size != dist.get_world_size() or block != rank or \
                 _owned_range(world, rings) != (data_block, data_block + 1):
-            raise NotImplementedError(
+            raise Refusal(
                 "checkpoints need the mesh laid out in rank order, with the "
                 "data ring's ownership following the data coordinate")
-        group = (None if dist.get_backend() == "gloo"
+        # gloo serves as it is; the dry-run's "fake" backend saves nothing
+        backend = str(dist.get_backend())
+        group = (None if backend == "gloo" or "fake" in backend
                  else dist.new_group(backend="gloo"))
         return RankShards(rank, self.mesh.size, group,
                           self.mesh if self.model_size > 1 else None)

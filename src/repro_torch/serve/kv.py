@@ -32,6 +32,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.mem.layout import (PAGE_BYTES, ArenaLayout, dtype_name,
                                     plan_arena)
+from repro_torch.refusal import Refusal
 
 
 def kv_page_payload_elems(cfg: ModelConfig, page_tokens: int) -> int:
@@ -49,13 +50,13 @@ def _require_pageable(cfg: ModelConfig) -> None:
     """
     if cfg.attn is None or cfg.family not in ("dense", "moe") \
             or cfg.frontend is not None or cfg.enc_layers:
-        raise NotImplementedError(
+        raise Refusal(
             f"paged KV serving is decoder-only (family={cfg.family!r}, "
             f"frontend={cfg.frontend!r})")
     for i in range(cfg.num_layers):
         kind = cfg.layer_kind(i)
         if kind["mixer"] != "attn" or not kind.get("attn_global", True):
-            raise NotImplementedError(
+            raise Refusal(
                 f"paged KV serving needs global attention at every layer; "
                 f"layer {i} is {kind['mixer']}/local (window={cfg.attn.window}, "
                 f"chunk={cfg.attn.chunk})")

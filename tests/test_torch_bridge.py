@@ -164,14 +164,18 @@ def test_scan_covers_the_tooling_modules():
 
 
 def test_scan_covers_the_rails_and_the_reducer_shim():
-    """The last slice's modules are scanned too (every port source is:
+    """The last slices' modules are scanned too (every port source is:
     nothing of the reference's package is left without a counterpart but
-    what ROADMAP.md excludes by design), and the rank jobs of its tests
-    import no JAX."""
+    what ROADMAP.md excludes by design, the JAX version shims of
+    ``compat.py``), and the rank jobs of its tests import no JAX."""
     scanned = {p.relative_to(REPO).as_posix() for p in _port_sources()}
     for path in ("src/repro_torch/comm/rails.py",
                  "src/repro_torch/core/reducer.py",
-                 "src/repro_torch/core/__init__.py"):
+                 "src/repro_torch/core/__init__.py",
+                 "src/repro_torch/launch/dryrun.py",
+                 "src/repro_torch/launch/perf.py",
+                 "src/repro_torch/launch/report.py",
+                 "src/repro_torch/fake.py"):
         assert path in scanned, path
     jobs = (REPO / "tests" / "torch_rails_jobs.py").read_text()
     assert not re.search(r"^\s*(import|from)\s+(jax|repro)\b", jobs, re.M)
@@ -184,8 +188,7 @@ def test_scan_covers_the_rails_and_the_reducer_shim():
     for m in pallas:
         assert list((REPO / "src" / "repro_torch" / m).parent.glob(
             "csrc/*.cu")), m
-    assert missing - pallas == {"compat.py", "launch/dryrun.py",
-                                "launch/perf.py", "launch/report.py"}
+    assert missing - pallas == {"compat.py"}
 
 
 def _host_only_sources():

@@ -257,16 +257,18 @@ def test_model_axis_collectives_are_the_same_on_every_rank(run):
 @pytest.mark.parametrize("arena", [False, True])
 @pytest.mark.parametrize("index", [0, 1])
 def test_zero1_norm_ranges_weigh_as_build_norm_weights(arena, index):
-    """The zero1 norm's ranges and weights (the step's, read once off the
-    weight vectors) are :func:`build_norm_weights` (and the span weights)
-    sliced like this rank's shard, on the (2, 2) mesh's local shapes: 1.0
-    on model-sharded fields, 0.5 on replicated ones, 0 on page padding."""
+    """The zero1 norm's ranges and weights (the step's, read off the plan's
+    runs) are :func:`build_norm_weights` (and the span weights) sliced like
+    this rank's shard, on the (2, 2) mesh's local shapes: 1.0 on
+    model-sharded fields, 0.5 on replicated ones, 0 on page padding."""
     from repro_torch.comm import CommConfig, Communicator
     from repro_torch.runtime.train_step import (_slice_like_shard,
                                                 abstract_params,
                                                 build_norm_weights,
                                                 build_span_norm_weights,
-                                                zero1_norm_ranges)
+                                                norm_ranges_from_runs,
+                                                norm_weight_runs,
+                                                span_norm_weight_runs)
     from repro_torch.sharding.rules import is_model_sharded, local_shard
 
     model = build_model(reduced_config("llama3.2-1b"))
@@ -275,14 +277,17 @@ def test_zero1_norm_ranges_weigh_as_build_norm_weights(arena, index):
     comm = Communicator(MESH, CommConfig(**STEP_KW["comm"]), connect=False)
     plan = comm.bucketer.plan(local)
     weights = build_norm_weights(plan, spec_leaves(specs), 2)
+    runs = norm_weight_runs(plan, spec_leaves(specs), 2)
     for f in plan.fields:
         want = 1.0 if is_model_sharded(spec_leaves(specs)[f.leaf]) else 0.5
         got = weights[f.bucket][f.offset:f.offset + f.size]
         assert torch.all(got == want)
     if arena:
-        weights = build_span_norm_weights(comm.arena_layout(local), weights)
+        layout = comm.arena_layout(local)
+        weights = build_span_norm_weights(layout, weights)
+        runs = span_norm_weight_runs(layout, runs)
     rings = (SimpleNamespace(size=2, index=index),)
-    ranges, ws = zero1_norm_ranges(weights, rings)
+    ranges, ws = norm_ranges_from_runs(runs, rings)
     assert {w for r in ws for w in r} == {1.0, 0.5}
     for w, rs, rw in zip(weights, ranges, ws):
         want = _slice_like_shard(w, rings)

@@ -99,8 +99,14 @@ def _numpy_groups(groups) -> dict:
             for name, shards in groups.items()}
 
 
-def _train(rank, world, leaves, case, steps, step_kw, data) -> dict:
-    """One case's fsdp run from the bridged parameter leaves."""
+def _train(rank, world, leaves, case, steps, step_kw, data,
+           at_weights=None) -> dict:
+    """One case's fsdp run from the bridged parameter leaves.  Besides the
+    run's results it keeps the shards that entered the last step
+    (``"pre_last"``).  With ``at_weights`` (``{group: [global buckets]}``)
+    it then takes the last step once more from this rank's shards of those
+    weights, and returns that step's loss (``"loss_at"``); the record and
+    the results above are taken before it."""
     import torch
 
     from repro_torch import bridge
@@ -120,18 +126,37 @@ def _train(rank, world, leaves, case, steps, step_kw, data) -> dict:
     step.comm.record.reset()
     losses, norms = [], []
     for s in range(steps):
+        if s == steps - 1:
+            pre_last = {"groups": state["groups"], "opt": state["opt"],
+                        "step": state["step"]}
+            pre_last_np = _numpy_groups(state["groups"])
         state, metrics = step(state, shard_batch(data.batch_at(s), rank,
                                                  world))
         losses.append(float(metrics["loss"]))
         norms.append(float(metrics["grad_norm"]))
-    return {"plan": _plan_record(step), "init": init,
+    out = {"plan": _plan_record(step), "init": init,
             "loss": np.array(losses), "grad_norm": np.array(norms),
             "groups": _numpy_groups(state["groups"]),
             "mu": _numpy_groups(state["opt"]["mu"]),
             "nu": _numpy_groups(state["opt"]["nu"]),
             "stable": ptr is None or state["arena"].data_ptr() == ptr,
             "record": step.comm.record.as_dict(),
-            "predicted": fsdp_prediction(step, steps)}
+            "predicted": fsdp_prediction(step, steps),
+            "pre_last": pre_last_np}
+    if at_weights is not None:
+        groups = {}
+        for name, fulls in at_weights.items():
+            groups[name] = []
+            for full, mine in zip(fulls, pre_last["groups"][name]):
+                n = full.size // world
+                groups[name].append(torch.from_numpy(np.ascontiguousarray(
+                    full[rank * n:(rank + 1) * n])).to(mine.dtype))
+        again = dict(state, groups=groups, opt=pre_last["opt"],
+                     step=pre_last["step"])
+        _, metrics = step(again, shard_batch(data.batch_at(steps - 1), rank,
+                                             world))
+        out["loss_at"] = float(metrics["loss"])
+    return out
 
 
 def _gather_flat_checks(rank: int, world: int) -> dict:
@@ -211,9 +236,11 @@ def _gathered_serve(rank: int, world: int, leaves: list, serve_kw: dict
 
 
 def fsdp_job(rank: int, world: int, leaves: list, cases: dict, steps: int,
-             step_kw: dict, policies: list, serve_kw: dict) -> dict:
+             step_kw: dict, policies: list, serve_kw: dict,
+             at_weights: dict | None = None) -> dict:
     """Every 2-rank check of ``test_torch_fsdp.py`` in one spawn: each
-    case's run (:func:`_train`), the native gather's run under each of
+    case's run (:func:`_train`, its last step taken again from
+    ``at_weights[case]`` where given), the native gather's run under each of
     ``policies`` for 2 steps, the :func:`_gather_flat_checks` and the
     gathered serving steps."""
     from repro_torch.data import DataConfig, SyntheticTokens
@@ -222,8 +249,9 @@ def fsdp_job(rank: int, world: int, leaves: list, cases: dict, steps: int,
     data = SyntheticTokens(DataConfig(vocab_size=model.cfg.vocab_size,
                                       seq_len=step_kw["seq"],
                                       global_batch=step_kw["batch"]))
+    at_weights = at_weights or {}
     out = {"cases": {name: _train(rank, world, leaves, case, steps, step_kw,
-                                  data)
+                                  data, at_weights.get(name))
                      for name, case in cases.items()}}
     out["policies"] = {
         policy: _train(rank, world, leaves,
